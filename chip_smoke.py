@@ -1,0 +1,449 @@
+#!/usr/bin/env python3
+"""Prove the PyTorch/CUDA port (``src/repro_torch``) runs its main path on
+one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the root of a checkout; one GPU
+
+Phases, each fatal on failure (nonzero exit, no result line):
+
+1. card check -- CUDA must be available; prints ``name, power.limit``;
+2. build -- compiles every CUDA kernel from ``src/repro_torch/csrc`` with
+   nvcc for sm_90a and prints the ``-Xptxas -v`` report;
+3. kernel checks -- each kernel against its plain PyTorch version on the
+   card, at every distinct shape of one EfficientViT-B1 R224 forward at
+   batch 8, with kernel / plain / library device times (CUDA graphs timed
+   by CUDA events) and the card's least time for the same work;
+4. main path -- ``init`` at full B1 R224 width, ``recipe.quantize(...,
+   "m2q-w8a8")`` with synthesized calibration, ``serve(max_batch=8)``,
+   12 submitted images polled to completion; checks the logits, the
+   launch counters (42 m2q / 20 dwconv / 14 attention launches per
+   forward, 0 plain calls) and the logits against a plain-version forward
+   of the same batches on the card; times the batch-8 forward (eager, in a
+   CUDA graph, plain) and traces it with torch.profiler.
+
+It then prints one JSON line with every kernel's numbers and, last, the
+``{"ok": true, "device": ...}`` line.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from collections import Counter
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12     # outside the tensor cores
+
+BATCH = 8
+N_IMAGES = 12
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of ``fn`` in ms over ``iters`` back-to-back eager calls
+    (CUDA events): device time plus whatever launch gaps the host leaves."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one ``fn`` call in ms: ``iters`` calls captured in a
+    CUDA graph, replayed ``reps`` times between CUDA events, so host launch
+    overhead is out of the measurement."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def device_profile(fn, iters: int = 3, top: int = 8) -> dict:
+    """Trace ``iters`` eager calls of ``fn`` with torch.profiler: device
+    busy ms per call (kernels on one stream do not overlap), the busy share
+    of the traced span (deflated: the profiler slows the host's launches),
+    and the kernels that took the most device time.  Empty when the trace
+    holds no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return {}
+    busy = sum(e.time_range.elapsed_us() for e in kern)
+    span = (max(e.time_range.end for e in kern)
+            - min(e.time_range.start for e in kern))
+    by_name = Counter()
+    for e in kern:
+        by_name[e.name] += e.time_range.elapsed_us()
+    ranked = by_name.most_common(top)
+    return {"busy_share_profiled": busy / span,
+            "span_ms": span / 1e3 / iters,
+            "busy_ms": busy / 1e3 / iters,
+            "kernels_per_call": len(kern) // iters,
+            "top_ms_per_call": {n[:90]: t / 1e3 / iters for n, t in ranked}}
+
+
+def main_path_calls(cfg, batch: int):
+    """Every kernel call of one forward, in order: m2q (path, M, K, N),
+    dwconv (path, B, H, W, C, k, stride), attention (B, N, heads, D)."""
+    r = -(-cfg.img_res // 2)  # after the stride-2 stem
+    m2q, dw, attn = [], [], []
+    cin = cfg.widths[0]
+    for si, (w, d) in enumerate(zip(cfg.widths, cfg.depths)):
+        for bi in range(d):
+            stride = 2 if (bi == 0 and si > 0) else 1
+            p = f"stages/{si}/{bi}"
+            mid = cin * 4
+            m2q.append((f"{p}/mb/w_pw1", batch * r * r, cin, mid))
+            dw.append((f"{p}/mb/w_dw", batch, r, r, mid, 3, stride))
+            r = -(-r // stride)
+            m2q.append((f"{p}/mb/w_pw2", batch * r * r, mid, w))
+            if si >= len(cfg.widths) - 2:
+                m2q.append((f"{p}/msa/w_qkv", batch * r * r, w, 3 * w))
+                dw.append((f"{p}/msa/w_agg", batch, r, r, 3 * w, 5, 1))
+                heads = w // cfg.dim_per_head
+                attn += [(batch, r * r, heads, cfg.dim_per_head)] * 2
+                m2q.append((f"{p}/msa/w_proj", batch * r * r, 2 * w, w))
+            cin = w
+    m2q.append(("head/w_in", batch * r * r, cin, cin * 4))
+    m2q.append(("head/w", batch, cin * 4, cfg.n_classes))
+    return m2q, dw, attn
+
+
+class Tally:
+    """One kernel's checks and times, per distinct shape and summed over
+    one forward (each shape weighted by its launches per forward)."""
+
+    KEYS = ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
+            "bytes_ms", "ops_ms")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.rows = []
+        self.total = dict.fromkeys(self.KEYS, 0.0)
+        self.err = 0.0
+
+    def measure(self, shape: dict, count: int, kernel, plain, library,
+                nbytes: float, ops_ms: float) -> None:
+        """Hold ``kernel()`` against ``plain()`` and time kernel, plain and
+        ``library`` (a PyTorch yardstick, or None).  The kernels' integer
+        sums are exact and their float steps repeat the plain versions'
+        operations in the same order with IEEE rounding, so equality is
+        expected; 1e-6 of the output's magnitude leaves room only for a
+        rounding-order slip."""
+        import torch
+        y, y_ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = float((y - y_ref).abs().max())
+        scale = float(y_ref.abs().max())
+        if not err <= 1e-6 * max(scale, 1.0):
+            fail(f"{self.name} {shape}: max_abs_err {err} vs |y| {scale}")
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = dict(shape, count=count, err=err, ms=graph_ms(kernel),
+                   eager_ms=cuda_ms(kernel), plain_ms=graph_ms(plain, 5),
+                   library_ms=graph_ms(library) if library else None,
+                   bound_ms=max(b_ms, ops_ms), bytes_ms=b_ms, ops_ms=ops_ms)
+        row["bound_by"] = "bytes" if b_ms >= ops_ms else "operations"
+        self.rows.append(row)
+        for key in self.KEYS:
+            self.total[key] += count * (row[key] or 0.0)
+        self.err = max(self.err, err)
+
+    def entry(self, replaces: str, launches: int, library: bool) -> dict:
+        t = self.total
+        return {"name": self.name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{self.name}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": self.err, "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                             else "operations"),
+                "library_ms": t["library_ms"] if library else None}
+
+
+def _randn(torch, rng, shape, std=1.0, dtype=None):
+    t = torch.from_numpy(rng.normal(0, std, shape).astype("float32")).cuda()
+    return t if dtype is None else t.to(dtype)
+
+
+def check_m2q(torch, rng, calls) -> Tally:
+    """m2q_matmul at every distinct (M, K, N); yardstick: one bf16
+    torch.matmul on the dequantized weight."""
+    from repro_torch.core.qtensor import QM2Q
+    from repro_torch.core.scheme_select import select_schemes
+    from repro_torch.kernels import m2q_matmul as k
+    tally = Tally("m2q_matmul")
+    for (M, K, N), n in Counter([c[1:] for c in calls]).items():
+        x = _randn(torch, rng, (M, K), dtype=torch.bfloat16)
+        w = _randn(torch, rng, (K, N), std=K ** -0.5)
+        asn = select_schemes(w)
+        qt = QM2Q.quantize(w, asn.apot_idx, asn.uniform_idx,
+                           act_max_abs=float(x.abs().max()))
+        args = (x, qt.act_scale, qt.payload, qt.u_scale.reshape(-1),
+                qt.u_zp.reshape(-1), qt.a_scale.reshape(-1))
+        w_deq = qt.dequant(torch.bfloat16)
+        # each column is computed by its own engine: int8 MACs on the
+        # uniform half, bf16-exact MACs on the APoT half
+        ops_ms = 2.0 * M * K * (qt.n_uniform / INT8_OPS_PER_S
+                                + qt.n_apot / BF16_FLOPS_PER_S) * 1e3
+        tally.measure(dict(M=M, K=K, N=N), n, lambda: k.m2q_matmul(*args),
+                      lambda: k.m2q_matmul_plain(*args),
+                      lambda: torch.matmul(x, w_deq),
+                      M * K * 2 + K * N + 3 * N * 4 + 4 + M * N * 4, ops_ms)
+    return tally
+
+
+def check_dwconv(torch, rng, calls) -> Tally:
+    """dwconv_w4 at every distinct conv shape; yardstick: one cuDNN
+    grouped conv2d (bf16, channels-last view, symmetric padding)."""
+    import torch.nn.functional as F
+    from repro_torch.core.qtensor import QUniform
+    from repro_torch.kernels import dwconv_w4 as k
+    tally = Tally("dwconv_w4")
+    for (B, H, W, C, ks, s), n in Counter([c[1:] for c in calls]).items():
+        x = _randn(torch, rng, (B, H, W, C), dtype=torch.bfloat16)
+        qt = QUniform.quantize(_randn(torch, rng, (ks * ks, C), std=1 / ks),
+                               bits=4)
+        args = (x, qt.payload, qt.scale.reshape(-1),
+                qt.zero_point.reshape(-1), ks, ks, s)
+        x_nchw = x.permute(0, 3, 1, 2)  # channels-last view, no copy
+        w_oihw = qt.dequant(torch.bfloat16).reshape(ks, ks, C).permute(
+            2, 0, 1).unsqueeze(1).contiguous()
+        HO, WO = -(-H // s), -(-W // s)
+        nbytes = (B * H * W * C * 2 + ks * ks * C // 2 + 2 * C * 4
+                  + B * HO * WO * C * 4)
+        ops_ms = 2.0 * B * HO * WO * C * ks * ks / F32_FLOPS_PER_S * 1e3
+        tally.measure(dict(B=B, H=H, W=W, C=C, k=ks, stride=s), n,
+                      lambda: k.dwconv_w4(*args),
+                      lambda: k.dwconv_w4_plain(*args),
+                      lambda: F.conv2d(x_nchw, w_oihw, stride=s,
+                                       padding=ks // 2, groups=C),
+                      nbytes, ops_ms)
+    return tally
+
+
+def check_attn(torch, rng, calls) -> Tally:
+    """relu_attn at both MSA token counts, on strided q/k/v slices of one
+    qkv tensor as the model hands them over.  No single PyTorch call
+    computes int8 linear attention; the f32 einsum path (the port's other
+    token mixer) is timed as the yardstick but reported as no library."""
+    from repro_torch.kernels import relu_attn as k
+    from repro_torch.nn.attention import relu_linear_attention
+    tally = Tally("relu_attn")
+    for (B, N, Hh, D), n in Counter(calls).items():
+        C = Hh * D
+        qkv = _randn(torch, rng, (B, N, 3 * C), dtype=torch.bfloat16)
+        q, kk, v = (t.reshape(B, N, Hh, D)
+                    for t in torch.split(qkv, C, dim=-1))
+        sc = k.attn_scales(q, kk, v)
+        ops = B * Hh * (4.0 * N * D * D + 3.0 * N * D)
+        tally.measure(dict(B=B, N=N, H=Hh, D=D), n,
+                      lambda: k.relu_attn(q, kk, v, *sc),
+                      lambda: k.relu_attn_plain(q, kk, v, *sc),
+                      lambda: relu_linear_attention(q, kk, v, attn="f32"),
+                      3 * B * N * C * 2 + 3 * 4 + B * N * C * 4,
+                      ops / INT8_OPS_PER_S * 1e3)
+    return tally
+
+
+def _get(tree, path):
+    for part in path.split("/"):
+        tree = tree[int(part)] if isinstance(tree, list) else tree[part]
+    return tree
+
+
+def run_main_path(torch, cfg, m2q_calls, dw_calls, attn_calls, out_dir):
+    import numpy as np
+    from repro_torch import kernels, recipe
+    from repro_torch.core.qtensor import QM2Q, QUniform
+    from repro_torch.kernels import ops
+    from repro_torch.models import efficientvit
+
+    t0 = time.perf_counter()
+    params = efficientvit.init(cfg, seed=0, device="cuda")
+    qm = recipe.quantize(cfg, params, "m2q-w8a8")
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    for path, M, K, N in m2q_calls:
+        leaf = _get(qm.params, path)
+        if not isinstance(leaf, QM2Q) or tuple(leaf.payload.shape) != (K, N):
+            fail(f"{path}: expected a ({K}, {N}) QM2Q leaf, got {leaf!r:.80}")
+    for path, *_ in dw_calls:
+        if not isinstance(_get(qm.params, path), QUniform):
+            fail(f"{path}: expected a 4-bit QUniform leaf")
+
+    rng = np.random.default_rng(1)
+    images = rng.normal(0, 1, (N_IMAGES, cfg.img_res, cfg.img_res, 3)
+                        ).astype(np.float32)
+    engine = qm.serve(max_batch=BATCH, max_delay_ms=50.0)
+    kernels.reset_counts()
+    t1 = time.perf_counter()
+    handles = [engine.submit(img) for img in images]
+    while not all(h.done() for h in handles):
+        if time.perf_counter() - t1 > 300:
+            fail("requests still pending after 300 s of polling")
+        engine.poll()
+        time.sleep(0.001)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t1
+    counts = kernels.counts()
+    logits = np.stack([h.result() for h in handles])  # re-raises failures
+
+    forwards = engine.stats.batches
+    if forwards != 2 or engine.stats.buckets_used != {8, 4}:
+        fail(f"expected batches of 8 and 4, got {forwards} batches over "
+             f"buckets {sorted(engine.stats.buckets_used)}")
+    want = {"m2q_matmul": len(m2q_calls), "dwconv_w4": len(dw_calls),
+            "relu_attn": len(attn_calls)}
+    for name, per_fwd in want.items():
+        c = counts[name]
+        if c["launches"] != per_fwd * forwards or c["plain_calls"] != 0:
+            fail(f"{name}: {c} over {forwards} forwards, expected "
+                 f"{per_fwd * forwards} launches and 0 plain calls")
+    if logits.shape != (N_IMAGES, cfg.n_classes) \
+            or not np.all(np.isfinite(logits)):
+        fail(f"logits shape {logits.shape} or non-finite values")
+
+    with ops.reference_path():
+        ref = np.concatenate([
+            qm.forward(images[:BATCH]).float().cpu().numpy(),
+            qm.forward(images[BATCH:]).float().cpu().numpy()])
+    diff = float(np.abs(logits - ref).max())
+    top = float(np.abs(ref).max())
+    same_argmax = int((logits.argmax(-1) == ref.argmax(-1)).sum())
+    # bf16 activations: one bf16 ulp is 2^-8 of a value, so allow a few
+    # ulps of the largest logit for a rounding slip anywhere upstream
+    if not diff <= 2e-2 * top:
+        fail(f"served logits differ from the plain forward by {diff} "
+             f"(max |logit| {top})")
+
+    x8 = torch.from_numpy(images[:BATCH]).cuda()
+    fwd_ms = cuda_ms(lambda: qm.forward(x8), iters=10)
+    with torch.inference_mode():
+        fwd_graph_ms = graph_ms(lambda: qm.forward(x8), iters=3)
+    with ops.reference_path():
+        plain_fwd_ms = cuda_ms(lambda: qm.forward(x8), iters=3, warmup=1)
+    trace = device_profile(lambda: qm.forward(x8))
+    if trace:  # busy share of the unprofiled eager forward
+        trace["busy_share"] = trace["busy_ms"] / fwd_ms
+    main = dict(quantize_s=t_quant, serve_12_images_s=t_serve,
+                forwards=forwards, counts=counts, logits_max_abs_diff=diff,
+                logits_max_abs=top, logits_exact=bool(diff == 0.0),
+                same_argmax=same_argmax, forward_b8_ms=fwd_ms,
+                forward_b8_graph_ms=fwd_graph_ms,
+                plain_forward_b8_ms=plain_fwd_ms, forward_b8_trace=trace,
+                serve_stats=engine.stats.summary())
+    (out_dir / "chip_smoke_main.json").write_text(json.dumps(main, indent=1))
+    print("main path:", json.dumps(main), flush=True)
+    return counts
+
+
+def main() -> None:
+    import torch  # the card check needs torch before anything else
+
+    # ---- 1. card --------------------------------------------------------
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a GPU")
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
+    sys.path.insert(0, str(SRC))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+
+    # ---- 2. build -------------------------------------------------------
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    print(build.build_all(), flush=True)
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 3. kernel checks at the main path's shapes ---------------------
+    import numpy as np
+    from repro_torch.configs.registry import ARCHS
+    cfg = ARCHS["efficientvit-b1-r224"]
+    m2q_calls, dw_calls, attn_calls = main_path_calls(cfg, BATCH)
+    print(f"main path per forward: {len(m2q_calls)} m2q, {len(dw_calls)} "
+          f"dwconv, {len(attn_calls)} attention calls", flush=True)
+    rng = np.random.default_rng(0)
+    tallies = [check_m2q(torch, rng, m2q_calls),
+               check_dwconv(torch, rng, dw_calls),
+               check_attn(torch, rng, attn_calls)]
+    detail = {t.name: t.rows for t in tallies}
+    (out_dir / "chip_smoke_kernels.json").write_text(
+        json.dumps(detail, indent=1))
+    for t in tallies:
+        for r in t.rows:
+            print(t.name, json.dumps(r), flush=True)
+        print(f"{t.name} per forward: {json.dumps(t.total)}", flush=True)
+    print("kernels: m2q_matmul, dwconv_w4, relu_attn", flush=True)
+
+    # ---- 4. main path ---------------------------------------------------
+    counts = run_main_path(torch, cfg, m2q_calls, dw_calls, attn_calls,
+                           out_dir)
+
+    # ---- 5. results -----------------------------------------------------
+    replaces = {"m2q_matmul": "src/repro/kernels/m2q_matmul.py:80",
+                "dwconv_w4": "src/repro/kernels/dwconv_w4.py:107",
+                "relu_attn": "src/repro/kernels/relu_attn.py:74"}
+    entries = [t.entry(replaces[t.name], counts[t.name]["launches"],
+                       library=t.name != "relu_attn") for t in tallies]
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

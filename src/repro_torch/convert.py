@@ -1,0 +1,149 @@
+"""Carry weights across: numpy parameter trees <-> the port's tree.
+
+The JAX package's trees cross as plain numpy data -- the port never sees
+a JAX object.  A float leaf is a numpy array.  A quantized leaf is a dict
+with its class under ``"qtensor"`` and its fields by the JAX leaf's names:
+
+* ``{"qtensor": "QM2Q", "payload", "u_scale", "u_zp", "a_scale",
+  "act_scale", "shape", "n_uniform", "n_apot"}``
+* ``{"qtensor": "QUniform", "payload", "scale", "zero_point",
+  "act_scale", "bits", "axis", "shape"}``
+
+``act_scale`` may be None.  Anything else, and any field whose dtype or
+shape disagrees with the leaf it claims to be, raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .core.qtensor import QM2Q, QUniform
+
+
+def _array(d: dict, key: str, dtype, shape, what: str) -> np.ndarray:
+    a = d.get(key)
+    if not isinstance(a, np.ndarray):
+        raise TypeError(f"{what}: {key!r} must be a numpy array, got "
+                        f"{type(a).__name__}")
+    if a.dtype != dtype:
+        raise TypeError(f"{what}: {key!r} must be {np.dtype(dtype)}, got "
+                        f"{a.dtype}")
+    if tuple(a.shape) != tuple(shape):
+        raise ValueError(f"{what}: {key!r} must have shape {tuple(shape)}, "
+                         f"got {tuple(a.shape)}")
+    return a
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def _act(d: dict, what: str) -> Optional[np.ndarray]:
+    a = d.get("act_scale")
+    if a is None:
+        return None
+    a = np.asarray(a)
+    if a.dtype != np.float32 or a.size != 1:
+        raise TypeError(f"{what}: act_scale must be one float32, got "
+                        f"{a.dtype} of shape {a.shape}")
+    return a.reshape(())
+
+
+def _qm2q(d: dict, path: str, device) -> QM2Q:
+    what = f"{path} (QM2Q)"
+    shape = tuple(int(s) for s in d["shape"])
+    n = shape[-1]
+    k = math.prod(shape[:-1])
+    n_uniform, n_apot = int(d["n_uniform"]), int(d["n_apot"])
+    if n_uniform + n_apot != n:
+        raise ValueError(f"{what}: n_uniform + n_apot = {n_uniform + n_apot}"
+                         f" != {n} filters")
+    payload = _array(d, "payload", np.int8, (k, n), what)
+    scales = [_array(d, name, np.float32, (1, n), what)
+              for name in ("u_scale", "u_zp", "a_scale")]
+    act = _act(d, what)
+    return QM2Q(_tensor(payload, device),
+                *(_tensor(s, device) for s in scales),
+                None if act is None else _tensor(act, device), shape,
+                n_uniform, n_apot)
+
+
+def _quniform(d: dict, path: str, device) -> QUniform:
+    what = f"{path} (QUniform)"
+    shape = tuple(int(s) for s in d["shape"])
+    bits, axis = int(d["bits"]), int(d["axis"])
+    if axis != 1:
+        raise ValueError(f"{what}: axis must be 1 (filter-wise over the "
+                         f"flattened payload's columns), got {axis}")
+    pshape = [math.prod(shape[:-1]), shape[-1]]
+    sshape = (1, shape[-1])
+    if bits == 4:
+        pshape[-1] //= 2
+    payload = _array(d, "payload", np.int8 if bits == 8 else np.uint8,
+                     pshape, what)
+    scale = _array(d, "scale", np.float32, sshape, what)
+    zp = _array(d, "zero_point", np.float32, sshape, what)
+    act = _act(d, what)
+    return QUniform(_tensor(payload, device), _tensor(scale, device),
+                    _tensor(zp, device),
+                    None if act is None else _tensor(act, device), bits,
+                    axis, shape)
+
+
+_BUILDERS = {"QM2Q": _qm2q, "QUniform": _quniform}
+
+
+def params_from_numpy(tree, device="cuda", _path: str = ""):
+    """Numpy tree (float arrays and QTensor dicts) -> the port's tree on
+    ``device``."""
+    if isinstance(tree, dict) and "qtensor" in tree:
+        kind = tree["qtensor"]
+        if kind not in _BUILDERS:
+            raise TypeError(f"{_path}: unknown qtensor kind {kind!r} "
+                            f"(known: {sorted(_BUILDERS)})")
+        return _BUILDERS[kind](tree, _path, device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, f"{_path}/{k}".lstrip("/"))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device, f"{_path}/{i}".lstrip("/"))
+                for i, v in enumerate(tree)]
+    if isinstance(tree, np.ndarray):
+        if not np.issubdtype(tree.dtype, np.floating):
+            raise TypeError(f"{_path}: float leaf must be a floating array, "
+                            f"got {tree.dtype}")
+        return _tensor(tree, device)
+    raise TypeError(f"{_path}: unknown leaf kind {type(tree).__name__}")
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def params_to_numpy(tree):
+    """The inverse of :func:`params_from_numpy`."""
+    if isinstance(tree, QM2Q):
+        return {"qtensor": "QM2Q", "payload": _np(tree.payload),
+                "u_scale": _np(tree.u_scale), "u_zp": _np(tree.u_zp),
+                "a_scale": _np(tree.a_scale),
+                "act_scale": None if tree.act_scale is None
+                else _np(tree.act_scale),
+                "shape": list(tree.shape), "n_uniform": tree.n_uniform,
+                "n_apot": tree.n_apot}
+    if isinstance(tree, QUniform):
+        return {"qtensor": "QUniform", "payload": _np(tree.payload),
+                "scale": _np(tree.scale), "zero_point": _np(tree.zero_point),
+                "act_scale": None if tree.act_scale is None
+                else _np(tree.act_scale),
+                "bits": tree.bits, "axis": tree.axis,
+                "shape": list(tree.shape)}
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return _np(tree)
+    raise TypeError(f"unknown leaf kind {type(tree).__name__}")

@@ -1,0 +1,43 @@
+"""Parameter trees: nested dicts/lists whose leaves are tensors or QTensor
+leaves.  Paths are the JAX package's strings (dict keys and list indices
+joined by '/', e.g. ``stages/3/0/msa/w_qkv``), visited in the order JAX
+flattens them (dict keys sorted), so ``QUANT_RULES``, calibration stores
+and layer reports match across the two packages."""
+from __future__ import annotations
+
+from typing import Any, Callable, Iterator, Tuple
+
+import torch
+
+
+def map_with_path(fn: Callable[[str, Any], Any], tree, _path: Tuple = ()):
+    """Rebuild ``tree`` with every leaf replaced by ``fn(path, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, tree[k], _path + (str(k),))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, _path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn("/".join(_path), tree)
+
+
+def leaves_with_path(tree, _path: Tuple = ()) -> Iterator[Tuple[str, Any]]:
+    """(path, leaf) pairs in flattening order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves_with_path(tree[k], _path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaves_with_path(v, _path + (str(i),))
+    else:
+        yield "/".join(_path), tree
+
+
+def device_of(tree):
+    """The device of the first tensor (or QTensor field) in ``tree``."""
+    for _, leaf in leaves_with_path(tree):
+        t = leaf if isinstance(leaf, torch.Tensor) else \
+            getattr(leaf, "payload", getattr(leaf, "codes", None))
+        if isinstance(t, torch.Tensor):
+            return t.device
+    raise ValueError("parameter tree holds no tensor")

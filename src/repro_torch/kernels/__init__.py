@@ -1,0 +1,20 @@
+"""Hand-written Hopper kernels of the main path, each beside its plain
+PyTorch version.  ``counts()``/``reset_counts()`` read and zero the
+per-kernel launch and plain-call counters."""
+from typing import Dict
+
+from . import dwconv_w4, m2q_matmul, relu_attn
+
+KERNELS = {"m2q_matmul": m2q_matmul, "dwconv_w4": dwconv_w4,
+           "relu_attn": relu_attn}
+
+
+def counts() -> Dict[str, Dict[str, int]]:
+    return {name: {"launches": mod.launches, "plain_calls": mod.plain_calls}
+            for name, mod in KERNELS.items()}
+
+
+def reset_counts() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0
+        mod.plain_calls = 0

@@ -1,0 +1,100 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface, loaded with ``ctypes``.  Nothing builds
+at import: the first launch of a kernel builds its library, and
+:func:`build_all` builds every source at once (one ``nvcc`` per source, all
+started together).  Libraries land in ``build/repro_torch/`` at the root of
+the checkout, named by a hash of the source, so an edited source rebuilds.
+
+``--use_fast_math`` is never passed: the kernels rely on IEEE division and
+round-half-to-even to stay bit-identical to their plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("m2q_matmul", "dwconv_w4", "relu_attn")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin); the CUDA kernels cannot build")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    out = _lib_path(name)
+    if out.exists():
+        return out, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, (proc, tmp)
+
+
+def _finish(name: str, out: Path, job) -> str:
+    if job is None:
+        return f"{name}: cached {out.name}"
+    proc, tmp = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return f"{name}: built {out.name}\n{log}"
+
+
+def build_all() -> str:
+    """Compile every kernel source in parallel; returns the compiler
+    reports (``-Xptxas -v``: registers, shared memory, spills)."""
+    with _lock:
+        jobs = {name: _start(name) for name in SOURCES}
+        return "\n".join(_finish(name, *jobs[name]) for name in SOURCES)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            out, job = _start(name)
+            _finish(name, out, job)
+            lib = ctypes.CDLL(str(out))
+            _libs[name] = lib
+        return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")

@@ -1,0 +1,94 @@
+"""Fused two-level mixed-quantization matmul (the M2-ViT flagship op).
+
+``y = [((xq@P)_i32 - rowsum(xq)*u_zp)*u_scale + (xq@apot(P))*a_scale]*sa``
+with ``xq = clip(rne(x/sa), +-127)``: P is the merged (K, N) int8 payload in
+original filter order -- each column holds either an offset-folded uniform
+byte or an APoT code byte -- and the zero-masked per-column scales cancel
+each engine's contribution on the columns it does not own.
+
+:func:`m2q_matmul` launches the CUDA kernel (``csrc/m2q_matmul.cu``) for a
+CUDA tensor and takes :func:`m2q_matmul_plain` only for a CPU tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.packing import apot_decode_units
+from ..core.quant import int_einsum, quantize_act
+from . import build
+
+launches = 0     # kernel launches (the main path's proof of use)
+plain_calls = 0  # calls of the plain version
+
+
+def m2q_matmul_plain(x: torch.Tensor, act_scale: torch.Tensor,
+                     payload: torch.Tensor, u_scale: torch.Tensor,
+                     u_zp: torch.Tensor,
+                     a_scale: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version (twin of ``ref.m2q_merged_ref``): x (M, K)
+    float, payload (K, N) int8, scales (N,) f32 -> (M, N) f32.
+
+    The two integer dot products are exact: int32 on the CPU; float64 on
+    CUDA, where torch has no integer matmul (|sums| stay far below 2^53).
+    The APoT half accumulates in units of 2^-7, which equals the
+    reference's f32 dot wherever that dot is exact (|sum| < 2^17)."""
+    global plain_calls
+    plain_calls += 1
+    xq = quantize_act(x, act_scale)
+    acc = int_einsum("mk,kn->mn", xq, payload)
+    acc_a = int_einsum("mk,kn->mn", xq,
+                       apot_decode_units(payload.view(torch.uint8)))
+    xsum = xq.to(torch.int32).sum(dim=-1, keepdim=True)
+    yu = (acc - xsum.to(torch.float32) * u_zp) * u_scale
+    ya = (acc_a * 0.0078125) * a_scale
+    return (yu + ya) * act_scale
+
+
+def _launch(x, act_scale, payload, u_scale, u_zp, a_scale) -> torch.Tensor:
+    M, K = x.shape
+    N = payload.shape[1]
+    for name, t, dt in (("act_scale", act_scale, torch.float32),
+                        ("payload", payload, torch.int8),
+                        ("u_scale", u_scale, torch.float32),
+                        ("u_zp", u_zp, torch.float32),
+                        ("a_scale", a_scale, torch.float32)):
+        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"m2q_matmul: {name} must be a contiguous {dt} "
+                             f"tensor on {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            or not x.is_contiguous():
+        raise ValueError("m2q_matmul: x must be contiguous float32 or "
+                         "bfloat16")
+    if payload.shape[0] != K or u_scale.numel() != N or u_zp.numel() != N \
+            or a_scale.numel() != N or act_scale.numel() != 1:
+        raise ValueError(f"m2q_matmul: shapes disagree: x {tuple(x.shape)}, "
+                         f"payload {tuple(payload.shape)}")
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    lib = build.load("m2q_matmul")
+    fn = lib.m2q_matmul
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), act_scale.data_ptr(), payload.data_ptr(),
+             u_scale.data_ptr(), u_zp.data_ptr(), a_scale.data_ptr(),
+             y.data_ptr(), M, N, K, int(x.dtype == torch.bfloat16),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "m2q_matmul")
+    return y
+
+
+def m2q_matmul(x: torch.Tensor, act_scale: torch.Tensor, payload: torch.Tensor,
+               u_scale: torch.Tensor, u_zp: torch.Tensor,
+               a_scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) float32/bfloat16; act_scale 0-d f32; payload (K, N) int8;
+    u_scale/u_zp/a_scale (N,) f32 -> y (M, N) f32."""
+    global launches
+    if x.device.type == "cpu":
+        return m2q_matmul_plain(x, act_scale, payload, u_scale, u_zp, a_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"m2q_matmul: unsupported device {x.device}")
+    y = _launch(x, act_scale, payload, u_scale, u_zp, a_scale)
+    launches += 1
+    return y

@@ -1,0 +1,98 @@
+"""QTensor-level entry points onto the kernels (twin of the
+``qtensor_matmul`` / ``qtensor_dwconv`` / ``relu_attn_op`` part of
+``repro.kernels.ops``).
+
+Each routes a leaf to its kernel wrapper, which launches the CUDA kernel
+for CUDA tensors and runs the plain version for CPU tensors.  Nothing
+falls back: a kernel that fails to build or launch raises.  The one switch
+is :func:`reference_path`, an explicit scope in which the plain versions
+run on any device -- the reference a caller compares the kernels against.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+
+import torch
+
+from ..core.qtensor import QAPoT, QM2Q, QUniform
+from . import dwconv_w4 as _dw
+from . import m2q_matmul as _m2q
+from . import relu_attn as _attn
+
+ATTN_INT8 = "int8"
+ATTN_F32 = "f32"
+
+_REFERENCE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_reference_path", default=False)
+
+
+@contextlib.contextmanager
+def reference_path():
+    """Run the plain PyTorch versions instead of the kernels, on any
+    device, inside this scope."""
+    token = _REFERENCE.set(True)
+    try:
+        yield
+    finally:
+        _REFERENCE.reset(token)
+
+
+def default_attn(device: torch.device) -> str:
+    """The MSA token mixer's default numerics: the int8 kernel on CUDA (as
+    the JAX package defaults to its kernel on a TPU), the f32 einsums
+    elsewhere.  int8 changes numerics by quantization error, so
+    strict-parity callers pass ``attn`` explicitly."""
+    return ATTN_INT8 if torch.device(device).type == "cuda" else ATTN_F32
+
+
+def qtensor_matmul(x: torch.Tensor, qt) -> torch.Tensor:
+    """y = x @ W for a 2-D QTensor leaf; x (..., K) -> (..., N) in x.dtype."""
+    if isinstance(qt, QM2Q) and qt.act_scale is not None:
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        fn = _m2q.m2q_matmul_plain if _REFERENCE.get() else _m2q.m2q_matmul
+        y = fn(x2, qt.act_scale, qt.payload, qt.u_scale.reshape(-1),
+               qt.u_zp.reshape(-1), qt.a_scale.reshape(-1))
+        return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
+    kernel_leaf = (isinstance(qt, QUniform) and qt.bits in (4, 8)
+                   and (qt.bits == 4 or qt.act_scale is not None)) or \
+        (isinstance(qt, QAPoT) and qt.act_scale is None)
+    if kernel_leaf and x.device.type == "cuda" and not _REFERENCE.get():
+        raise NotImplementedError(
+            f"{type(qt).__name__} (bits={getattr(qt, 'bits', None)}) runs "
+            "a kernel that is not ported to CUDA yet")
+    return qt.matmul(x)
+
+
+def dwconv_supported(qt, x: torch.Tensor, stride: int, groups: int,
+                     padding: str) -> bool:
+    """True when the packed-w4 depthwise kernel computes this conv: a
+    weights-only 4-bit QUniform with a depthwise HWIO shape, flattened to
+    a (kh*kw, C/2) payload, under SAME padding."""
+    if not isinstance(qt, QUniform) or qt.bits != 4 \
+            or qt.act_scale is not None:
+        return False
+    if qt.payload.ndim != 2 or qt.axis != 1:
+        return False
+    if len(qt.shape) != 4 or qt.shape[2] != 1:
+        return False
+    kh, kw, _, c = qt.shape
+    return (padding == "SAME" and stride >= 1 and groups == c
+            and x.shape[-1] == c and qt.payload.shape[0] == kh * kw)
+
+
+def qtensor_dwconv(x: torch.Tensor, qt, stride: int = 1) -> torch.Tensor:
+    """Depthwise conv for a 4-bit QUniform leaf; output in x.dtype."""
+    kh, kw = int(qt.shape[0]), int(qt.shape[1])
+    fn = _dw.dwconv_w4_plain if _REFERENCE.get() else _dw.dwconv_w4
+    y = fn(x.contiguous(), qt.payload, qt.scale.reshape(-1),
+           qt.zero_point.reshape(-1), kh=kh, kw=kw, stride=stride)
+    return y.to(x.dtype)
+
+
+def relu_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """Int8 ReLU linear attention with tensor-wide scales; (B,N,H,D) f32."""
+    sq, sk, sv = _attn.attn_scales(q, k, v)
+    fn = _attn.relu_attn_plain if _REFERENCE.get() else _attn.relu_attn
+    return fn(q, k, v, sq, sk, sv, eps)

@@ -1,0 +1,111 @@
+"""Layer primitives on NHWC tensors (twin of ``repro.nn.layers``).
+
+Every weight consumer dispatches on the leaf type: a float tensor runs the
+float op, a :class:`CalibTensor` records its input's max-abs first, and a
+QTensor leaf runs the quantized path (the kernels via ``kernels.ops``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..core.calibrate import CalibTensor
+from ..core.qtensor import is_qtensor
+from ..kernels import ops
+from ..kernels.dwconv_w4 import same_padding
+
+
+def lecun_normal(shape, generator: torch.Generator,
+                 device=None) -> torch.Tensor:
+    """N(0, 1/fan_in) with fan_in = prod(shape[:-1]), the JAX package's
+    law (the numbers differ: torch and jax.random are different streams)."""
+    fan_in = math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
+    w = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return w / math.sqrt(max(fan_in, 1))
+
+
+def dense(x: torch.Tensor, w, b=None) -> torch.Tensor:
+    """y = x @ w (+ b); w may be float, CalibTensor or a QTensor leaf."""
+    if isinstance(w, CalibTensor):
+        w.record(x)
+        y = x @ w.w.to(x.dtype)
+    elif is_qtensor(w):
+        y = ops.qtensor_matmul(x, w)
+    else:
+        y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * gamma.to(torch.float32)).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def _float_conv(x, w, stride: int, groups: int, padding: str):
+    """XLA-semantics NHWC conv with an HWIO filter."""
+    kh, kw = w.shape[0], w.shape[1]
+    H, W = x.shape[1], x.shape[2]
+    xc = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        ph, pw = same_padding(H, kh, stride), same_padding(W, kw, stride)
+        xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
+    elif padding != "VALID":
+        raise ValueError(f"padding {padding!r}")
+    y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride, groups=groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def _qconv2d(x, w, stride: int, groups: int, padding: str):
+    """Quantized-conv hot path: a 1x1 stride-1 PWConv is a matmul over
+    B*H*W pixel rows (the m2q kernel); a 4-bit depthwise filter runs the
+    dwconv_w4 kernel.  None when only the dequantized-weight conv applies
+    (im2col of other quantized filters waits for the int8 stem)."""
+    shape = tuple(w.shape)
+    ints = getattr(w, "payload", None)
+    if ints is None:
+        ints = getattr(w, "codes", None)
+    if len(shape) != 4 or ints is None or ints.ndim != 2:
+        return None
+    if shape[:2] == (1, 1) and stride == 1 and groups == 1:
+        return ops.qtensor_matmul(x, w)
+    if ops.dwconv_supported(w, x, stride, groups, padding):
+        return ops.qtensor_dwconv(x, w, stride=stride)
+    return None
+
+
+def conv2d(x: torch.Tensor, w, b=None, stride: int = 1, groups: int = 1,
+           padding: str = "SAME") -> torch.Tensor:
+    """x (B,H,W,Cin); w (kh,kw,Cin//groups,Cout) float, CalibTensor or
+    QTensor leaf."""
+    if isinstance(w, CalibTensor):
+        w.record(x)
+        wv = w.w
+    elif is_qtensor(w):
+        y = _qconv2d(x, w, stride=stride, groups=groups, padding=padding)
+        if y is None:
+            wv = w.dequant(x.dtype).reshape(w.shape)
+        else:
+            return y if b is None else y + b.to(y.dtype)
+    else:
+        wv = w
+    y = _float_conv(x, wv.to(x.dtype), stride, groups, padding)
+    return y if b is None else y + b.to(y.dtype)
+
+
+def dwconv2d(x: torch.Tensor, w, b=None, stride: int = 1,
+             padding: str = "SAME") -> torch.Tensor:
+    """Depthwise conv; w (kh,kw,1,C)."""
+    return conv2d(x, w, b=b, stride=stride, groups=x.shape[-1],
+                  padding=padding)

@@ -1,0 +1,141 @@
+"""Batched vision inference (images in, logits out); twin of
+``repro.serving.vision`` without ``mesh=`` and ``faults=``.
+
+``submit()`` queues one image and returns a handle at once; a batch runs
+when it fills to ``max_batch``, when its oldest request is older than
+``max_delay_ms`` (checked by :meth:`VisionEngine.poll`), or on
+:meth:`VisionEngine.flush`.  Each executed batch is zero-padded up to a
+power-of-two bucket and runs one forward on the engine's device.  Logits
+are finite-checked per row: a non-finite row fails its own request with
+:class:`~.errors.NumericalError` while its batchmates are delivered.
+
+There is no silent retry: a kernel that raises fails its batch's requests
+(the scheduler contains the exception) and the engine keeps serving.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.tree import device_of
+from ..models import get_model
+from ..models.config import ArchConfig
+from .batching import ServeStats, pow2_bucket
+from .errors import NumericalError
+from .scheduler import DONE, FlushPolicy, Handle, OverloadPolicy, Scheduler
+
+
+@dataclasses.dataclass
+class VisionStats(ServeStats):
+    """ServeStats with the vision field names."""
+
+    @property
+    def images(self) -> int:
+        return self.items
+
+    @property
+    def padded_images(self) -> int:
+        return self.padded_items
+
+
+class VisionEngine:
+    """Deadline-batched classifier over a (quantized) parameter tree."""
+
+    def __init__(self, cfg: ArchConfig, params, max_batch: int = 64,
+                 max_delay_ms: Optional[float] = None,
+                 attn: Optional[str] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 overload: Optional[OverloadPolicy] = None):
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        self.cfg = cfg
+        self.model = get_model(cfg)
+        self.params = params
+        self.device = device_of(params)
+        self.attn = attn
+        self.B = max_batch
+        self.stats = VisionStats()
+        self.scheduler = Scheduler(
+            policy=FlushPolicy(max_batch=max_batch, max_delay_ms=max_delay_ms),
+            executor=self._execute, stats=self.stats, clock=clock,
+            overload=overload)
+
+    def bucket(self, n: int) -> int:
+        """Smallest power of two >= n, capped at max_batch: the batch
+        shape actually executed."""
+        return pow2_bucket(n, self.B)
+
+    def _run_batch(self, images: np.ndarray, bucket: int) -> np.ndarray:
+        n = images.shape[0]
+        pad = bucket - n
+        if pad:
+            images = np.concatenate(
+                [images, np.zeros((pad,) + images.shape[1:], np.float32)])
+        x = torch.from_numpy(images).to(self.device)
+        with torch.inference_mode():
+            logits = self.model.forward(self.cfg, self.params, x,
+                                        attn=self.attn)
+        self.stats.record_batch(items=n, padded=pad, capacity=self.B,
+                                bucket=bucket)
+        return logits.to(torch.float32).cpu().numpy()[:n]
+
+    def _execute(self, handles: List[Handle], reason: str) -> None:
+        """One flushed batch -> per-handle logits, finite-checked per row."""
+        imgs = np.stack([h.payload for h in handles]).astype(np.float32)
+        out = self._run_batch(imgs, self.bucket(len(handles)))
+        for i, (h, row) in enumerate(zip(handles, out)):
+            if not np.all(np.isfinite(row)):
+                h.set_exception(NumericalError(
+                    f"request {h.uid}: non-finite logits (row {i} of the "
+                    "executed batch); its result was not delivered"))
+            else:
+                h.set_result(row)
+
+    def submit(self, image: np.ndarray,
+               deadline_ms: Optional[float] = None) -> Handle:
+        """Queue one (res, res, 3) image; the handle's ``result()`` is its
+        (n_classes,) logits.  Raises ``ValueError`` up front on a wrong
+        shape, a non-numeric dtype or NaN/Inf pixels."""
+        img = np.asarray(image)
+        if img.shape != (self.cfg.img_res, self.cfg.img_res, 3):
+            raise ValueError(f"expected ({self.cfg.img_res}, "
+                             f"{self.cfg.img_res}, 3), got {img.shape}")
+        if not np.issubdtype(img.dtype, np.number) \
+                or np.issubdtype(img.dtype, np.complexfloating):
+            raise ValueError(
+                f"image dtype must be real-numeric pixels, got {img.dtype}")
+        if np.issubdtype(img.dtype, np.floating) \
+                and not np.all(np.isfinite(img)):
+            raise ValueError("image holds NaN/Inf pixels; refusing to "
+                             "enqueue a payload that would poison its batch")
+        return self.scheduler.submit(img, deadline_ms=deadline_ms)
+
+    def poll(self) -> int:
+        """Execute whatever is due; returns the requests resolved."""
+        return self.scheduler.poll()
+
+    def flush(self) -> Optional[np.ndarray]:
+        """Drain every pending image; returns the delivered logits in
+        submit order (None if nothing was delivered)."""
+        flushed = self.scheduler.drain()
+        ok = [h.result() for h in flushed if h.state == DONE]
+        if not ok:
+            return None
+        return np.stack(ok)
+
+    def classify(self, images) -> np.ndarray:
+        """(N, res, res, 3) -> (N, n_classes), bypassing the queue."""
+        images = np.asarray(images, np.float32)
+        n = images.shape[0]
+        if n == 0:
+            return np.zeros((0, self.cfg.n_classes), np.float32)
+        outs = []
+        for start in range(0, n, self.B):
+            chunk = images[start:start + self.B]
+            outs.append(self._run_batch(chunk, self.bucket(chunk.shape[0])))
+            self.stats.record_flush("direct")
+        return np.concatenate(outs)

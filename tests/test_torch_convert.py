@@ -1,0 +1,102 @@
+"""convert.params_from_numpy / params_to_numpy: float and QTensor trees
+round-trip exactly; unknown leaf kinds and dtype/shape mismatches raise."""
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.efficientvit_b1 import REDUCED
+from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.core.qtensor import QM2Q, QUniform
+from repro_torch.core.tree import leaves_with_path
+from repro_torch.models import efficientvit
+from repro_torch.recipe import quantize
+
+
+def _qtree():
+    params = efficientvit.init(REDUCED, seed=3, device="cpu")
+    batches = [np.random.default_rng(1).normal(0, 1, (2, 32, 32, 3))
+               .astype(np.float32)]
+    return params, quantize(REDUCED, params, calib_batches=batches).params
+
+
+def _assert_same(a, b):
+    la, lb = dict(leaves_with_path(a)), dict(leaves_with_path(b))
+    assert sorted(la) == sorted(lb)
+    for path, x in la.items():
+        y = lb[path]
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype and x.shape == y.shape, path
+            np.testing.assert_array_equal(x, y, err_msg=path)
+        else:
+            assert x == y, path
+
+
+def test_float_tree_round_trips():
+    params, _ = _qtree()
+    np_tree = params_to_numpy(params)
+    back = params_from_numpy(np_tree, "cpu")
+    _assert_same(np_tree, params_to_numpy(back))
+    assert isinstance(back["stages"], list)
+    assert back["stem"]["w"].dtype == torch.float32
+
+
+def test_qtensor_tree_round_trips():
+    _, qparams = _qtree()
+    np_tree = params_to_numpy(qparams)
+    back = params_from_numpy(np_tree, "cpu")
+    _assert_same(np_tree, params_to_numpy(back))
+    kinds = {type(leaf) for _, leaf in leaves_with_path(back)}
+    assert {QM2Q, QUniform} <= kinds
+    m2q = back["head"]["w"]
+    assert m2q.payload.dtype == torch.int8 and m2q.act_scale.ndim == 0
+
+
+def _leaf(np_tree, path):
+    node = np_tree
+    for part in path.split("/"):
+        node = node[int(part)] if isinstance(node, list) else node[part]
+    return node
+
+
+@pytest.fixture(scope="module")
+def np_qtree():
+    return params_to_numpy(_qtree()[1])
+
+
+@pytest.mark.parametrize("path,field,bad", [
+    ("head/w", "payload", lambda a: a.astype(np.uint8)),
+    ("head/w", "payload", lambda a: a[:-1]),
+    ("head/w", "u_scale", lambda a: a.astype(np.float64)),
+    ("head/w", "a_scale", lambda a: a.reshape(-1)),
+    ("head/w", "act_scale", lambda a: np.float64(a)),
+    ("head/w", "n_apot", lambda a: a + 1),
+    ("stages/0/0/mb/w_dw", "payload", lambda a: a.astype(np.int8)),
+    ("stages/0/0/mb/w_dw", "payload", lambda a: np.concatenate([a, a], 1)),
+    ("stages/0/0/mb/w_dw", "scale", lambda a: a[:, :-1]),
+    ("stages/0/0/mb/w_dw", "axis", lambda a: 0),
+])
+def test_mismatched_qtensor_fields_raise(np_qtree, path, field, bad):
+    tree = copy.deepcopy(np_qtree)
+    leaf = _leaf(tree, path)
+    leaf[field] = bad(leaf[field])
+    with pytest.raises((TypeError, ValueError)):
+        params_from_numpy(tree, "cpu")
+
+
+@pytest.mark.parametrize("leaf", [
+    {"qtensor": "QExpertM2Q"},
+    {"qtensor": "QAPoT"},
+    "not-a-tensor",
+    np.zeros((2, 2), np.int32),
+    3.0,
+])
+def test_unknown_leaf_kinds_raise(leaf):
+    with pytest.raises(TypeError):
+        params_from_numpy({"head": {"w": leaf}}, "cpu")
+
+
+def test_params_to_numpy_rejects_foreign_leaves():
+    with pytest.raises(TypeError):
+        params_to_numpy({"w": object()})

@@ -1,0 +1,95 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: without a CUDA device every test here skips (decided in a
+fixture, so every pytest-xdist worker collects the same tests).  On a
+machine with an H100 and nvcc:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.core.qtensor import QM2Q, QUniform
+from repro_torch.core.scheme_select import select_schemes
+from repro_torch.kernels import dwconv_w4, m2q_matmul, relu_attn
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    return torch.device("cuda")
+
+
+def _randn(shape, seed, device, std=1.0, dtype=torch.float32):
+    a = np.random.default_rng(seed).normal(0, std, shape).astype(np.float32)
+    return torch.from_numpy(a).to(device).to(dtype)
+
+
+# The kernels' integer sums are exact and their float steps repeat the
+# plain versions' operations in the same order with IEEE rounding, so the
+# outputs are expected equal; assert_close with zero tolerance says so.
+def _equal(a, b):
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(100, 16, 64), (65, 72, 1000),
+                                   (8, 1024, 1000), (777, 256, 130)])
+def test_m2q_kernel_equals_plain(cuda, M, K, N, dtype):
+    x = _randn((M, K), M + K, cuda, dtype=dtype)
+    w = _randn((K, N), N, cuda, std=K ** -0.5)
+    asn = select_schemes(w)
+    qt = QM2Q.quantize(w, asn.apot_idx, asn.uniform_idx,
+                       act_max_abs=float(x.abs().max()))
+    args = (x, qt.act_scale, qt.payload, qt.u_scale.reshape(-1),
+            qt.u_zp.reshape(-1), qt.a_scale.reshape(-1))
+    kernels.reset_counts()
+    y = m2q_matmul.m2q_matmul(*args)
+    assert kernels.counts()["m2q_matmul"] == {"launches": 1,
+                                              "plain_calls": 0}
+    _equal(y, m2q_matmul.m2q_matmul_plain(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W", [(14, 14), (7, 9), (112, 112)])
+@pytest.mark.parametrize("k,stride", [(3, 1), (3, 2), (5, 1)])
+def test_dwconv_kernel_equals_plain(cuda, H, W, k, stride, dtype):
+    C = 64
+    x = _randn((2, H, W, C), H * W + k, cuda, dtype=dtype)
+    qt = QUniform.quantize(_randn((k * k, C), k, cuda, std=0.3), bits=4)
+    args = (x, qt.payload, qt.scale.reshape(-1), qt.zero_point.reshape(-1),
+            k, k, stride)
+    y = dwconv_w4.dwconv_w4(*args)
+    _equal(y, dwconv_w4.dwconv_w4_plain(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,D", [(8, 196, 8, 16), (8, 49, 16, 16),
+                                     (2, 300, 2, 64), (1, 5, 3, 8)])
+def test_relu_attn_kernel_equals_plain_on_strided_views(cuda, B, N, H, D,
+                                                        dtype):
+    qkv = _randn((B, N, 3 * H * D), B * N + D, cuda, dtype=dtype)
+    q, k, v = (t.reshape(B, N, H, D) for t in torch.split(qkv, H * D, -1))
+    scales = relu_attn.attn_scales(q, k, v)
+    y = relu_attn.relu_attn(q, k, v, *scales)
+    _equal(y, relu_attn.relu_attn_plain(q, k, v, *scales))
+
+
+def test_relu_attn_refuses_wide_heads(cuda):
+    q = torch.zeros((1, 4, 1, 128), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        relu_attn.relu_attn(q, q, q, *relu_attn.attn_scales(q, q, q))
+
+
+def test_kernel_rejects_bad_operands(cuda):
+    x = torch.zeros((4, 16), device=cuda, dtype=torch.float16)
+    s = torch.ones((), device=cuda)
+    with pytest.raises(ValueError):
+        m2q_matmul.m2q_matmul(x, s, torch.zeros((16, 8), dtype=torch.int8,
+                                                device=cuda),
+                              *(torch.zeros(8, device=cuda),) * 3)
