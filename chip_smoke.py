@@ -7,19 +7,32 @@ one NVIDIA GPU.
 Phases, each fatal on failure (nonzero exit, no result line):
 
 1. card check -- CUDA must be available; prints ``name, power.limit``;
-2. build -- compiles every CUDA kernel from ``src/repro_torch/csrc`` with
-   nvcc for sm_90a and prints the ``-Xptxas -v`` report;
-3. kernel checks -- each kernel against its plain PyTorch version on the
-   card, at every distinct shape of one EfficientViT-B1 R224 forward at
-   batch 8, with kernel / plain / library device times (CUDA graphs timed
-   by CUDA events) and the card's least time for the same work;
+2. build -- compiles every CUDA kernel source in ``src/repro_torch/csrc``
+   with nvcc for sm_90a (one nvcc per source, all started together; int4
+   and APoT share ``weights_only_matmul.cu``) and prints the ``-Xptxas
+   -v`` report;
+3. kernel checks -- each of the six kernels against its plain PyTorch
+   version on the card, at every distinct shape of one EfficientViT-B1
+   R224 forward at batch 8 under the recipe paths below, with kernel /
+   plain / library device times (CUDA graphs timed by CUDA events) and the
+   card's least time for the same work (int8_matmul also per recipe
+   path: uniform8's 42 PWConvs and the int8 stem's one launch never run in
+   one forward).  int8, m2q, dwconv and attention kernels must equal
+   their plain versions; the f32-dot kernels (int4, APoT) must sit within
+   the f32 summation bound;
 4. main path -- ``init`` at full B1 R224 width, ``recipe.quantize(...,
    "m2q-w8a8")`` with synthesized calibration, ``serve(max_batch=8)``,
    12 submitted images polled to completion; checks the logits, the
    launch counters (42 m2q / 20 dwconv / 14 attention launches per
    forward, 0 plain calls) and the logits against a plain-version forward
    of the same batches on the card; times the batch-8 forward (eager, in a
-   CUDA graph, plain) and traces it with torch.profiler.
+   CUDA graph, plain) and traces it with torch.profiler;
+5. the other recipe paths, each the same way (counters, leaf types,
+   logits vs the plain-version forward, the batch-8 forward in a CUDA
+   graph; no trace): ``uniform8`` (42 int8_matmul + 14 attention per
+   forward), the opt-in int8 stem (1 int8_matmul + the m2q path's 76),
+   ``w4-weights-only`` (42 int4_matmul + 20 dwconv + 14 attention) and
+   weights-only APoT (42 apot_matmul + 20 dwconv + 14 attention).
 
 It then prints one JSON line with every kernel's numbers and, last, the
 ``{"ok": true, "device": ...}`` line.
@@ -162,48 +175,81 @@ class Tally:
     KEYS = ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
             "bytes_ms", "ops_ms")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, source: str = None):
         self.name = name
+        self.source = source or name
         self.rows = []
         self.total = dict.fromkeys(self.KEYS, 0.0)
+        self.by_path = {}  # recipe path -> its own sums, where paths differ
         self.err = 0.0
+        self.err_ratio = None  # largest err / bound of the f32-dot kernels
 
     def measure(self, shape: dict, count: int, kernel, plain, library,
-                nbytes: float, ops_ms: float) -> None:
+                nbytes: float, ops_ms: float, err_bound=None,
+                path: str = None) -> None:
         """Hold ``kernel()`` against ``plain()`` and time kernel, plain and
-        ``library`` (a PyTorch yardstick, or None).  The kernels' integer
-        sums are exact and their float steps repeat the plain versions'
-        operations in the same order with IEEE rounding, so equality is
-        expected; 1e-6 of the output's magnitude leaves room only for a
-        rounding-order slip."""
+        ``library`` (a PyTorch yardstick, or None).  ``path``: the recipe
+        path this shape belongs to, where one kernel serves two paths that
+        never run in one forward; each gets its own sums.
+
+        ``err_bound`` None: the kernel's integer sums are exact and its
+        float steps repeat the plain version's operations in the same
+        order with IEEE rounding, so equality is expected; 1e-6 of the
+        output's magnitude leaves room only for a rounding-order slip.
+        ``err_bound`` a number or a per-element tensor: the limit itself
+        (0.0 demands bit equality; the f32-dot kernels pass the f32
+        summation bound), and the row records the largest err / bound."""
         import torch
         y, y_ref = kernel(), plain()
         torch.cuda.synchronize()
-        err = float((y - y_ref).abs().max())
+        diff = (y - y_ref).abs()
+        err = float(diff.max())
         scale = float(y_ref.abs().max())
-        if not err <= 1e-6 * max(scale, 1.0):
-            fail(f"{self.name} {shape}: max_abs_err {err} vs |y| {scale}")
+        if err_bound is None:
+            err_bound = 1e-6 * max(scale, 1.0)
+        ratio = float((diff / err_bound).nan_to_num(0.0).max()) \
+            if torch.is_tensor(err_bound) else None
+        if not bool(torch.all(diff <= err_bound)):
+            fail(f"{self.name} {shape}: max_abs_err {err} vs |y| {scale} "
+                 f"(err / bound {ratio})")
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         row = dict(shape, count=count, err=err, ms=graph_ms(kernel),
                    eager_ms=cuda_ms(kernel), plain_ms=graph_ms(plain, 5),
                    library_ms=graph_ms(library) if library else None,
                    bound_ms=max(b_ms, ops_ms), bytes_ms=b_ms, ops_ms=ops_ms)
         row["bound_by"] = "bytes" if b_ms >= ops_ms else "operations"
+        if ratio is not None:
+            row["err_over_bound"] = ratio
+            self.err_ratio = max(self.err_ratio or 0.0, ratio)
         self.rows.append(row)
-        for key in self.KEYS:
-            self.total[key] += count * (row[key] or 0.0)
+        sums = [self.total]
+        if path is not None:
+            row["path"] = path
+            sums.append(self.by_path.setdefault(
+                path, dict.fromkeys(self.KEYS, 0.0)))
+        for total in sums:
+            for key in self.KEYS:
+                total[key] += count * (row[key] or 0.0)
         self.err = max(self.err, err)
 
-    def entry(self, replaces: str, launches: int, library: bool) -> dict:
-        t = self.total
-        return {"name": self.name, "route": "cuda",
-                "source": f"src/repro_torch/csrc/{self.name}.cu",
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": self.err, "ms": t["ms"],
-                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+    @staticmethod
+    def _sums(t: dict, library: bool) -> dict:
+        return {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
                 "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                              else "operations"),
                 "library_ms": t["library_ms"] if library else None}
+
+    def entry(self, replaces: str, launches: int, library: bool) -> dict:
+        e = {"name": self.name, "route": "cuda",
+             "source": f"src/repro_torch/csrc/{self.source}.cu",
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": self.err, **self._sums(self.total, library),
+             "err_over_bound": self.err_ratio}
+        if self.by_path:
+            e["per_path"] = {p: self._sums(t, library)
+                             for p, t in self.by_path.items()}
+        return e
 
 
 def _randn(torch, rng, shape, std=1.0, dtype=None):
@@ -291,31 +337,178 @@ def check_attn(torch, rng, calls) -> Tally:
     return tally
 
 
+def f32_dot_bound(torch, x, w_hat):
+    """Per-element limit for two f32 dots of x (M, K) and W (K, N) summed
+    in different orders: each is within K * 2^-24 * (|x| @ |W|) of the
+    exact dot, so they differ by at most K * 2^-23 * (|x| @ |W|); one more
+    2^-23 covers an epilogue scale multiply rounded on each side."""
+    K = x.shape[1]
+    return ((K + 1) * 2.0 ** -23) * (x.abs().double() @ w_hat.abs().double())
+
+
+def _int_mm_fits(M, K, N) -> bool:
+    """torch._int_mm's shape rules on CUDA: M > 16, K and N multiples of
+    8."""
+    return M > 16 and K % 8 == 0 and N % 8 == 0
+
+
+def check_int8(torch, rng, calls_by_path) -> Tally:
+    """int8_matmul at every distinct (M, K, N) of each path in
+    ``calls_by_path`` (the uniform8 PWConvs; the int8 stem's im2col'd
+    conv), summed per path; exact.  Yardstick: torch._int_mm on the
+    quantized activations where its shape rules allow, else one bf16
+    torch.matmul on the dequantized weight."""
+    from repro_torch.core.qtensor import QUniform
+    from repro_torch.core.quant import quantize_act
+    from repro_torch.kernels import int8_matmul as k
+    tally = Tally("int8_matmul")
+    for path, calls in calls_by_path.items():
+        for (M, K, N), n in Counter([c[1:] for c in calls]).items():
+            x = _randn(torch, rng, (M, K), dtype=torch.bfloat16)
+            qt = QUniform.quantize(_randn(torch, rng, (K, N), std=K ** -0.5),
+                                   bits=8, act_max_abs=float(x.abs().max()))
+            args = (x, qt.payload, qt.act_scale, qt.scale.reshape(-1),
+                    qt.zero_point.reshape(-1))
+            if _int_mm_fits(M, K, N):
+                xq = quantize_act(x, qt.act_scale)
+                library = lambda: torch._int_mm(xq, qt.payload)  # noqa: E731
+            else:
+                w_deq = qt.dequant(torch.bfloat16)
+                library = lambda: torch.matmul(x, w_deq)  # noqa: E731
+            tally.measure(dict(M=M, K=K, N=N), n,
+                          lambda: k.int8_matmul(*args),
+                          lambda: k.int8_matmul_plain(*args), library,
+                          M * K * 2 + K * N + 2 * N * 4 + 4 + M * N * 4,
+                          2.0 * M * K * N / INT8_OPS_PER_S * 1e3,
+                          err_bound=0.0, path=path)
+    return tally
+
+
+def check_weights_only(torch, rng, name, calls) -> Tally:
+    """``int4_matmul`` (the w4-weights-only PWConvs) or ``apot_matmul``
+    (the weights-only APoT PWConvs) at every distinct (M, K, N); within the
+    f32 summation bound.  Yardstick: one bf16 torch.matmul on the
+    dequantized weight.  Operations count at the bf16 tensor-core rate:
+    x is bf16 and each decoded weight is a bf16-exact value ((q - zp) an
+    integer in [-15, 15]; an APoT value has at most 7 significant bits)
+    times a per-filter scale an epilogue can apply, so bf16 MMA with f32
+    accumulation does the same work within the same summation bound."""
+    from repro_torch.core.qtensor import QAPoT, QUniform
+    from repro_torch.kernels import apot_matmul, int4_matmul
+    k = int4_matmul if name == "int4_matmul" else apot_matmul
+    kernel, plain = getattr(k, name), getattr(k, f"{name}_plain")
+    tally = Tally(name, source="weights_only_matmul")
+    for (M, K, N), n in Counter([c[1:] for c in calls]).items():
+        x = _randn(torch, rng, (M, K), dtype=torch.bfloat16)
+        w = _randn(torch, rng, (K, N), std=K ** -0.5)
+        if k is int4_matmul:
+            qt = QUniform.quantize(w, bits=4)
+            args = (x, qt.payload, qt.scale.reshape(-1),
+                    qt.zero_point.reshape(-1))
+            w_bytes = K * N // 2 + 2 * N * 4
+        else:
+            qt = QAPoT.quantize(w)
+            args = (x, qt.codes, qt.scale.reshape(-1))
+            w_bytes = K * N + N * 4
+        w_hat = qt.dequant()
+        w_deq = w_hat.to(torch.bfloat16)
+        tally.measure(dict(M=M, K=K, N=N), n, lambda: kernel(*args),
+                      lambda: plain(*args), lambda: torch.matmul(x, w_deq),
+                      M * K * 2 + w_bytes + M * N * 4,
+                      2.0 * M * K * N / BF16_FLOPS_PER_S * 1e3,
+                      err_bound=f32_dot_bound(torch, x.float(), w_hat))
+    return tally
+
+
 def _get(tree, path):
     for part in path.split("/"):
         tree = tree[int(part)] if isinstance(tree, list) else tree[part]
     return tree
 
 
-def run_main_path(torch, cfg, m2q_calls, dw_calls, attn_calls, out_dir):
+# per recipe path: the leaf each (dense, depthwise, stem) weight becomes,
+# as leaf_kind() names it, and the kernel launches of one forward as
+# multiples of (dense, depthwise, attention) calls plus fixed extras
+PATHS = {
+    "m2q-w8a8": (("QM2Q+act", "QUniform4", "float"),
+                 {"m2q_matmul": "dense", "dwconv_w4": "dw",
+                  "relu_attn": "attn"}),
+    "uniform8": (("QUniform8+act", "QUniform8", "float"),
+                 {"int8_matmul": "dense", "relu_attn": "attn"}),
+    "int8-stem": (("QM2Q+act", "QUniform4", "QUniform8+act"),
+                  {"int8_matmul": 1, "m2q_matmul": "dense",
+                   "dwconv_w4": "dw", "relu_attn": "attn"}),
+    "w4-weights-only": (("QUniform4", "QUniform4", "float"),
+                        {"int4_matmul": "dense", "dwconv_w4": "dw",
+                         "relu_attn": "attn"}),
+    "apot-weights-only": (("QAPoT", "QUniform4", "float"),
+                          {"apot_matmul": "dense", "dwconv_w4": "dw",
+                           "relu_attn": "attn"}),
+}
+
+
+def path_recipe(name: str):
+    """The recipe of one path, built through the port's public API (the
+    int8 stem and weights-only APoT are recipes, not presets)."""
+    from repro_torch import recipe
+    from repro_torch.core.policy import M2QPolicy
+    from repro_torch.models import efficientvit as ev
+    if name == "int8-stem":
+        return recipe.PRESETS["m2q-w8a8"].replace(
+            rules=tuple(ev.QUANT_RULES) + (ev.STEM_RULE,),
+            overrides=(ev.STEM_OVERRIDE,))
+    if name == "apot-weights-only":
+        return recipe.QuantRecipe(name=name, policy=M2QPolicy(
+            compute_scheme="apot", quantize_activations=False))
+    return recipe.PRESETS[name]
+
+
+def leaf_kind(leaf) -> str:
+    from repro_torch.core.qtensor import QAPoT, QM2Q, QUniform
+    act = "+act" if getattr(leaf, "act_scale", None) is not None else ""
+    if isinstance(leaf, QM2Q):
+        return "QM2Q" + act
+    if isinstance(leaf, QUniform):
+        return f"QUniform{leaf.bits}" + act
+    if isinstance(leaf, QAPoT):
+        return "QAPoT" + act
+    return "float"
+
+
+def run_path(torch, cfg, name, calls, out_dir, full: bool):
+    """Quantize a full-width B1 under one recipe path, serve 12 images,
+    and check leaves, launch counters and logits.  ``full``: also time
+    the eager and plain-version forwards and trace one with
+    torch.profiler."""
     import numpy as np
     from repro_torch import kernels, recipe
-    from repro_torch.core.qtensor import QM2Q, QUniform
     from repro_torch.kernels import ops
     from repro_torch.models import efficientvit
 
+    m2q_calls, dw_calls, attn_calls = calls
+    leaves_want, per_fwd = PATHS[name]
+    n_calls = {"dense": len(m2q_calls), "dw": len(dw_calls),
+               "attn": len(attn_calls)}
+    want = {k: n_calls[v] if isinstance(v, str) else v
+            for k, v in per_fwd.items()}
+
     t0 = time.perf_counter()
     params = efficientvit.init(cfg, seed=0, device="cuda")
-    qm = recipe.quantize(cfg, params, "m2q-w8a8")
+    qm = recipe.quantize(cfg, params, path_recipe(name))
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
+    roles = ([(path, 0) for path, *_ in m2q_calls]
+             + [(path, 1) for path, *_ in dw_calls] + [("stem/w", 2)])
+    for path, role in roles:
+        got = leaf_kind(_get(qm.params, path))
+        if got != leaves_want[role]:
+            fail(f"{name}: {path} is a {got} leaf, expected "
+                 f"{leaves_want[role]}")
     for path, M, K, N in m2q_calls:
         leaf = _get(qm.params, path)
-        if not isinstance(leaf, QM2Q) or tuple(leaf.payload.shape) != (K, N):
-            fail(f"{path}: expected a ({K}, {N}) QM2Q leaf, got {leaf!r:.80}")
-    for path, *_ in dw_calls:
-        if not isinstance(_get(qm.params, path), QUniform):
-            fail(f"{path}: expected a 4-bit QUniform leaf")
+        rows = getattr(leaf, "payload", getattr(leaf, "codes", None))
+        if rows.shape[0] != K:
+            fail(f"{name}: {path} payload {tuple(rows.shape)}, K={K}")
 
     rng = np.random.default_rng(1)
     images = rng.normal(0, 1, (N_IMAGES, cfg.img_res, cfg.img_res, 3)
@@ -326,7 +519,7 @@ def run_main_path(torch, cfg, m2q_calls, dw_calls, attn_calls, out_dir):
     handles = [engine.submit(img) for img in images]
     while not all(h.done() for h in handles):
         if time.perf_counter() - t1 > 300:
-            fail("requests still pending after 300 s of polling")
+            fail(f"{name}: requests still pending after 300 s of polling")
         engine.poll()
         time.sleep(0.001)
     torch.cuda.synchronize()
@@ -336,18 +529,17 @@ def run_main_path(torch, cfg, m2q_calls, dw_calls, attn_calls, out_dir):
 
     forwards = engine.stats.batches
     if forwards != 2 or engine.stats.buckets_used != {8, 4}:
-        fail(f"expected batches of 8 and 4, got {forwards} batches over "
-             f"buckets {sorted(engine.stats.buckets_used)}")
-    want = {"m2q_matmul": len(m2q_calls), "dwconv_w4": len(dw_calls),
-            "relu_attn": len(attn_calls)}
-    for name, per_fwd in want.items():
-        c = counts[name]
-        if c["launches"] != per_fwd * forwards or c["plain_calls"] != 0:
-            fail(f"{name}: {c} over {forwards} forwards, expected "
-                 f"{per_fwd * forwards} launches and 0 plain calls")
+        fail(f"{name}: expected batches of 8 and 4, got {forwards} batches "
+             f"over buckets {sorted(engine.stats.buckets_used)}")
+    for kname, c in counts.items():
+        if c["launches"] != want.get(kname, 0) * forwards \
+                or c["plain_calls"] != 0:
+            fail(f"{name}: {kname} {c} over {forwards} forwards, expected "
+                 f"{want.get(kname, 0) * forwards} launches and 0 plain "
+                 "calls")
     if logits.shape != (N_IMAGES, cfg.n_classes) \
             or not np.all(np.isfinite(logits)):
-        fail(f"logits shape {logits.shape} or non-finite values")
+        fail(f"{name}: logits shape {logits.shape} or non-finite values")
 
     with ops.reference_path():
         ref = np.concatenate([
@@ -359,27 +551,35 @@ def run_main_path(torch, cfg, m2q_calls, dw_calls, attn_calls, out_dir):
     # bf16 activations: one bf16 ulp is 2^-8 of a value, so allow a few
     # ulps of the largest logit for a rounding slip anywhere upstream
     if not diff <= 2e-2 * top:
-        fail(f"served logits differ from the plain forward by {diff} "
-             f"(max |logit| {top})")
+        fail(f"{name}: served logits differ from the plain forward by "
+             f"{diff} (max |logit| {top})")
 
     x8 = torch.from_numpy(images[:BATCH]).cuda()
-    fwd_ms = cuda_ms(lambda: qm.forward(x8), iters=10)
     with torch.inference_mode():
         fwd_graph_ms = graph_ms(lambda: qm.forward(x8), iters=3)
-    with ops.reference_path():
-        plain_fwd_ms = cuda_ms(lambda: qm.forward(x8), iters=3, warmup=1)
-    trace = device_profile(lambda: qm.forward(x8))
-    if trace:  # busy share of the unprofiled eager forward
-        trace["busy_share"] = trace["busy_ms"] / fwd_ms
-    main = dict(quantize_s=t_quant, serve_12_images_s=t_serve,
-                forwards=forwards, counts=counts, logits_max_abs_diff=diff,
-                logits_max_abs=top, logits_exact=bool(diff == 0.0),
-                same_argmax=same_argmax, forward_b8_ms=fwd_ms,
-                forward_b8_graph_ms=fwd_graph_ms,
-                plain_forward_b8_ms=plain_fwd_ms, forward_b8_trace=trace,
-                serve_stats=engine.stats.summary())
-    (out_dir / "chip_smoke_main.json").write_text(json.dumps(main, indent=1))
-    print("main path:", json.dumps(main), flush=True)
+    res = dict(path=name, quantize_s=t_quant, serve_12_images_s=t_serve,
+               forwards=forwards,
+               launches_per_forward={k: c["launches"] // forwards
+                                     for k, c in counts.items()
+                                     if c["launches"]},
+               logits_max_abs_diff=diff, logits_max_abs=top,
+               logits_exact=bool(diff == 0.0), same_argmax=same_argmax,
+               forward_b8_graph_ms=fwd_graph_ms,
+               serve_stats=engine.stats.summary())
+    if full:
+        res["forward_b8_ms"] = cuda_ms(lambda: qm.forward(x8), iters=10)
+        with ops.reference_path():
+            res["plain_forward_b8_ms"] = cuda_ms(lambda: qm.forward(x8),
+                                                 iters=3, warmup=1)
+        trace = device_profile(lambda: qm.forward(x8))
+        if trace:  # busy share of the unprofiled eager forward
+            trace["busy_share"] = trace["busy_ms"] / res["forward_b8_ms"]
+        res["forward_b8_trace"] = trace
+    (out_dir / f"chip_smoke_path_{name}.json").write_text(
+        json.dumps(res, indent=1))
+    print(f"path {name}:", json.dumps(res), flush=True)
+    del qm, params, engine
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -409,35 +609,51 @@ def main() -> None:
     print(build.build_all(), flush=True)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- 3. kernel checks at the main path's shapes ---------------------
+    # ---- 3. kernel checks at the recipe paths' shapes ---------------------
     import numpy as np
     from repro_torch.configs.registry import ARCHS
     cfg = ARCHS["efficientvit-b1-r224"]
-    m2q_calls, dw_calls, attn_calls = main_path_calls(cfg, BATCH)
-    print(f"main path per forward: {len(m2q_calls)} m2q, {len(dw_calls)} "
-          f"dwconv, {len(attn_calls)} attention calls", flush=True)
+    calls = main_path_calls(cfg, BATCH)
+    m2q_calls, dw_calls, attn_calls = calls
+    r = -(-cfg.img_res // 2)
+    stem_call = ("stem/w", BATCH * r * r, 27, cfg.widths[0])
+    print(f"per forward: {len(m2q_calls)} dense, {len(dw_calls)} dwconv, "
+          f"{len(attn_calls)} attention calls; stem {stem_call}", flush=True)
     rng = np.random.default_rng(0)
     tallies = [check_m2q(torch, rng, m2q_calls),
                check_dwconv(torch, rng, dw_calls),
-               check_attn(torch, rng, attn_calls)]
+               check_attn(torch, rng, attn_calls),
+               check_int8(torch, rng, {"uniform8": m2q_calls,
+                                       "int8-stem": [stem_call]}),
+               check_weights_only(torch, rng, "int4_matmul", m2q_calls),
+               check_weights_only(torch, rng, "apot_matmul", m2q_calls)]
     detail = {t.name: t.rows for t in tallies}
     (out_dir / "chip_smoke_kernels.json").write_text(
         json.dumps(detail, indent=1))
     for t in tallies:
-        for r in t.rows:
-            print(t.name, json.dumps(r), flush=True)
+        for row in t.rows:
+            print(t.name, json.dumps(row), flush=True)
         print(f"{t.name} per forward: {json.dumps(t.total)}", flush=True)
-    print("kernels: m2q_matmul, dwconv_w4, relu_attn", flush=True)
+        for path, total in t.by_path.items():
+            print(f"{t.name} per {path} forward: {json.dumps(total)}",
+                  flush=True)
+    print("kernels:", ", ".join(t.name for t in tallies), flush=True)
 
-    # ---- 4. main path ---------------------------------------------------
-    counts = run_main_path(torch, cfg, m2q_calls, dw_calls, attn_calls,
-                           out_dir)
+    # ---- 4./5. the recipe paths, each read from zeroed counters ----------
+    launches = Counter()
+    for name in PATHS:
+        counts = run_path(torch, cfg, name, calls, out_dir,
+                          full=name == "m2q-w8a8")
+        launches.update({k: c["launches"] for k, c in counts.items()})
 
-    # ---- 5. results -----------------------------------------------------
+    # ---- 6. results -----------------------------------------------------
     replaces = {"m2q_matmul": "src/repro/kernels/m2q_matmul.py:80",
                 "dwconv_w4": "src/repro/kernels/dwconv_w4.py:107",
-                "relu_attn": "src/repro/kernels/relu_attn.py:74"}
-    entries = [t.entry(replaces[t.name], counts[t.name]["launches"],
+                "relu_attn": "src/repro/kernels/relu_attn.py:74",
+                "int8_matmul": "src/repro/kernels/int8_matmul.py:53",
+                "int4_matmul": "src/repro/kernels/int4_matmul.py:47",
+                "apot_matmul": "src/repro/kernels/apot_matmul.py:56"}
+    entries = [t.entry(replaces[t.name], launches[t.name],
                        library=t.name != "relu_attn") for t in tallies]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

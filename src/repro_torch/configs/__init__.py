@@ -1,1 +1,1 @@
-"""Model configurations (EfficientViT-B1)."""
+"""Model configurations (EfficientViT-B1 and B2)."""

@@ -8,6 +8,8 @@ with its class under ``"qtensor"`` and its fields by the JAX leaf's names:
   "act_scale", "shape", "n_uniform", "n_apot"}``
 * ``{"qtensor": "QUniform", "payload", "scale", "zero_point",
   "act_scale", "bits", "axis", "shape"}``
+* ``{"qtensor": "QAPoT", "codes" (K, N) uint8, "scale" (1, N) f32,
+  "act_scale", "shape"}``
 
 ``act_scale`` may be None.  Anything else, and any field whose dtype or
 shape disagrees with the leaf it claims to be, raises.
@@ -20,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .core.qtensor import QM2Q, QUniform
+from .core.qtensor import QAPoT, QM2Q, QUniform
 
 
 def _array(d: dict, key: str, dtype, shape, what: str) -> np.ndarray:
@@ -52,9 +54,17 @@ def _act(d: dict, what: str) -> Optional[np.ndarray]:
     return a.reshape(())
 
 
+def _shape(d: dict, what: str) -> tuple:
+    shape = d.get("shape")
+    if not isinstance(shape, (list, tuple)) or len(shape) < 2:
+        raise TypeError(f"{what}: 'shape' must be the float weight's shape "
+                        f"(a list of at least 2 ints), got {shape!r}")
+    return tuple(int(s) for s in shape)
+
+
 def _qm2q(d: dict, path: str, device) -> QM2Q:
     what = f"{path} (QM2Q)"
-    shape = tuple(int(s) for s in d["shape"])
+    shape = _shape(d, what)
     n = shape[-1]
     k = math.prod(shape[:-1])
     n_uniform, n_apot = int(d["n_uniform"]), int(d["n_apot"])
@@ -73,7 +83,7 @@ def _qm2q(d: dict, path: str, device) -> QM2Q:
 
 def _quniform(d: dict, path: str, device) -> QUniform:
     what = f"{path} (QUniform)"
-    shape = tuple(int(s) for s in d["shape"])
+    shape = _shape(d, what)
     bits, axis = int(d["bits"]), int(d["axis"])
     if axis != 1:
         raise ValueError(f"{what}: axis must be 1 (filter-wise over the "
@@ -93,7 +103,18 @@ def _quniform(d: dict, path: str, device) -> QUniform:
                     axis, shape)
 
 
-_BUILDERS = {"QM2Q": _qm2q, "QUniform": _quniform}
+def _qapot(d: dict, path: str, device) -> QAPoT:
+    what = f"{path} (QAPoT)"
+    shape = _shape(d, what)
+    n = shape[-1]
+    codes = _array(d, "codes", np.uint8, (math.prod(shape[:-1]), n), what)
+    scale = _array(d, "scale", np.float32, (1, n), what)
+    act = _act(d, what)
+    return QAPoT(_tensor(codes, device), _tensor(scale, device),
+                 None if act is None else _tensor(act, device), shape)
+
+
+_BUILDERS = {"QM2Q": _qm2q, "QUniform": _quniform, "QAPoT": _qapot}
 
 
 def params_from_numpy(tree, device="cuda", _path: str = ""):
@@ -139,6 +160,12 @@ def params_to_numpy(tree):
                 "act_scale": None if tree.act_scale is None
                 else _np(tree.act_scale),
                 "bits": tree.bits, "axis": tree.axis,
+                "shape": list(tree.shape)}
+    if isinstance(tree, QAPoT):
+        return {"qtensor": "QAPoT", "codes": _np(tree.codes),
+                "scale": _np(tree.scale),
+                "act_scale": None if tree.act_scale is None
+                else _np(tree.act_scale),
                 "shape": list(tree.shape)}
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}

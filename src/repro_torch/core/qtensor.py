@@ -22,7 +22,7 @@ import torch
 
 from . import packing
 from .quant import (act_scale_from_stats, apot_quantize, fake_quant_act,
-                    int_einsum, quantize_act, uniform_quantize)
+                    uniform_quantize)
 
 I8_OFFSET = 128
 
@@ -73,11 +73,11 @@ class QUniform:
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
         """y = x @ W; the W8A8 integer path when calibrated 8-bit."""
         if self.bits == 8 and self.act_scale is not None:
-            xq = quantize_act(x, self.act_scale)
-            acc = int_einsum("...k,kn->...n", xq, self.payload)
-            xsum = xq.to(torch.int32).sum(dim=-1, keepdim=True)
-            y = acc - xsum.to(torch.float32) * self.zero_point
-            return (y * (self.act_scale * self.scale)).to(x.dtype)
+            from ..kernels.int8_matmul import int8_matmul_plain
+            y = int8_matmul_plain(x.reshape(-1, x.shape[-1]), self.payload,
+                                  self.act_scale, self.scale.reshape(-1),
+                                  self.zero_point.reshape(-1))
+            return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
         return x @ self.dequant(x.dtype)
 
 

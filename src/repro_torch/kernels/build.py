@@ -21,9 +21,14 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("m2q_matmul", "dwconv_w4", "relu_attn")
+# each source and the extern "C" entry points it defines
+SOURCES = {"m2q_matmul": ("m2q_matmul",), "dwconv_w4": ("dwconv_w4",),
+           "relu_attn": ("relu_attn",), "int8_matmul": ("int8_matmul",),
+           "weights_only_matmul": ("int4_matmul", "apot_matmul")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -98,3 +103,36 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+
+
+def check_operands(name: str, x: torch.Tensor, *operands) -> None:
+    """The launch contract of the matmul kernels: ``x`` a contiguous 2-D
+    float32/bfloat16 tensor; each ``(field, tensor, dtype)`` contiguous, of
+    that dtype, on ``x``'s device.  Raises ValueError otherwise."""
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            or not x.is_contiguous() or x.ndim != 2:
+        raise ValueError(f"{name}: x must be a contiguous 2-D float32 or "
+                         "bfloat16 tensor")
+    for field, t, dtype in operands:
+        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: {field} must be a contiguous {dtype} "
+                             f"tensor on {x.device}")
+
+
+def launch_matmul(source: str, name: str, x: torch.Tensor, n: int,
+                  *operands) -> torch.Tensor:
+    """Launch the matmul kernel ``extern "C" int <name>(x, operands...,
+    y, M, N, K, x_is_bf16, stream)`` of ``csrc/<source>.cu`` on x's
+    current stream after :func:`check_operands`; returns y (M, n) f32."""
+    check_operands(name, x, *operands)
+    m, k = x.shape
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    fn = getattr(load(source), name)
+    fn.argtypes = [ctypes.c_void_p] * (len(operands) + 2) \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), *(t.data_ptr() for _, t, _ in operands),
+             y.data_ptr(), m, n, k, int(x.dtype == torch.bfloat16),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, name)
+    return y

@@ -11,8 +11,6 @@ CUDA tensor and takes :func:`m2q_matmul_plain` only for a CPU tensor.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..core.packing import apot_decode_units
@@ -47,36 +45,17 @@ def m2q_matmul_plain(x: torch.Tensor, act_scale: torch.Tensor,
 
 
 def _launch(x, act_scale, payload, u_scale, u_zp, a_scale) -> torch.Tensor:
-    M, K = x.shape
+    K = x.shape[-1]
     N = payload.shape[1]
-    for name, t, dt in (("act_scale", act_scale, torch.float32),
-                        ("payload", payload, torch.int8),
-                        ("u_scale", u_scale, torch.float32),
-                        ("u_zp", u_zp, torch.float32),
-                        ("a_scale", a_scale, torch.float32)):
-        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"m2q_matmul: {name} must be a contiguous {dt} "
-                             f"tensor on {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16) \
-            or not x.is_contiguous():
-        raise ValueError("m2q_matmul: x must be contiguous float32 or "
-                         "bfloat16")
     if payload.shape[0] != K or u_scale.numel() != N or u_zp.numel() != N \
             or a_scale.numel() != N or act_scale.numel() != 1:
         raise ValueError(f"m2q_matmul: shapes disagree: x {tuple(x.shape)}, "
                          f"payload {tuple(payload.shape)}")
-    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    lib = build.load("m2q_matmul")
-    fn = lib.m2q_matmul
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), act_scale.data_ptr(), payload.data_ptr(),
-             u_scale.data_ptr(), u_zp.data_ptr(), a_scale.data_ptr(),
-             y.data_ptr(), M, N, K, int(x.dtype == torch.bfloat16),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "m2q_matmul")
-    return y
+    return build.launch_matmul(
+        "m2q_matmul", "m2q_matmul", x, N,
+        ("act_scale", act_scale, torch.float32),
+        ("payload", payload, torch.int8), ("u_scale", u_scale, torch.float32),
+        ("u_zp", u_zp, torch.float32), ("a_scale", a_scale, torch.float32))
 
 
 def m2q_matmul(x: torch.Tensor, act_scale: torch.Tensor, payload: torch.Tensor,

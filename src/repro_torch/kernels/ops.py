@@ -1,12 +1,18 @@
 """QTensor-level entry points onto the kernels (twin of the
-``qtensor_matmul`` / ``qtensor_dwconv`` / ``relu_attn_op`` part of
-``repro.kernels.ops``).
+``kernel_supported`` / ``qtensor_matmul`` / ``qtensor_dwconv`` /
+``relu_attn_op`` part of ``repro.kernels.ops``).
 
-Each routes a leaf to its kernel wrapper, which launches the CUDA kernel
-for CUDA tensors and runs the plain version for CPU tensors.  Nothing
-falls back: a kernel that fails to build or launch raises.  The one switch
-is :func:`reference_path`, an explicit scope in which the plain versions
-run on any device -- the reference a caller compares the kernels against.
+:func:`qtensor_matmul` routes exactly the leaves the JAX package's
+``kernel_supported`` accepts to a kernel: calibrated ``QM2Q`` ->
+``m2q_matmul``; 2-D ``QUniform`` (axis 1) at 8 bits with an activation
+scale -> ``int8_matmul``, at 4 bits -> ``int4_matmul``; 2-D ``QAPoT``
+without an activation scale -> ``apot_matmul``.  Every other leaf takes its
+plain QTensor ``matmul``, as JAX's ``qmatmul`` does.  Each kernel wrapper
+launches the CUDA kernel for CUDA tensors and runs the plain version for
+CPU tensors.  Nothing falls back: a kernel that fails to build or launch
+raises.  The one switch is :func:`reference_path`, an explicit scope in
+which the plain versions run on any device -- the reference a caller
+compares the kernels against.
 """
 from __future__ import annotations
 
@@ -16,7 +22,10 @@ import contextvars
 import torch
 
 from ..core.qtensor import QAPoT, QM2Q, QUniform
+from . import apot_matmul as _apot
 from . import dwconv_w4 as _dw
+from . import int4_matmul as _int4
+from . import int8_matmul as _int8
 from . import m2q_matmul as _m2q
 from . import relu_attn as _attn
 
@@ -46,22 +55,47 @@ def default_attn(device: torch.device) -> str:
     return ATTN_INT8 if torch.device(device).type == "cuda" else ATTN_F32
 
 
+def kernel_supported(qt) -> bool:
+    """True when a kernel computes this leaf's matmul (twin of JAX's
+    ``kernel_supported``): a 2-D weight whose activation handling the
+    kernel shares -- calibrated int paths quantize activations,
+    weights-only paths do not."""
+    if isinstance(qt, QM2Q):
+        return qt.payload.ndim == 2 and qt.act_scale is not None
+    if isinstance(qt, QUniform):
+        if qt.payload.ndim != 2 or qt.axis != 1:
+            return False
+        return qt.bits == 4 or (qt.bits == 8 and qt.act_scale is not None)
+    if isinstance(qt, QAPoT):
+        return qt.codes.ndim == 2 and qt.act_scale is None
+    return False
+
+
+def _kernel_matmul(x2: torch.Tensor, qt) -> torch.Tensor:
+    """x2 (M, K) through the leaf's kernel (or its plain version inside
+    :func:`reference_path`) -> (M, N) f32."""
+    ref = _REFERENCE.get()
+    if isinstance(qt, QM2Q):
+        fn = _m2q.m2q_matmul_plain if ref else _m2q.m2q_matmul
+        return fn(x2, qt.act_scale, qt.payload, qt.u_scale.reshape(-1),
+                  qt.u_zp.reshape(-1), qt.a_scale.reshape(-1))
+    if isinstance(qt, QAPoT):
+        fn = _apot.apot_matmul_plain if ref else _apot.apot_matmul
+        return fn(x2, qt.codes, qt.scale.reshape(-1))
+    if qt.bits == 8:
+        fn = _int8.int8_matmul_plain if ref else _int8.int8_matmul
+        return fn(x2, qt.payload, qt.act_scale, qt.scale.reshape(-1),
+                  qt.zero_point.reshape(-1))
+    fn = _int4.int4_matmul_plain if ref else _int4.int4_matmul
+    return fn(x2, qt.payload, qt.scale.reshape(-1), qt.zero_point.reshape(-1))
+
+
 def qtensor_matmul(x: torch.Tensor, qt) -> torch.Tensor:
     """y = x @ W for a 2-D QTensor leaf; x (..., K) -> (..., N) in x.dtype."""
-    if isinstance(qt, QM2Q) and qt.act_scale is not None:
-        x2 = x.reshape(-1, x.shape[-1]).contiguous()
-        fn = _m2q.m2q_matmul_plain if _REFERENCE.get() else _m2q.m2q_matmul
-        y = fn(x2, qt.act_scale, qt.payload, qt.u_scale.reshape(-1),
-               qt.u_zp.reshape(-1), qt.a_scale.reshape(-1))
-        return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
-    kernel_leaf = (isinstance(qt, QUniform) and qt.bits in (4, 8)
-                   and (qt.bits == 4 or qt.act_scale is not None)) or \
-        (isinstance(qt, QAPoT) and qt.act_scale is None)
-    if kernel_leaf and x.device.type == "cuda" and not _REFERENCE.get():
-        raise NotImplementedError(
-            f"{type(qt).__name__} (bits={getattr(qt, 'bits', None)}) runs "
-            "a kernel that is not ported to CUDA yet")
-    return qt.matmul(x)
+    if not kernel_supported(qt):
+        return qt.matmul(x)
+    y = _kernel_matmul(x.reshape(-1, x.shape[-1]).contiguous(), qt)
+    return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
 
 
 def dwconv_supported(qt, x: torch.Tensor, stride: int, groups: int,

@@ -31,6 +31,18 @@ QUANT_OVERRIDES = (
      pol.PathOverride(decision=pol.DECISION_MIXED)),
 )
 
+# Opt-in int8 stem: QUANT_RULES leave the 3x3 cin=3 stem float; a recipe
+# may quantize it to uniform-8 W8A8 and run it as im2col + int8 matmul:
+#
+#     rec = PRESETS["m2q-w8a8"].replace(
+#         rules=tuple(QUANT_RULES) + (STEM_RULE,),
+#         overrides=(STEM_OVERRIDE,))
+#
+# Recipe overrides precede QUANT_OVERRIDES, so the pins above still hold.
+STEM_RULE = (r"stem/w$", pol.KIND_DENSE)
+STEM_OVERRIDE = (r"stem/w$", pol.PathOverride(decision=pol.DECISION_MIXED,
+                                              scheme="uniform8"))
+
 
 # ---------------------------------------------------------------------------
 # init

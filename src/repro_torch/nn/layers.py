@@ -67,11 +67,33 @@ def _float_conv(x, w, stride: int, groups: int, padding: str):
     return y.permute(0, 2, 3, 1)
 
 
+def _im2col(x: torch.Tensor, kh: int, kw: int, stride: int,
+            padding: str) -> torch.Tensor:
+    """(B,H,W,C) -> (B,HO,WO,kh*kw*C) patches, feature order (i, j, c):
+    the row order of a flattened-HWIO payload, so an im2col'd conv is
+    exactly ``patches @ payload``."""
+    H, W = x.shape[1], x.shape[2]
+    if padding == "SAME":
+        ph, pw = same_padding(H, kh, stride), same_padding(W, kw, stride)
+        x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+        HO, WO = -(-H // stride), -(-W // stride)
+    elif padding == "VALID":
+        HO, WO = (H - kh) // stride + 1, (W - kw) // stride + 1
+    else:
+        raise ValueError(f"padding {padding!r}")
+    s = stride
+    taps = [x[:, i:i + (HO - 1) * s + 1:s, j:j + (WO - 1) * s + 1:s]
+            for i in range(kh) for j in range(kw)]
+    return torch.cat(taps, dim=-1)
+
+
 def _qconv2d(x, w, stride: int, groups: int, padding: str):
     """Quantized-conv hot path: a 1x1 stride-1 PWConv is a matmul over
-    B*H*W pixel rows (the m2q kernel); a 4-bit depthwise filter runs the
-    dwconv_w4 kernel.  None when only the dequantized-weight conv applies
-    (im2col of other quantized filters waits for the int8 stem)."""
+    B*H*W pixel rows; a 4-bit depthwise filter runs the dwconv_w4 kernel;
+    any other un-grouped KxK filter (the opt-in int8 stem) is im2col + the
+    same quantized matmul.  ``ops.qtensor_matmul`` picks the leaf's kernel.
+    None when only the dequantized-weight conv applies (e.g. the 8-bit
+    depthwise filters of ``uniform8``)."""
     shape = tuple(w.shape)
     ints = getattr(w, "payload", None)
     if ints is None:
@@ -82,6 +104,10 @@ def _qconv2d(x, w, stride: int, groups: int, padding: str):
         return ops.qtensor_matmul(x, w)
     if ops.dwconv_supported(w, x, stride, groups, padding):
         return ops.qtensor_dwconv(x, w, stride=stride)
+    kh, kw, cin_g, _ = shape
+    if groups == 1 and padding in ("SAME", "VALID") \
+            and x.shape[-1] == cin_g:
+        return ops.qtensor_matmul(_im2col(x, kh, kw, stride, padding), w)
     return None
 
 

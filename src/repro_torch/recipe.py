@@ -7,20 +7,25 @@
     engine = qm.serve(max_batch=8)
 
 PTQ activation calibration -> Eq. 6 scheme selection -> mixed-scheme /
-mixed-precision quantization.  The ``m2q-w8a8`` preset is ported; the other
-presets and ``save``/``load`` come with later slices.
+mixed-precision quantization.  Presets: ``m2q-w8a8`` (the paper's flow),
+``uniform8`` (W8A8 uniform everywhere) and ``w4-weights-only``; any other
+:class:`QuantRecipe` is built from its fields (the opt-in int8 stem appends
+``efficientvit.STEM_RULE`` / ``STEM_OVERRIDE``; a weights-only APoT recipe is
+``M2QPolicy(compute_scheme="apot", quantize_activations=False)``).
+``save``/``load`` come with a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, List, Optional, Union
+from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .core.apply import LayerReport, quantize_model
+from .core import policy as pol
+from .core.apply import LayerReport, Override, Rule, quantize_model
 from .core.calibrate import rule_matcher, run_calibration, wrap_for_calibration
-from .core.policy import M2QPolicy, ShapeCtx
+from .core.policy import M2QPolicy, PathOverride, ShapeCtx
 from .core.tree import device_of
 from .models import get_model
 from .models.config import ArchConfig
@@ -38,20 +43,73 @@ class CalibSpec:
 
 @dataclasses.dataclass(frozen=True)
 class QuantRecipe:
-    """One quantization run: the policy and the calibration spec.  The
-    rules and per-path overrides are the model's QUANT_RULES and
-    QUANT_OVERRIDES (recipe-level rules/overrides come with the opt-in int8
-    stem)."""
+    """One quantization run.  ``rules`` defaults to the model's QUANT_RULES;
+    ``overrides`` are ordered ``(path regex, PathOverride)`` pairs consulted
+    before the model's QUANT_OVERRIDES (first match wins);
+    ``tokens_per_step`` fixes the deployment ShapeCtx (None: batch * res^2
+    pixels of the calibration batches)."""
 
     name: str = "m2q-w8a8"
     policy: M2QPolicy = M2QPolicy()
+    rules: Optional[Tuple[Rule, ...]] = None
+    overrides: Tuple[Override, ...] = ()
     calib: CalibSpec = CalibSpec()
+    tokens_per_step: Optional[int] = None
+
+    def replace(self, **kw) -> "QuantRecipe":
+        return dataclasses.replace(self, **kw)
+
+    def validate(self) -> None:
+        if self.policy.compute_scheme not in ("m2q", "uniform8", "apot"):
+            raise ValueError(
+                f"recipe {self.name!r}: unknown compute_scheme "
+                f"{self.policy.compute_scheme!r}")
+
+    def resolve(self, cfg: ArchConfig) -> "ResolvedRecipe":
+        """Bind the recipe to one architecture: the model's rules unless
+        the recipe names its own, recipe overrides before the arch's, and
+        the deployment ShapeCtx."""
+        model = get_model(cfg)
+        rules = tuple(self.rules if self.rules is not None
+                      else model.QUANT_RULES)
+        overrides = tuple(self.overrides) + tuple(model.QUANT_OVERRIDES)
+        toks = self.tokens_per_step
+        if toks is None:
+            toks = _tokens_per_step(cfg, self.calib.batch_size)
+        return ResolvedRecipe(recipe=self, cfg=cfg, rules=rules,
+                              overrides=overrides,
+                              shape_ctx=ShapeCtx(tokens_per_step=toks))
+
+
+@dataclasses.dataclass(frozen=True)
+class ResolvedRecipe:
+    """A QuantRecipe bound to one ArchConfig (all defaults filled in)."""
+
+    recipe: QuantRecipe
+    cfg: ArchConfig
+    rules: Tuple[Rule, ...]
+    overrides: Tuple[Override, ...]
+    shape_ctx: ShapeCtx
+
+    @property
+    def policy(self) -> M2QPolicy:
+        return self.recipe.policy
 
 
 PRESETS: Dict[str, QuantRecipe] = {
     # the paper's two-level flow: mixed uniform8/APoT on compute-intensive
     # weights, 4-bit uniform on memory-intensive ones, W8A8 integer path
     "m2q-w8a8": QuantRecipe(name="m2q-w8a8", policy=M2QPolicy()),
+    # single-scheme uniform W8A8 everywhere (the Trio-ViT baseline row)
+    "uniform8": QuantRecipe(
+        name="uniform8",
+        policy=M2QPolicy(compute_scheme="uniform8", memory_bits=8)),
+    # weights-only 4-bit: no activation quantization, every quantizable
+    # weight low-bit regardless of intensity
+    "w4-weights-only": QuantRecipe(
+        name="w4-weights-only",
+        policy=M2QPolicy(memory_bits=4, quantize_activations=False),
+        overrides=((r".", PathOverride(decision=pol.DECISION_LOWBIT)),)),
 }
 
 
@@ -127,14 +185,15 @@ def quantize(arch_or_cfg, params, recipe: Union[str, QuantRecipe] = "m2q-w8a8",
              attn: Optional[str] = None) -> QuantizedModel:
     """Calibrate -> scheme-select -> quantize, in one call, on the device
     the float ``params`` live on.  ``calib_batches``: model inputs (numpy
-    or tensors); None synthesizes them per the recipe's CalibSpec.
-    ``attn``: the MSA token mixer used during calibration (device
-    default when None)."""
+    or tensors); None synthesizes them per the recipe's CalibSpec;
+    weights-only recipes skip calibration.  ``attn``: the MSA token mixer
+    used during calibration (device default when None)."""
     cfg = resolve_cfg(arch_or_cfg)
     rec = as_recipe(recipe)
+    rec.validate()
+    resolved = rec.resolve(cfg)
     model = get_model(cfg)
     device = device_of(params)
-    toks = _tokens_per_step(cfg, rec.calib.batch_size)
 
     act_stats: Dict[str, float] = {}
     n_calib = 0
@@ -144,19 +203,24 @@ def quantize(arch_or_cfg, params, recipe: Union[str, QuantRecipe] = "m2q-w8a8",
         calib_batches = [torch.as_tensor(b, device=device)
                          for b in calib_batches]
         n_calib = len(calib_batches)
-        if calib_batches:  # the deployment shape of the real batches
-            toks = _tokens_per_step(cfg, int(calib_batches[0].shape[0]))
+        # the deployment shape of the real batches, unless the recipe
+        # pins one
+        if rec.tokens_per_step is None and calib_batches:
+            resolved = dataclasses.replace(resolved, shape_ctx=ShapeCtx(
+                tokens_per_step=_tokens_per_step(
+                    cfg, int(calib_batches[0].shape[0]))))
         wrapped, act_stats = wrap_for_calibration(
-            params, rule_matcher(model.QUANT_RULES))
+            params, rule_matcher(resolved.rules))
         run_calibration(
             lambda p, b: model.forward(cfg, p, b, attn=attn), wrapped,
             calib_batches)
 
     qparams, report = quantize_model(
-        params, model.QUANT_RULES, ShapeCtx(tokens_per_step=toks),
-        rec.policy, act_stats=act_stats, overrides=model.QUANT_OVERRIDES)
+        params, resolved.rules, resolved.shape_ctx, rec.policy,
+        act_stats=act_stats, overrides=resolved.overrides)
+    toks = resolved.shape_ctx.tokens_per_step
     return QuantizedModel(
-        cfg=cfg, recipe=rec, params=qparams,
+        cfg=cfg, recipe=rec.replace(tokens_per_step=toks), params=qparams,
         report=report, act_stats=dict(act_stats),
         provenance={"calib_batches": n_calib, "calib_sites": len(act_stats),
                     "tokens_per_step": toks})

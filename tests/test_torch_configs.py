@@ -1,0 +1,26 @@
+"""The port's EfficientViT configurations equal the JAX package's, field
+by field (the port's ArchConfig carries the vision subset of the fields)."""
+import dataclasses
+
+import pytest
+
+from repro.configs import registry as jreg
+from repro_torch.configs import registry as treg
+
+NAMES = ["efficientvit-b1-r224", "efficientvit-b2-r224",
+         "efficientvit-b1-r256", "efficientvit-b1-r288"]
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_config_equals_jax(name):
+    ours, theirs = treg.ARCHS[name], jreg.ARCHS[name]
+    for f in dataclasses.fields(ours):
+        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+
+
+@pytest.mark.parametrize("name", ["efficientvit-b1-r224",
+                                  "efficientvit-b2-r224"])
+def test_reduced_config_equals_jax(name):
+    ours, theirs = treg.REDUCED[name], jreg.REDUCED[name]
+    for f in dataclasses.fields(ours):
+        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name

@@ -8,7 +8,7 @@ import torch
 
 from repro_torch.configs.efficientvit_b1 import REDUCED
 from repro_torch.convert import params_from_numpy, params_to_numpy
-from repro_torch.core.qtensor import QM2Q, QUniform
+from repro_torch.core.qtensor import QAPoT, QM2Q, QUniform
 from repro_torch.core.tree import leaves_with_path
 from repro_torch.models import efficientvit
 from repro_torch.recipe import quantize
@@ -100,3 +100,39 @@ def test_unknown_leaf_kinds_raise(leaf):
 def test_params_to_numpy_rejects_foreign_leaves():
     with pytest.raises(TypeError):
         params_to_numpy({"w": object()})
+
+
+def _qapot_tree(act: bool):
+    w = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 0.1, (3, 3, 4, 6)).astype(np.float32))
+    qt = QAPoT.quantize(w.reshape(-1, 6), act_max_abs=2.5 if act else None)
+    return {"stem": {"w": QAPoT(qt.codes, qt.scale, qt.act_scale,
+                                tuple(w.shape))}}
+
+
+@pytest.mark.parametrize("act", [False, True])
+def test_qapot_leaf_round_trips(act):
+    np_tree = params_to_numpy(_qapot_tree(act))
+    leaf = np_tree["stem"]["w"]
+    assert leaf["qtensor"] == "QAPoT" and leaf["codes"].dtype == np.uint8
+    assert leaf["codes"].shape == (36, 6) and leaf["scale"].shape == (1, 6)
+    back = params_from_numpy(np_tree, "cpu")
+    assert isinstance(back["stem"]["w"], QAPoT)
+    assert back["stem"]["w"].shape == (3, 3, 4, 6)
+    _assert_same(np_tree, params_to_numpy(back))
+
+
+@pytest.mark.parametrize("field,bad", [
+    ("codes", lambda a: a.astype(np.int8)),
+    ("codes", lambda a: a[:-1]),
+    ("scale", lambda a: a.astype(np.float64)),
+    ("scale", lambda a: a.reshape(-1)),
+    ("act_scale", lambda a: np.float64(a)),
+    ("shape", lambda a: a[:1]),
+])
+def test_mismatched_qapot_fields_raise(field, bad):
+    tree = params_to_numpy(_qapot_tree(True))
+    leaf = tree["stem"]["w"]
+    leaf[field] = bad(leaf[field])
+    with pytest.raises((TypeError, ValueError)):
+        params_from_numpy(tree, "cpu")

@@ -11,9 +11,10 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.core.qtensor import QM2Q, QUniform
+from repro_torch.core.qtensor import QAPoT, QM2Q, QUniform
 from repro_torch.core.scheme_select import select_schemes
-from repro_torch.kernels import dwconv_w4, m2q_matmul, relu_attn
+from repro_torch.kernels import (apot_matmul, dwconv_w4, int4_matmul,
+                                 int8_matmul, m2q_matmul, ops, relu_attn)
 
 pytestmark = pytest.mark.gpu
 
@@ -93,3 +94,82 @@ def test_kernel_rejects_bad_operands(cuda):
         m2q_matmul.m2q_matmul(x, s, torch.zeros((16, 8), dtype=torch.int8,
                                                 device=cuda),
                               *(torch.zeros(8, device=cuda),) * 3)
+
+
+# the main path's matmul shapes: the im2col'd stem (K=27, N=16), stage 0
+# (K=16), the head (M=8, K=1024, N=1000) and a ragged middle
+MATMUL_SHAPES = [(100352, 27, 16), (100, 16, 64), (65, 72, 1000),
+                 (8, 1024, 1000), (777, 256, 130)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", MATMUL_SHAPES)
+def test_int8_kernel_equals_plain(cuda, M, K, N, dtype):
+    x = _randn((M, K), M + K, cuda, dtype=dtype)
+    qt = QUniform.quantize(_randn((K, N), N, cuda, std=K ** -0.5), bits=8,
+                           act_max_abs=float(x.abs().max()))
+    args = (x, qt.payload, qt.act_scale, qt.scale.reshape(-1),
+            qt.zero_point.reshape(-1))
+    kernels.reset_counts()
+    y = int8_matmul.int8_matmul(*args)
+    assert kernels.counts()["int8_matmul"] == {"launches": 1,
+                                               "plain_calls": 0}
+    _equal(y, int8_matmul.int8_matmul_plain(*args))
+
+
+def _within_f32_bound(y, y_ref, x, w_hat):
+    """Two f32 dots summed in different orders differ by at most
+    K * 2^-23 * (|x| @ |W|); one more 2^-23 covers an epilogue scale
+    multiply rounded on each side."""
+    K = x.shape[1]
+    bound = (K + 1) * 2.0 ** -23 * (x.float().abs().double()
+                                    @ w_hat.abs().double())
+    err = (y.double() - y_ref.double()).abs()
+    assert bool(torch.all(err <= bound)), float((err / bound).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", MATMUL_SHAPES)
+def test_int4_kernel_within_f32_bound_of_plain(cuda, M, K, N, dtype):
+    x = _randn((M, K), M + K, cuda, dtype=dtype)
+    qt = QUniform.quantize(_randn((K, N), N, cuda, std=K ** -0.5), bits=4)
+    args = (x, qt.payload, qt.scale.reshape(-1), qt.zero_point.reshape(-1))
+    y = int4_matmul.int4_matmul(*args)
+    _within_f32_bound(y, int4_matmul.int4_matmul_plain(*args), x,
+                      qt.dequant())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", MATMUL_SHAPES)
+def test_apot_kernel_within_f32_bound_of_plain(cuda, M, K, N, dtype):
+    x = _randn((M, K), M + K, cuda, dtype=dtype)
+    qt = QAPoT.quantize(_randn((K, N), N, cuda, std=K ** -0.5))
+    args = (x, qt.codes, qt.scale.reshape(-1))
+    y = apot_matmul.apot_matmul(*args)
+    _within_f32_bound(y, apot_matmul.apot_matmul_plain(*args), x,
+                      qt.dequant())
+
+
+def test_qtensor_matmul_launches_a_kernel_for_every_supported_leaf(cuda):
+    """On the card every leaf JAX's kernel_supported accepts launches its
+    kernel (no plain call, no CPU); the others run their QTensor matmul."""
+    x = _randn((6, 32), 3, cuda, dtype=torch.bfloat16)
+    w = _randn((32, 24), 4, cuda, std=0.2)
+    ams = float(x.abs().max())
+    asn = select_schemes(w)
+    cases = [
+        (QUniform.quantize(w, bits=8, act_max_abs=ams), "int8_matmul"),
+        (QUniform.quantize(w, bits=4), "int4_matmul"),
+        (QAPoT.quantize(w), "apot_matmul"),
+        (QM2Q.quantize(w, asn.apot_idx, asn.uniform_idx, act_max_abs=ams),
+         "m2q_matmul"),
+        (QUniform.quantize(w, bits=8), None),
+        (QAPoT.quantize(w, act_max_abs=ams), None),
+    ]
+    for qt, name in cases:
+        kernels.reset_counts()
+        y = ops.qtensor_matmul(x, qt)
+        assert y.device.type == "cuda" and y.dtype == torch.bfloat16
+        launched = {k for k, c in kernels.counts().items() if c["launches"]}
+        assert launched == ({name} if name else set()), (qt, launched)
+        assert all(c["plain_calls"] == 0 for c in kernels.counts().values())

@@ -20,7 +20,8 @@ from repro.kernels import ref
 from repro_torch import kernels
 from repro_torch.core import quant as tquant
 from repro_torch.core.qtensor import QM2Q
-from repro_torch.kernels import build, dwconv_w4, m2q_matmul, ops, relu_attn
+from repro_torch.kernels import (apot_matmul, build, dwconv_w4, int4_matmul,
+                                 int8_matmul, m2q_matmul, ops, relu_attn)
 
 
 def _rng(*key):
@@ -185,9 +186,17 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     dwconv_w4.dwconv_w4(torch.from_numpy(xd), *_torch((packed, scale, zp)))
     q, k, v = (torch.from_numpy(a) for a in _attn_case(1, 4, 1, 8))
     relu_attn.relu_attn(q, k, v, *relu_attn.attn_scales(q, k, v))
+    xm = torch.ones((3, 4))
+    s1, s2 = torch.ones(()), torch.ones(2)
+    int8_matmul.int8_matmul(xm, torch.ones((4, 2), dtype=torch.int8), s1,
+                            s2, s2)
+    int4_matmul.int4_matmul(xm, torch.ones((4, 1), dtype=torch.uint8), s2,
+                            s2)
+    apot_matmul.apot_matmul(xm, torch.ones((4, 2), dtype=torch.uint8), s2)
     assert kernels.counts() == {
         name: {"launches": 0, "plain_calls": 1}
-        for name in ("m2q_matmul", "dwconv_w4", "relu_attn")}
+        for name in ("m2q_matmul", "dwconv_w4", "relu_attn", "int8_matmul",
+                     "int4_matmul", "apot_matmul")}
     kernels.reset_counts()
     assert all(c == {"launches": 0, "plain_calls": 0}
                for c in kernels.counts().values())
@@ -219,10 +228,12 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_kernel_sources_are_the_built_ones():
-    for name in build.SOURCES:
-        src = build.CSRC / f"{name}.cu"
-        text = src.read_text()
-        assert f'extern "C" int {name}(' in text
+    for source, entry_points in build.SOURCES.items():
+        text = (build.CSRC / f"{source}.cu").read_text()
+        for name in entry_points:
+            assert f'extern "C" int {name}(' in text
         assert "cudaGetLastError" in text
+    assert sorted(build.CSRC.glob("*.cu")) == sorted(
+        build.CSRC / f"{source}.cu" for source in build.SOURCES)
     assert "--use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

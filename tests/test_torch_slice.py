@@ -5,8 +5,6 @@ the float forward, quantization in both packages from the same
 calibration batches, and the quantized forward of the JAX-quantized tree
 against JAX's dispatch-off forward.  Inputs are numpy arrays from fixed
 seeds; the JAX side runs once per module (its eager quantize dominates)."""
-from concurrent.futures import ThreadPoolExecutor
-
 import jax
 import numpy as np
 import pytest
@@ -14,12 +12,6 @@ import torch
 
 from repro import recipe as jrecipe
 from repro.configs.efficientvit_b1 import REDUCED as JCFG
-from repro.core import calibrate as jcal
-from repro.core import qtensor as jq
-from repro.core.apply import quantize_model
-from repro.core.calibrate import (rule_matcher, run_calibration,
-                                  wrap_for_calibration)
-from repro.kernels import ops as jops
 from repro.models import efficientvit as jev
 from repro_torch import recipe
 from repro_torch.configs.efficientvit_b1 import REDUCED as TCFG
@@ -27,72 +19,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core.qtensor import QM2Q, QUniform
 from repro_torch.core.tree import leaves_with_path
 from repro_torch.models import efficientvit as tev
-
-
-def _jax_to_numpy(tree):
-    """JAX params (QTensor leaves included) -> the numpy crossing format."""
-    if isinstance(tree, jq.QM2Q):
-        return {"qtensor": "QM2Q", "payload": np.asarray(tree.payload),
-                "u_scale": np.asarray(tree.u_scale),
-                "u_zp": np.asarray(tree.u_zp),
-                "a_scale": np.asarray(tree.a_scale),
-                "act_scale": None if tree.act_scale is None
-                else np.asarray(tree.act_scale),
-                "shape": list(tree.shape), "n_uniform": tree.n_uniform,
-                "n_apot": tree.n_apot}
-    if isinstance(tree, jq.QUniform):
-        return {"qtensor": "QUniform", "payload": np.asarray(tree.payload),
-                "scale": np.asarray(tree.scale),
-                "zero_point": np.asarray(tree.zero_point),
-                "act_scale": None if tree.act_scale is None
-                else np.asarray(tree.act_scale),
-                "bits": tree.bits, "axis": tree.axis,
-                "shape": list(tree.shape)}
-    if isinstance(tree, dict):
-        return {k: _jax_to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_jax_to_numpy(v) for v in tree]
-    return np.asarray(tree)
-
-
-def _jax_forward(params, images):
-    with jops.dispatch(dense=False, conv=False, attn=False):
-        fwd = jax.jit(lambda p, x: jev.forward(JCFG, p, x))
-        return np.asarray(fwd(params, images))
-
-
-def _jax_quantize(params, batches, groups=4):
-    """What ``repro.recipe.quantize(..., "m2q-w8a8")`` does, with its
-    ``quantize_model`` step run over disjoint leaf groups in threads.
-    Each leaf is quantized on its own either way (same rules, overrides,
-    shape context and calibration stats); the JAX package's eager ops
-    compile one XLA program each, and those compiles overlap across
-    threads, which takes this fixture from ~2 min to well under one."""
-    resolved = jrecipe.PRESETS["m2q-w8a8"].resolve(JCFG)
-    wrapped, stats = wrap_for_calibration(params,
-                                          rule_matcher(resolved.rules))
-    run_calibration(lambda p, x: jev.forward(JCFG, p, x, unroll=True),
-                    wrapped, batches)
-    flat, treedef = jax.tree_util.tree_flatten_with_path(params)
-
-    def run(g):
-        leaves = [leaf if i % groups == g else None
-                  for i, (_, leaf) in enumerate(flat)]
-        return quantize_model(
-            jax.tree_util.tree_unflatten(treedef, leaves), resolved.rules,
-            resolved.shape_ctx, resolved.policy, act_stats=stats,
-            overrides=resolved.overrides)
-
-    with ThreadPoolExecutor(groups) as pool:
-        parts = list(pool.map(run, range(groups)))
-    part_leaves = [jax.tree_util.tree_leaves(
-        q, is_leaf=lambda x: x is None or isinstance(x, jq.QLeaf))
-        for q, _ in parts]
-    qparams = jax.tree_util.tree_unflatten(
-        treedef, [part_leaves[i % groups][i] for i in range(len(flat))])
-    order = [jcal.path_str(path) for path, _ in flat]
-    reports = {r.path: r for part in parts for r in part[1]}
-    return qparams, [reports[k] for k in order if k in reports]
+from torch_parity import jax_forward, jax_quantize, jax_to_numpy
 
 
 @pytest.fixture(scope="module")
@@ -102,13 +29,13 @@ def ref():
                for _ in range(2)]
     images = rng.normal(0, 1, (4, 32, 32, 3)).astype(np.float32)
     params = jax.jit(lambda k: jev.init(JCFG, k))(jax.random.PRNGKey(0))
-    with jops.dispatch(dense=False, conv=False, attn=False):
-        qparams, report = _jax_quantize(params, batches)
+    qparams, report, _ = jax_quantize(JCFG, params,
+                                      jrecipe.PRESETS["m2q-w8a8"], batches)
     return {"batches": batches, "images": images,
-            "params": _jax_to_numpy(params),
-            "logits": _jax_forward(params, images),
-            "report": report, "qparams": _jax_to_numpy(qparams),
-            "qlogits": _jax_forward(qparams, images)}
+            "params": jax_to_numpy(params),
+            "logits": jax_forward(JCFG, params, images),
+            "report": report, "qparams": jax_to_numpy(qparams),
+            "qlogits": jax_forward(JCFG, qparams, images)}
 
 
 def test_init_tree_matches_jax(ref):
