@@ -11,15 +11,19 @@ Phases, each fatal on failure (nonzero exit, no result line):
    with nvcc for sm_90a (one nvcc per source, all started together; int4
    and APoT share ``weights_only_matmul.cu``) and prints the ``-Xptxas
    -v`` report;
-3. kernel checks -- each of the six kernels against its plain PyTorch
+3. kernel checks -- each of the seven kernels against its plain PyTorch
    version on the card, at every distinct shape of one EfficientViT-B1
-   R224 forward at batch 8 under the recipe paths below, with kernel /
-   plain / library device times (CUDA graphs timed by CUDA events) and the
-   card's least time for the same work (int8_matmul also per recipe
-   path: uniform8's 42 PWConvs and the int8 stem's one launch never run in
-   one forward).  int8, m2q, dwconv and attention kernels must equal
-   their plain versions; the f32-dot kernels (int4, APoT) must sit within
-   the f32 summation bound;
+   R224 forward at batch 8 under the recipe paths below and of one
+   qwen1.5-0.5b decode step at batch 8 (``decode_attn_int8`` at
+   B=8 T=256 Hkv=16 G=1 D=64 with ragged lengths, plus a G=4 D=128 shape
+   and a windowed case; ``int4_matmul`` also at the lm_head's M=8 K=1024
+   N=151936), with kernel / plain / library device times (CUDA graphs
+   timed by CUDA events) and the card's least time for the same work
+   (int8_matmul and int4_matmul also per path: their shapes of different
+   paths never run in one forward).  int8, m2q, dwconv and relu_attn
+   kernels must equal their plain versions; the f32-dot kernels (int4,
+   APoT) must sit within the f32 summation bound; decode_attn_int8 within
+   two flipped p8 codes per (b, h, g) row;
 4. main path -- ``init`` at full B1 R224 width, ``recipe.quantize(...,
    "m2q-w8a8")`` with synthesized calibration, ``serve(max_batch=8)``,
    12 submitted images polled to completion; checks the logits, the
@@ -32,10 +36,21 @@ Phases, each fatal on failure (nonzero exit, no result line):
    graph; no trace): ``uniform8`` (42 int8_matmul + 14 attention per
    forward), the opt-in int8 stem (1 int8_matmul + the m2q path's 76),
    ``w4-weights-only`` (42 int4_matmul + 20 dwconv + 14 attention) and
-   weights-only APoT (42 apot_matmul + 20 dwconv + 14 attention).
+   weights-only APoT (42 apot_matmul + 20 dwconv + 14 attention);
+6. the token path -- qwen1.5-0.5b at full width with the int8 KV cache,
+   ``recipe.quantize(..., "m2q-w8a8")`` on the card (every dense leaf
+   4-bit at the decode shape), ``serve(max_batch=8, max_len=256)``, 16
+   requests (prompts of 8-96 tokens, 24-40 new tokens, two at
+   temperature 0.8) run to completion; checks leaf types, the launch
+   counters (decode_attn_int8 = 24 per decode step, int4_matmul = one per
+   step and per prefill group, 0 plain calls), every handle's token count,
+   and teacher-forced kernel logits against ``reference_path()`` logits;
+   times the batch-8 decode step (eager, in a CUDA graph, plain), traces
+   one with torch.profiler and reports the served tokens/s.
 
-It then prints one JSON line with every kernel's numbers and, last, the
-``{"ok": true, "device": ...}`` line.
+It then prints the card's name and power limit again, one JSON line with
+every kernel's numbers and, last, the ``{"ok": true, "device": ...}``
+line.
 """
 from __future__ import annotations
 
@@ -130,15 +145,15 @@ def device_profile(fn, iters: int = 3, top: int = 8) -> dict:
     busy = sum(e.time_range.elapsed_us() for e in kern)
     span = (max(e.time_range.end for e in kern)
             - min(e.time_range.start for e in kern))
-    by_name = Counter()
-    for e in kern:
-        by_name[e.name] += e.time_range.elapsed_us()
+    by_name = Counter()  # keyed by the name's first 120 characters, so
+    for e in kern:       # kernels that share them are summed, not dropped
+        by_name[e.name[:120]] += e.time_range.elapsed_us()
     ranked = by_name.most_common(top)
     return {"busy_share_profiled": busy / span,
             "span_ms": span / 1e3 / iters,
             "busy_ms": busy / 1e3 / iters,
             "kernels_per_call": len(kern) // iters,
-            "top_ms_per_call": {n[:90]: t / 1e3 / iters for n, t in ranked}}
+            "top_ms_per_call": {n: t / 1e3 / iters for n, t in ranked}}
 
 
 def main_path_calls(cfg, batch: int):
@@ -384,10 +399,11 @@ def check_int8(torch, rng, calls_by_path) -> Tally:
     return tally
 
 
-def check_weights_only(torch, rng, name, calls) -> Tally:
-    """``int4_matmul`` (the w4-weights-only PWConvs) or ``apot_matmul``
-    (the weights-only APoT PWConvs) at every distinct (M, K, N); within the
-    f32 summation bound.  Yardstick: one bf16 torch.matmul on the
+def check_weights_only(torch, rng, name, calls_by_path) -> Tally:
+    """``int4_matmul`` (the w4-weights-only PWConvs; the qwen lm_head) or
+    ``apot_matmul`` (the weights-only APoT PWConvs) at every distinct
+    (M, K, N) of each path in ``calls_by_path``, summed per path; within
+    the f32 summation bound.  Yardstick: one bf16 torch.matmul on the
     dequantized weight.  Operations count at the bf16 tensor-core rate:
     x is bf16 and each decoded weight is a bf16-exact value ((q - zp) an
     integer in [-15, 15]; an APoT value has at most 7 significant bits)
@@ -398,25 +414,86 @@ def check_weights_only(torch, rng, name, calls) -> Tally:
     k = int4_matmul if name == "int4_matmul" else apot_matmul
     kernel, plain = getattr(k, name), getattr(k, f"{name}_plain")
     tally = Tally(name, source="weights_only_matmul")
-    for (M, K, N), n in Counter([c[1:] for c in calls]).items():
-        x = _randn(torch, rng, (M, K), dtype=torch.bfloat16)
-        w = _randn(torch, rng, (K, N), std=K ** -0.5)
-        if k is int4_matmul:
-            qt = QUniform.quantize(w, bits=4)
-            args = (x, qt.payload, qt.scale.reshape(-1),
-                    qt.zero_point.reshape(-1))
-            w_bytes = K * N // 2 + 2 * N * 4
-        else:
-            qt = QAPoT.quantize(w)
-            args = (x, qt.codes, qt.scale.reshape(-1))
-            w_bytes = K * N + N * 4
-        w_hat = qt.dequant()
-        w_deq = w_hat.to(torch.bfloat16)
-        tally.measure(dict(M=M, K=K, N=N), n, lambda: kernel(*args),
-                      lambda: plain(*args), lambda: torch.matmul(x, w_deq),
-                      M * K * 2 + w_bytes + M * N * 4,
-                      2.0 * M * K * N / BF16_FLOPS_PER_S * 1e3,
-                      err_bound=f32_dot_bound(torch, x.float(), w_hat))
+    for path, calls in calls_by_path.items():
+        for (M, K, N), n in Counter([c[1:] for c in calls]).items():
+            x = _randn(torch, rng, (M, K), dtype=torch.bfloat16)
+            w = _randn(torch, rng, (K, N), std=K ** -0.5)
+            if k is int4_matmul:
+                qt = QUniform.quantize(w, bits=4)
+                args = (x, qt.payload, qt.scale.reshape(-1),
+                        qt.zero_point.reshape(-1))
+                w_bytes = K * N // 2 + 2 * N * 4
+            else:
+                qt = QAPoT.quantize(w)
+                args = (x, qt.codes, qt.scale.reshape(-1))
+                w_bytes = K * N + N * 4
+            del w
+            w_hat = qt.dequant()
+            w_deq = w_hat.to(torch.bfloat16)
+            tally.measure(dict(M=M, K=K, N=N), n, lambda: kernel(*args),
+                          lambda: plain(*args),
+                          lambda: torch.matmul(x, w_deq),
+                          M * K * 2 + w_bytes + M * N * 4,
+                          2.0 * M * K * N / BF16_FLOPS_PER_S * 1e3,
+                          err_bound=f32_dot_bound(torch, x.float(), w_hat),
+                          path=path if len(calls_by_path) > 1 else None)
+            del w_hat, w_deq, qt, args
+    return tally
+
+
+def decode_valid_rows(lengths, T: int, window=None):
+    """Cache rows the decode attention must read per batch row: the valid
+    ones, or all T where every position is masked (length 0)."""
+    rows = []
+    for n in lengths:
+        lo = max(0, n - window) if window is not None else 0
+        hi = min(n, T)
+        rows.append(hi - lo if hi > lo else T)
+    return rows
+
+
+def check_decode_attn(torch, rng, n_layers: int) -> Tally:
+    """decode_attn_int8 at the token path's decode shape (B=8, T=256,
+    Hkv=16, G=1, D=64, bf16 q, ragged lengths as the served run holds
+    them; ``n_layers`` launches per decode step), plus a GQA shape (G=4,
+    D=128) and a windowed case that the path does not run (0 launches).
+    Within two flipped p8 codes per (b, h, g) row of the plain version;
+    the share of elements within 1e-6 of max |out| is recorded.  No single
+    PyTorch call computes int8 decode attention (library: none).  Bytes:
+    q, the valid cache rows (int8 k and v, f32 row scales), out."""
+    from repro_torch.kernels import decode_attn_int8 as k
+    from repro_torch.nn.attention import quantize_kv_rows
+    tally = Tally("decode_attn_int8")
+    cases = [  # (B, T, Hkv, G, D, lengths, window, launches per step)
+        (8, 256, 16, 1, 64, [1, 256] + list(rng.integers(8, 137, 6)), None,
+         n_layers),
+        (8, 256, 4, 4, 128, list(rng.integers(1, 257, 8)), None, 0),
+        (8, 256, 16, 1, 64, list(rng.integers(1, 257, 8)), 64, 0),
+    ]
+    for B, T, H, G, D, lengths, window, n in cases:
+        lengths = [int(x) for x in lengths]
+        q = _randn(torch, rng, (B, H, G, D), dtype=torch.bfloat16)
+        k8, ks = quantize_kv_rows(_randn(torch, rng, (B, T, H, D)))
+        v8, vs = quantize_kv_rows(_randn(torch, rng, (B, T, H, D)))
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        args = (q, k8, v8, ks, vs, lens, D ** -0.5, window)
+        rows = sum(decode_valid_rows(lengths, T, window))
+        nbytes = (B * H * G * D * 2 + rows * H * (2 * D + 8)
+                  + B * H * G * D * 4 + B * 4)
+        ops_ms = 4.0 * rows * H * G * D / INT8_OPS_PER_S * 1e3
+        tally.measure(dict(B=B, T=T, Hkv=H, G=G, D=D, window=window,
+                           lengths=lengths), n,
+                      lambda: k.decode_attn_int8(*args),
+                      lambda: k.decode_attn_int8_plain(*args), None,
+                      nbytes, ops_ms, err_bound=k.error_bound(*args))
+        y, y_ref = k.decode_attn_int8(*args), k.decode_attn_int8_plain(*args)
+        err = (y - y_ref).abs()
+        row = tally.rows[-1]
+        row["share_within_1e-6_of_max"] = float(
+            (err <= 1e-6 * float(y_ref.abs().max())).float().mean())
+        # the bound over every cache row, as if all T were valid
+        row["bound_all_rows_ms"] = (B * H * G * D * 6 + B * T * H * (2 * D + 8)
+                                    + B * 4) / HBM_BYTES_PER_S * 1e3
     return tally
 
 
@@ -583,6 +660,175 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
     return counts
 
 
+# the token path: qwen1.5-0.5b at full width, int8 KV cache
+TOKEN_BATCH = 8
+TOKEN_MAX_LEN = 256
+N_REQUESTS = 16
+
+
+def token_requests(cfg):
+    """16 seeded requests: prompts of 8-96 tokens, 24-40 new tokens, the
+    last two at temperature 0.8."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    reqs = []
+    for i in range(N_REQUESTS):
+        prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(8, 97)),
+                              dtype=np.int32)
+        reqs.append((prompt, int(rng.integers(24, 41)),
+                     0.8 if i >= N_REQUESTS - 2 else 0.0))
+    return reqs
+
+
+def teacher_forced_logits(torch, cfg, params, prompts, forced):
+    """Prefill ``prompts`` into a batch-len(prompts) cache, then decode
+    the ``forced`` tokens (steps, B); returns the (steps + 1, B, vocab)
+    f32 logits."""
+    from repro_torch.models import dense_lm
+    B = len(prompts)
+    lens = [len(p) for p in prompts]
+    toks = torch.zeros((B, max(lens)), dtype=torch.int64, device="cuda")
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.as_tensor(p, device="cuda")
+    cache = dense_lm.init_cache(cfg, B, TOKEN_MAX_LEN, dtype=torch.float32,
+                                device="cuda")
+    out = []
+    with torch.no_grad():
+        lg, cache = dense_lm.prefill(
+            cfg, params, cache, toks,
+            lengths=torch.tensor(lens, dtype=torch.int32, device="cuda"))
+        out.append(lg[:, 0, :cfg.vocab_size].float())
+        for t in forced:
+            lg, cache = dense_lm.decode_step(
+                cfg, params, cache,
+                torch.as_tensor(t, device="cuda").reshape(B, 1).long())
+            out.append(lg[:, 0, :cfg.vocab_size].float())
+    return torch.stack(out)
+
+
+def run_token_path(torch, out_dir):
+    """Quantize qwen1.5-0.5b at full width (int8 KV cache) under
+    m2q-w8a8 on the card, serve 16 requests through the token Engine, and
+    check leaves, launch counters, token counts and teacher-forced logits
+    against reference_path(); time the decode step and trace one."""
+    import numpy as np
+    from repro_torch import kernels, recipe
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.qtensor import QUniform
+    from repro_torch.kernels import ops
+    from repro_torch.models import dense_lm
+
+    cfg = ARCHS["qwen1.5-0.5b"].replace(kv_cache_dtype="int8")
+    t0 = time.perf_counter()
+    params = dense_lm.init(cfg, seed=0, device="cuda")
+    qm = recipe.quantize(cfg, params, "m2q-w8a8")
+    del params
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    L = cfg.n_layers
+    for r in qm.report:
+        leaf = _get(qm.params, r.path)
+        want_axis = {"embed": 0, "lm_head": 1}.get(r.path, 2)
+        if not (isinstance(leaf, QUniform) and leaf.bits == 4
+                and leaf.axis == want_axis and leaf.act_scale is None):
+            fail(f"token path: {r.path} is {leaf_kind(leaf)} axis "
+                 f"{getattr(leaf, 'axis', None)}, expected a 4-bit QUniform "
+                 f"with axis {want_axis}")
+        if want_axis == 2 and leaf.payload.shape[0] != L:
+            fail(f"token path: {r.path} payload {tuple(leaf.payload.shape)}")
+    if len(qm.report) != 9:
+        fail(f"token path: {len(qm.report)} quantized leaves, expected 9")
+
+    engine = qm.serve(max_batch=TOKEN_BATCH, max_len=TOKEN_MAX_LEN, seed=0)
+    reqs = token_requests(cfg)
+    kernels.reset_counts()
+    t1 = time.perf_counter()
+    handles = [engine.submit(p, max_new_tokens=n, temperature=t)
+               for p, n, t in reqs]
+    stats = engine.run()
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t1
+    counts = kernels.counts()
+    outs = [h.handle.result() for h in handles]  # re-raises failures
+    for (p, n, _), toks in zip(reqs, outs):
+        if len(toks) != n or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"token path: a request asked for {n} tokens and got "
+                 f"{len(toks)} (or ids outside the vocab)")
+    want = {"decode_attn_int8": L * stats.steps,
+            "int4_matmul": stats.steps + stats.prefill_batches}
+    for kname, c in counts.items():
+        if c["launches"] != want.get(kname, 0) or c["plain_calls"] != 0:
+            fail(f"token path: {kname} {c} over {stats.steps} decode steps "
+                 f"and {stats.prefill_batches} prefill groups, expected "
+                 f"{want.get(kname, 0)} launches and 0 plain calls")
+    generated = sum(len(t) for t in outs)
+
+    # teacher-forced logits, kernels vs plain versions: two greedy
+    # requests, their served tokens fed back
+    pick = [0, 1]
+    steps = min(reqs[i][1] for i in pick) - 1
+    prompts = [reqs[i][0] for i in pick]
+    forced = np.array([outs[i][:steps] for i in pick]).T
+    got = teacher_forced_logits(torch, cfg, qm.params, prompts, forced)
+    with ops.reference_path():
+        ref = teacher_forced_logits(torch, cfg, qm.params, prompts, forced)
+    diff = float((got - ref).abs().max())
+    top = float(ref.abs().max())
+    same_argmax = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    served_match = float(np.mean(
+        np.array([outs[i][:steps + 1] for i in pick]).T
+        == got.argmax(-1).cpu().numpy()))
+    # bf16 activations through 24 layers: a flipped p8 code in any
+    # layer's attention, or the lm_head's f32 sums landing on the other
+    # side of a bf16 rounding, moves every later value by a bf16 ulp;
+    # 5e-2 of the largest logit is ~8 bf16 ulps of it (1.7e-2 measured
+    # on an H100)
+    if not diff <= 5e-2 * top:
+        fail(f"token path: teacher-forced logits differ from the plain "
+             f"versions' by {diff} (max |logit| {top})")
+
+    # the batch-8 decode step at the served run's cache lengths
+    cache = {k: v.clone() for k, v in engine.cache.items()}
+    cache["lengths"].copy_(torch.tensor(
+        [min(len(p) + 30, TOKEN_MAX_LEN - 1) for p, _, _ in
+         reqs[:TOKEN_BATCH]], dtype=torch.int32, device="cuda"))
+    tok = torch.zeros((TOKEN_BATCH, 1), dtype=torch.int64, device="cuda")
+
+    def step():
+        return dense_lm.decode_step(cfg, qm.params, cache, tok)
+
+    res = dict(path="qwen1.5-0.5b int8-kv m2q-w8a8", quantize_s=t_quant,
+               serve_s=t_serve, requests=len(reqs), tokens=generated,
+               tokens_per_s=generated / t_serve, decode_steps=stats.steps,
+               prefill_groups=stats.prefill_batches,
+               launches={k: c["launches"] for k, c in counts.items()
+                         if c["launches"]},
+               teacher_forced_max_abs_diff=diff, logits_max_abs=top,
+               teacher_forced_same_argmax=same_argmax,
+               served_tokens_match_teacher_forced_argmax=served_match,
+               serve_stats=stats.summary(),
+               decode_lengths=cache["lengths"].tolist())
+    with torch.no_grad():
+        res["decode_step_ms"] = cuda_ms(step, iters=10)
+        with ops.reference_path():
+            res["plain_decode_step_ms"] = cuda_ms(step, iters=3, warmup=1)
+        try:
+            res["decode_step_graph_ms"] = graph_ms(step, iters=3)
+        except Exception as e:  # noqa: BLE001 -- reported, not hidden
+            res["decode_step_graph_ms"] = None
+            res["graph_capture_error"] = repr(e)[:300]
+        trace = device_profile(step, top=5)
+    if trace:
+        trace["busy_share"] = trace["busy_ms"] / res["decode_step_ms"]
+    res["decode_step_trace"] = trace
+    (out_dir / "chip_smoke_path_token.json").write_text(
+        json.dumps(res, indent=1))
+    print("path token:", json.dumps(res), flush=True)
+    del qm, engine, cache
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     import torch  # the card check needs torch before anything else
 
@@ -595,13 +841,15 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_card.txt").write_text(card + "\n")
 
     # ---- 2. build -------------------------------------------------------
     from repro_torch.kernels import build
@@ -619,14 +867,20 @@ def main() -> None:
     stem_call = ("stem/w", BATCH * r * r, 27, cfg.widths[0])
     print(f"per forward: {len(m2q_calls)} dense, {len(dw_calls)} dwconv, "
           f"{len(attn_calls)} attention calls; stem {stem_call}", flush=True)
+    qwen = ARCHS["qwen1.5-0.5b"]
+    lm_head_call = ("lm_head", TOKEN_BATCH, qwen.d_model, qwen.padded_vocab)
     rng = np.random.default_rng(0)
     tallies = [check_m2q(torch, rng, m2q_calls),
                check_dwconv(torch, rng, dw_calls),
                check_attn(torch, rng, attn_calls),
                check_int8(torch, rng, {"uniform8": m2q_calls,
                                        "int8-stem": [stem_call]}),
-               check_weights_only(torch, rng, "int4_matmul", m2q_calls),
-               check_weights_only(torch, rng, "apot_matmul", m2q_calls)]
+               check_weights_only(torch, rng, "int4_matmul",
+                                  {"w4-weights-only": m2q_calls,
+                                   "qwen-decode-step": [lm_head_call]}),
+               check_weights_only(torch, rng, "apot_matmul",
+                                  {"weights-only-apot": m2q_calls}),
+               check_decode_attn(torch, rng, qwen.n_layers)]
     detail = {t.name: t.rows for t in tallies}
     (out_dir / "chip_smoke_kernels.json").write_text(
         json.dumps(detail, indent=1))
@@ -639,22 +893,31 @@ def main() -> None:
                   flush=True)
     print("kernels:", ", ".join(t.name for t in tallies), flush=True)
 
-    # ---- 4./5. the recipe paths, each read from zeroed counters ----------
+    # ---- 4./5. the recipe paths, each read from zeroed counters ---------
     launches = Counter()
     for name in PATHS:
         counts = run_path(torch, cfg, name, calls, out_dir,
                           full=name == "m2q-w8a8")
         launches.update({k: c["launches"] for k, c in counts.items()})
 
-    # ---- 6. results -----------------------------------------------------
+    # ---- 6. the token path, read from zeroed counters ---------------------
+    counts = run_token_path(torch, out_dir)
+    launches.update({k: c["launches"] for k, c in counts.items()})
+
+    # ---- 7. results -----------------------------------------------------
     replaces = {"m2q_matmul": "src/repro/kernels/m2q_matmul.py:80",
                 "dwconv_w4": "src/repro/kernels/dwconv_w4.py:107",
                 "relu_attn": "src/repro/kernels/relu_attn.py:74",
                 "int8_matmul": "src/repro/kernels/int8_matmul.py:53",
                 "int4_matmul": "src/repro/kernels/int4_matmul.py:47",
-                "apot_matmul": "src/repro/kernels/apot_matmul.py:56"}
+                "apot_matmul": "src/repro/kernels/apot_matmul.py:56",
+                "decode_attn_int8":
+                    "src/repro/kernels/decode_attn_int8.py:60"}
     entries = [t.entry(replaces[t.name], launches[t.name],
-                       library=t.name != "relu_attn") for t in tallies]
+                       library=t.name not in ("relu_attn",
+                                              "decode_attn_int8"))
+               for t in tallies]
+    print(card, flush=True)  # again, beside the results it qualifies
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

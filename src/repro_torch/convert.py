@@ -7,12 +7,18 @@ with its class under ``"qtensor"`` and its fields by the JAX leaf's names:
 * ``{"qtensor": "QM2Q", "payload", "u_scale", "u_zp", "a_scale",
   "act_scale", "shape", "n_uniform", "n_apot"}``
 * ``{"qtensor": "QUniform", "payload", "scale", "zero_point",
-  "act_scale", "bits", "axis", "shape"}``
+  "act_scale", "bits", "axis", "shape"}`` -- a 2-D or flattened conv
+  weight (``axis`` 1, payload (K, N), scales (1, N)), a stacked per-layer
+  weight (``axis`` 2, payload (L, K, N), scales (L, 1, N), act_scale
+  (L, 1, 1)) or an embedding table (``axis`` 0, payload (V, D), scales
+  (V, 1)); 4-bit payloads are packed along the last axis (half as wide)
 * ``{"qtensor": "QAPoT", "codes" (K, N) uint8, "scale" (1, N) f32,
   "act_scale", "shape"}``
 
 ``act_scale`` may be None.  Anything else, and any field whose dtype or
-shape disagrees with the leaf it claims to be, raises.
+shape disagrees with the leaf it claims to be, raises.  The whole
+dense-LM tree crosses this way (float norms and biases, QUniform embedding,
+stacked layers and head).
 """
 from __future__ import annotations
 
@@ -43,15 +49,22 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
-def _act(d: dict, what: str) -> Optional[np.ndarray]:
+def _act(d: dict, what: str, shape=()) -> Optional[np.ndarray]:
+    """The activation scale: one float32 (any shape of one element), or
+    of ``shape`` exactly when that has a layer axis."""
     a = d.get("act_scale")
     if a is None:
         return None
     a = np.asarray(a)
-    if a.dtype != np.float32 or a.size != 1:
-        raise TypeError(f"{what}: act_scale must be one float32, got "
-                        f"{a.dtype} of shape {a.shape}")
-    return a.reshape(())
+    if shape:
+        ok = a.dtype == np.float32 and tuple(a.shape) == tuple(shape)
+    else:
+        ok = a.dtype == np.float32 and a.size == 1
+    if not ok:
+        raise TypeError(f"{what}: act_scale must be float32 of shape "
+                        f"{tuple(shape) or 'one element'}, got {a.dtype} of "
+                        f"shape {a.shape}")
+    return a if shape else a.reshape(())
 
 
 def _shape(d: dict, what: str) -> tuple:
@@ -85,18 +98,28 @@ def _quniform(d: dict, path: str, device) -> QUniform:
     what = f"{path} (QUniform)"
     shape = _shape(d, what)
     bits, axis = int(d["bits"]), int(d["axis"])
-    if axis != 1:
-        raise ValueError(f"{what}: axis must be 1 (filter-wise over the "
-                         f"flattened payload's columns), got {axis}")
-    pshape = [math.prod(shape[:-1]), shape[-1]]
-    sshape = (1, shape[-1])
+    act_shape = ()
+    if axis == 1:      # 2-D dense, or a conv filter flattened to 2-D
+        pshape = [math.prod(shape[:-1]), shape[-1]]
+        sshape = (1, shape[-1])
+    elif axis == 2 and len(shape) == 3:   # stacked (L, K, N) layers
+        pshape = list(shape)
+        sshape = (shape[0], 1, shape[2])
+        act_shape = (shape[0], 1, 1)
+    elif axis == 0 and len(shape) == 2:   # embedding rows
+        pshape = list(shape)
+        sshape = (shape[0], 1)
+    else:
+        raise ValueError(f"{what}: axis {axis} of a {len(shape)}-D weight "
+                         "is none of 1 (filter-wise, 2-D payload), 2 "
+                         "(stacked layers) or 0 (embedding rows)")
     if bits == 4:
         pshape[-1] //= 2
     payload = _array(d, "payload", np.int8 if bits == 8 else np.uint8,
                      pshape, what)
     scale = _array(d, "scale", np.float32, sshape, what)
     zp = _array(d, "zero_point", np.float32, sshape, what)
-    act = _act(d, what)
+    act = _act(d, what, act_shape)
     return QUniform(_tensor(payload, device), _tensor(scale, device),
                     _tensor(zp, device),
                     None if act is None else _tensor(act, device), bits,

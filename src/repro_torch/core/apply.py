@@ -1,5 +1,6 @@
 """quantize_model: rewrite a float parameter tree into M2Q QTensor leaves
-(twin of ``repro.core.apply`` for 2-D dense and conv leaves).
+(twin of ``repro.core.apply`` for 2-D dense, conv, embedding and stacked
+per-layer leaves).
 
 Models tag quantizable weights with QUANT_RULES, ordered ``(regex, kind)``
 pairs matched against the tree path (first match wins).  The policy, the
@@ -7,7 +8,14 @@ deployment ShapeCtx and optional per-path overrides decide mixed-scheme vs
 low-bit per leaf; Eq. 6 splits mixed layers' filters between uniform-8 and
 APoT.  Conv filters (HWIO) are classified on their 4-D shape but quantized
 as the ``(kh*kw*cin, cout)`` flattening, so filter-wise scales land on
-Cout; the leaf's ``shape`` keeps the original filter.
+Cout; the leaf's ``shape`` keeps the original filter.  A stacked (L, K, N)
+dense leaf is classified on its per-layer (K, N) shape and quantized with
+per-layer, per-filter statistics (``reduce_axes=(1,)``); an embedding
+table is quantized per row (axis 0) for the gather.
+
+Not ported yet, and refused by name: a stacked leaf resolving to the mixed
+m2q scheme (``QExpertM2Q``) and perm-folded FFN groups -- the mixed LM
+path of a later slice.
 """
 from __future__ import annotations
 
@@ -15,12 +23,13 @@ import dataclasses
 import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import policy as pol
 from .qtensor import QAPoT, QM2Q, QUniform, weight_bits
 from .scheme_select import select_schemes
-from .tree import map_with_path
+from .tree import leaves_with_path, map_with_path
 
 Rule = Tuple[str, str]
 Override = Tuple[str, pol.PathOverride]
@@ -54,8 +63,56 @@ def resolve_decision(key: str, kind: str, dec_shape: tuple,
             memory_bits=ov.bits if ov.bits is not None else p.memory_bits)
     decision = pol.decide(kind, dec_shape, shape_ctx, p_leaf)
     if ov is not None and ov.decision is not None:
+        if ov.decision == pol.DECISION_MIXED and kind == pol.KIND_EMBEDDING:
+            raise ValueError(
+                f"override for {key!r}: an embedding cannot be mixed-scheme "
+                "(nn.embed gathers integer rows, which needs per-row "
+                "uniform quantization)")
         decision = ov.decision
     return decision, p_leaf
+
+
+def resolve_fold_groups(flat_shapes: Dict[str, tuple],
+                        ffn_groups: Optional[Sequence[tuple]],
+                        shape_ctx: pol.ShapeCtx, p: pol.M2QPolicy,
+                        overrides: Optional[Sequence[Override]] = None
+                        ) -> List[Tuple[str, Optional[str], str]]:
+    """The FFN groups that WOULD be perm-folded: (up, gate|None, down) key
+    triples.  A group folds only when every quantized member (up and
+    gate) resolves to (mixed, m2q); the first group whose members all
+    exist claims their keys whether or not it folds, so a later fallback
+    pattern never folds a subset of a gated group."""
+    if not ffn_groups or p.compute_scheme != "m2q":
+        return []
+
+    def find(rx):
+        if rx is None:
+            return None
+        hits = [k for k in flat_shapes if re.search(rx, k)]
+        return hits[0] if len(hits) == 1 else None
+
+    out: List[Tuple[str, Optional[str], str]] = []
+    used_up, used_down = set(), set()
+    for up_re, gate_re, down_re in ffn_groups:
+        ku, kg, kd = find(up_re), find(gate_re), find(down_re)
+        if ku is None or kd is None or (gate_re and kg is None):
+            continue
+        if ku in used_up or kd in used_down:
+            continue  # claimed by an earlier (gated) group
+        used_up.add(ku)
+        if kg is not None:
+            used_up.add(kg)
+        used_down.add(kd)
+        members_ok = True
+        for k in (ku,) if kg is None else (ku, kg):
+            dec, pk = resolve_decision(k, pol.KIND_DENSE,
+                                       tuple(flat_shapes[k][-2:]),
+                                       shape_ctx, p, overrides)
+            if dec != pol.DECISION_MIXED or pk.compute_scheme != "m2q":
+                members_ok = False
+        if members_ok:
+            out.append((ku, kg, kd))
+    return out
 
 
 @dataclasses.dataclass
@@ -70,32 +127,69 @@ class LayerReport:
     mse: float = 0.0
 
 
-def _quantize_leaf(w: torch.Tensor, decision: str, p: pol.M2QPolicy,
-                   act_max_abs):
-    """w is a (K, N) dense weight or a flattened (kh*kw*cin, cout) filter."""
+def _quantize_leaf(w: torch.Tensor, kind: str, decision: str,
+                   p: pol.M2QPolicy, act_max_abs, key: str):
+    """w is a (K, N) dense weight, a flattened (kh*kw*cin, cout) filter, a
+    (V, D) embedding or a stacked (L, K, N) per-layer weight."""
     ams = act_max_abs if p.quantize_activations else None
+    batched = kind in (pol.KIND_DENSE, pol.KIND_HEAD) and w.ndim >= 3
+    ra = (w.ndim - 2,) if batched else None
     if decision == pol.DECISION_LOWBIT:
-        return QUniform.quantize(w, bits=p.memory_bits, axis=-1)
+        if kind == pol.KIND_EMBEDDING:
+            return QUniform.quantize(w, bits=p.memory_bits, axis=0)
+        return QUniform.quantize(w, bits=p.memory_bits, axis=-1,
+                                 reduce_axes=ra)
     if p.compute_scheme == "uniform8":
-        return QUniform.quantize(w, bits=8, axis=-1, act_max_abs=ams)
+        return QUniform.quantize(w, bits=8, axis=-1, act_max_abs=ams,
+                                 reduce_axes=ra)
     if p.compute_scheme == "apot":
-        return QAPoT.quantize(w, act_max_abs=ams)
+        return QAPoT.quantize(w, act_max_abs=ams, reduce_axes=ra)
     if p.compute_scheme == "m2q":
+        if w.ndim != 2:
+            raise NotImplementedError(
+                f"{key!r}: a stacked {tuple(w.shape)} leaf resolves to the "
+                "mixed m2q scheme, whose leaf (QExpertM2Q, per-layer Eq. 6 "
+                "splits) is not ported yet")
         asn = select_schemes(w, ratio=p.apot_ratio)
         return QM2Q.quantize(w, asn.apot_idx, asn.uniform_idx,
                              act_max_abs=ams)
     raise ValueError(f"unknown compute scheme {p.compute_scheme}")
 
 
+def _stacked_stats(act_stats: Dict[str, float], key: str, shape: tuple):
+    """Per-layer ``'<key>@<i>'`` statistics of a stacked leaf as one
+    (L, 1, ..., 1) array broadcasting over its trailing axes, or None
+    unless every layer has one."""
+    per = [act_stats.get(f"{key}@{i}") for i in range(shape[0])]
+    if any(v is None for v in per):
+        return None
+    return np.asarray(per, np.float32).reshape(
+        (shape[0],) + (1,) * (len(shape) - 1))
+
+
 def quantize_model(params, rules: Sequence[Rule], shape_ctx: pol.ShapeCtx,
                    m2q_policy: Optional[pol.M2QPolicy] = None,
                    act_stats: Optional[Dict[str, float]] = None,
+                   ffn_groups: Optional[Sequence[tuple]] = None,
                    overrides: Optional[Sequence[Override]] = None):
     """Apply M2Q to ``params``; non-matching leaves pass through.
-    Returns (qparams, per-layer reports in tree order)."""
+    Returns (qparams, per-layer reports in tree order).  ``ffn_groups``:
+    (up, gate|None, down) path-regex triples for perm-folded FFN
+    quantization; a group that would fold raises NotImplementedError."""
     p = m2q_policy or pol.M2QPolicy()
     act_stats = act_stats or {}
     report: List[LayerReport] = []
+
+    if ffn_groups and p.compute_scheme == "m2q":
+        flat = {k: tuple(leaf.shape) for k, leaf in leaves_with_path(params)
+                if isinstance(leaf, torch.Tensor)}
+        groups = resolve_fold_groups(flat, ffn_groups, shape_ctx, p,
+                                     overrides)
+        if groups:
+            raise NotImplementedError(
+                f"FFN groups {groups} resolve to perm-folded mixed "
+                "quantization (stacked QM2Q/QExpertM2Q with the down "
+                "projection's rows permuted), which is not ported yet")
 
     def visit(key, leaf):
         if not isinstance(leaf, torch.Tensor):
@@ -103,25 +197,36 @@ def quantize_model(params, rules: Sequence[Rule], shape_ctx: pol.ShapeCtx,
         kind = match_kind(rules, key)
         if kind is None or kind == pol.KIND_SKIP or leaf.ndim < 2:
             return leaf
-        if kind not in (pol.KIND_DENSE, pol.KIND_DWCONV) \
-                or leaf.ndim not in (2, 4):
+        conv = leaf.ndim == 4 and kind in (pol.KIND_DENSE, pol.KIND_DWCONV)
+        stacked = kind in (pol.KIND_DENSE, pol.KIND_HEAD) and leaf.ndim == 3
+        if not (conv or stacked or leaf.ndim == 2) \
+                or kind == pol.KIND_EXPERT:
             raise NotImplementedError(
-                f"{key!r}: only 2-D dense and conv leaves are quantized "
-                f"here (got {kind} of shape {tuple(leaf.shape)})")
-        decision, p_leaf = resolve_decision(key, kind, tuple(leaf.shape),
-                                            shape_ctx, p, overrides)
+                f"{key!r}: {kind} leaves of shape {tuple(leaf.shape)} are "
+                "not ported yet")
+        # classify on the per-unit shape (strip the stacked layer axis)
+        dec_shape = tuple(leaf.shape[1:]) if stacked else tuple(leaf.shape)
+        decision, p_leaf = resolve_decision(key, kind, dec_shape, shape_ctx,
+                                            p, overrides)
         if decision == pol.DECISION_SKIP:
             return leaf
+        # activation stats: the plain key, or per-layer '@i' keys
+        ams = act_stats.get(key)
+        if ams is None and leaf.ndim >= 3 and not conv:
+            ams = _stacked_stats(act_stats, key, tuple(leaf.shape))
         w = leaf.to(torch.float32)
-        w = w.reshape(-1, w.shape[-1])
-        qt = _quantize_leaf(w, decision, p_leaf, act_stats.get(key))
-        qt = dataclasses.replace(qt, shape=tuple(leaf.shape))
+        if conv:
+            w = w.reshape(-1, w.shape[-1])
+        qt = _quantize_leaf(w, kind, decision, p_leaf, ams, key)
+        if conv:
+            qt = dataclasses.replace(qt, shape=tuple(leaf.shape))
         rep = LayerReport(path=key, kind=kind, decision=decision,
                           shape=tuple(leaf.shape), bits=weight_bits(qt))
         if isinstance(qt, QM2Q):
             rep.n_apot, rep.n_uniform = qt.n_apot, qt.n_uniform
         w_hat = qt.dequant()
-        rep.mse = float(torch.mean((w.reshape(w_hat.shape) - w_hat) ** 2))
+        rep.mse = float(torch.mean(
+            (leaf.to(torch.float32).reshape(w_hat.shape) - w_hat) ** 2))
         report.append(rep)
         return qt
 

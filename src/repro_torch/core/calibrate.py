@@ -33,6 +33,11 @@ class CalibTensor:
     def dtype(self):
         return self.w.dtype
 
+    def __getitem__(self, i):
+        """One layer of a stacked weight, recording under ``'<path>@<i>'``
+        (the unrolled layer loop's per-layer stats keys)."""
+        return CalibTensor(self.w[i], f"{self.key}@{i}", self.store)
+
     def record(self, x: torch.Tensor) -> None:
         """Fold max|x| into the store; a non-finite statistic raises (it
         would bake a NaN scale into every later inference)."""

@@ -80,6 +80,17 @@ class QUniform:
             return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
         return x @ self.dequant(x.dtype)
 
+    def take(self, ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+        """Quantized embedding gather (axis-0, per-row quantization): the
+        integer rows are gathered -- 4-bit rows still packed -- and only
+        the gathered slice is dequantized."""
+        if self.axis != 0:
+            raise ValueError("take() needs per-row quantization (axis=0)")
+        rows = self.payload[ids]
+        q = (packing.unpack_int4(rows) if self.bits == 4 else rows)
+        q = q.to(torch.float32)
+        return ((q - self.zero_point[ids]) * self.scale[ids]).to(dtype)
+
 
 @dataclasses.dataclass
 class QAPoT:
@@ -169,6 +180,23 @@ class QM2Q:
 
 
 QLeaf = (QUniform, QAPoT, QM2Q)
+
+
+def slice_layer(leaf, i: int):
+    """Layer ``i`` of a stacked leaf, as ``lax.scan`` slices the JAX
+    pytree: every tensor field loses its leading layer axis, while the
+    static fields -- ``axis``, ``shape``, ``bits`` -- stay as they are.  A
+    sliced stacked QUniform therefore keeps ``axis == 2``, which
+    ``kernels.ops.kernel_supported`` refuses exactly as JAX's does, and
+    its matmul takes the plain ``x @ dequant(x.dtype)``."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf[i]
+    if isinstance(leaf, QLeaf):
+        return dataclasses.replace(leaf, **{
+            f.name: getattr(leaf, f.name)[i]
+            for f in dataclasses.fields(leaf)
+            if isinstance(getattr(leaf, f.name), torch.Tensor)})
+    return leaf[i]  # a CalibTensor: per-layer '<path>@<i>' stats
 
 
 def is_qtensor(x) -> bool:

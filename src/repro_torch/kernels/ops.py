@@ -1,6 +1,6 @@
 """QTensor-level entry points onto the kernels (twin of the
 ``kernel_supported`` / ``qtensor_matmul`` / ``qtensor_dwconv`` /
-``relu_attn_op`` part of ``repro.kernels.ops``).
+``relu_attn_op`` / ``decode_attn_int8_op`` part of ``repro.kernels.ops``).
 
 :func:`qtensor_matmul` routes exactly the leaves the JAX package's
 ``kernel_supported`` accepts to a kernel: calibrated ``QM2Q`` ->
@@ -18,11 +18,14 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
+from typing import Optional
 
 import torch
 
 from ..core.qtensor import QAPoT, QM2Q, QUniform
 from . import apot_matmul as _apot
+from . import decode_attn_int8 as _dec
 from . import dwconv_w4 as _dw
 from . import int4_matmul as _int4
 from . import int8_matmul as _int8
@@ -130,3 +133,21 @@ def relu_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sq, sk, sv = _attn.attn_scales(q, k, v)
     fn = _attn.relu_attn_plain if _REFERENCE.get() else _attn.relu_attn
     return fn(q, k, v, sq, sk, sv, eps)
+
+
+def decode_attn_int8_op(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
+                        k_scale: torch.Tensor, v_scale: torch.Tensor,
+                        lengths: torch.Tensor, window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Decode attention over the int8 KV cache: q (B, 1, Hq, D) float,
+    k_q/v_q (B, T, Hkv, D) int8 + (B, T, Hkv) f32 row scales, lengths
+    (B,) -> (B, 1, Hq, D) in q's dtype.  Runs per (batch, kv-head)."""
+    B, _, Hq, D = q.shape
+    Hkv = k_q.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qh = q.reshape(B, Hkv, Hq // Hkv, D).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    fn = _dec.decode_attn_int8_plain if _REFERENCE.get() \
+        else _dec.decode_attn_int8
+    out = fn(qh, k_q, v_q, k_scale, v_scale, lens, scale, window)
+    return out.reshape(B, 1, Hq, D).to(q.dtype)

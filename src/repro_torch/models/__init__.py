@@ -1,8 +1,8 @@
-"""Model zoo (EfficientViT so far)."""
-from . import efficientvit
+"""Model zoo (EfficientViT and the dense decoder-only LM so far)."""
+from . import dense_lm, efficientvit
 from .config import ArchConfig
 
-FAMILIES = {"efficientvit": efficientvit}
+FAMILIES = {"efficientvit": efficientvit, "dense_lm": dense_lm}
 
 
 def get_model(cfg: ArchConfig):

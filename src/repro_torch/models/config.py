@@ -1,17 +1,35 @@
-"""Architecture config (the vision subset of ``repro.models.config``'s
-``ArchConfig``; the language-model fields come with those families)."""
+"""Architecture config (the vision and dense-LM subset of
+``repro.models.config``'s ``ArchConfig``; the MoE, hybrid, whisper and
+sharding fields come with those families)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # efficientvit
+    family: str  # dense_lm | efficientvit
     n_layers: int
     d_model: int
+    # language models
+    vocab_size: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 128
+    d_ff: int = 0
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    ffn: str = "swiglu"  # swiglu | relu2
+    rope_theta: float = 10000.0
+    window: Optional[int] = None  # sliding attention window (None: all)
+    kv_cache_dtype: str = "bf16"  # bf16 | int8 (per-row scales, integer
+                                  # decode attention)
     # efficientvit (vision)
     widths: Tuple[int, ...] = ()
     depths: Tuple[int, ...] = ()
@@ -20,6 +38,20 @@ class ArchConfig:
     dim_per_head: int = 16  # EfficientViT MSA head dim
     # numerics: the activation dtype of the forward
     dtype: str = "bfloat16"
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 128 (even per shard; int4 nibble
+        packing needs even filter counts)."""
+        return round_up(self.vocab_size, 128)
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

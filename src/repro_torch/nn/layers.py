@@ -1,4 +1,5 @@
-"""Layer primitives on NHWC tensors (twin of ``repro.nn.layers``).
+"""Layer primitives (twin of ``repro.nn.layers``): initializers, dense,
+embedding gathers, norms, activations, and NHWC convolutions.
 
 Every weight consumer dispatches on the leaf type: a float tensor runs the
 float op, a :class:`CalibTensor` records its input's max-abs first, and a
@@ -12,9 +13,22 @@ import torch
 import torch.nn.functional as F
 
 from ..core.calibrate import CalibTensor
-from ..core.qtensor import is_qtensor
+from ..core.qtensor import QUniform, is_qtensor
 from ..kernels import ops
 from ..kernels.dwconv_w4 import same_padding
+
+
+def trunc_normal(shape, generator: torch.Generator, device=None,
+                 std: float = 0.02) -> torch.Tensor:
+    """``std`` times a standard normal truncated to [-2, 2] (the JAX
+    package's law, drawn by inverting the normal CDF on uniforms from
+    ``generator``; other numbers than jax.random's)."""
+    lo, hi = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0, \
+        (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    z = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0)
+    return std * torch.clamp(z, -2.0, 2.0)
 
 
 def lecun_normal(shape, generator: torch.Generator,
@@ -41,6 +55,16 @@ def dense(x: torch.Tensor, w, b=None) -> torch.Tensor:
     return y
 
 
+def embed(ids: torch.Tensor, table) -> torch.Tensor:
+    """Rows of ``table`` (float, CalibTensor, or an axis-0 QUniform whose
+    packed rows are gathered before they are dequantized)."""
+    if isinstance(table, CalibTensor):
+        return table.w[ids]
+    if isinstance(table, QUniform):
+        return table.take(ids, dtype=torch.float32)
+    return table[ids]
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
@@ -51,6 +75,12 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def swiglu(x: torch.Tensor, w1, w3, w2, b1=None, b3=None,
+           b2=None) -> torch.Tensor:
+    """SwiGLU FFN: ``(silu(x @ w1) * (x @ w3)) @ w2``."""
+    return dense(silu(dense(x, w1, b1)) * dense(x, w3, b3), w2, b2)
 
 
 def _float_conv(x, w, stride: int, groups: int, padding: str):

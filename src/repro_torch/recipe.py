@@ -4,7 +4,11 @@
     from repro_torch.recipe import quantize
     qm = quantize("efficientvit-b1-r224", params, "m2q-w8a8")
     logits = qm.forward(images)
-    engine = qm.serve(max_batch=8)
+    engine = qm.serve(max_batch=8)          # VisionEngine
+
+    cfg = ARCHS["qwen1.5-0.5b"].replace(kv_cache_dtype="int8")
+    qm = quantize(cfg, dense_lm.init(cfg), "m2q-w8a8")
+    engine = qm.serve(max_batch=8, max_len=256)   # token Engine
 
 PTQ activation calibration -> Eq. 6 scheme selection -> mixed-scheme /
 mixed-precision quantization.  Presets: ``m2q-w8a8`` (the paper's flow),
@@ -17,7 +21,7 @@ mixed-precision quantization.  Presets: ``m2q-w8a8`` (the paper's flow),
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, List, Optional, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,27 +35,36 @@ from .models import get_model
 from .models.config import ArchConfig
 
 
+# families whose calibration inputs quantize() can synthesize on its own
+_TOKEN_FAMILIES = ("dense_lm", "moe_lm", "rwkv", "recurrentgemma")
+
+
 @dataclasses.dataclass(frozen=True)
 class CalibSpec:
-    """Synthesized calibration: ``batches`` random (batch_size, res, res, 3)
-    images from numpy's generator seeded with ``seed``."""
+    """Synthesized calibration from numpy's generator seeded with
+    ``seed``: ``batches`` random (batch_size, seq_len) prompts for token
+    families, (batch_size, res, res, 3) images for the vision family.
+    ``batch_size`` also seeds the default deployment ShapeCtx."""
 
     batches: int = 4
     batch_size: int = 2
+    seq_len: int = 32
     seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantRecipe:
-    """One quantization run.  ``rules`` defaults to the model's QUANT_RULES;
-    ``overrides`` are ordered ``(path regex, PathOverride)`` pairs consulted
-    before the model's QUANT_OVERRIDES (first match wins);
-    ``tokens_per_step`` fixes the deployment ShapeCtx (None: batch * res^2
-    pixels of the calibration batches)."""
+    """One quantization run.  ``rules`` / ``ffn_groups`` default to the
+    model's QUANT_RULES / FFN_FOLD_GROUPS; ``overrides`` are ordered
+    ``(path regex, PathOverride)`` pairs consulted before the arch's
+    (first match wins); ``tokens_per_step`` fixes the deployment ShapeCtx
+    (None: derived from the calibration batches -- vision: batch * res^2
+    pixels; LM: the decode batch)."""
 
     name: str = "m2q-w8a8"
     policy: M2QPolicy = M2QPolicy()
     rules: Optional[Tuple[Rule, ...]] = None
+    ffn_groups: Optional[Tuple[tuple, ...]] = None
     overrides: Tuple[Override, ...] = ()
     calib: CalibSpec = CalibSpec()
     tokens_per_step: Optional[int] = None
@@ -66,18 +79,21 @@ class QuantRecipe:
                 f"{self.policy.compute_scheme!r}")
 
     def resolve(self, cfg: ArchConfig) -> "ResolvedRecipe":
-        """Bind the recipe to one architecture: the model's rules unless
-        the recipe names its own, recipe overrides before the arch's, and
-        the deployment ShapeCtx."""
+        """Bind the recipe to one architecture: the model's rules and FFN
+        groups unless the recipe names its own, recipe overrides before
+        the arch's, and the deployment ShapeCtx."""
         model = get_model(cfg)
         rules = tuple(self.rules if self.rules is not None
                       else model.QUANT_RULES)
-        overrides = tuple(self.overrides) + tuple(model.QUANT_OVERRIDES)
+        ffn_groups = self.ffn_groups
+        if ffn_groups is None:
+            ffn_groups = tuple(getattr(model, "FFN_FOLD_GROUPS", ()) or ())
+        overrides = tuple(self.overrides) + _arch_overrides(cfg, model, rules)
         toks = self.tokens_per_step
         if toks is None:
-            toks = _tokens_per_step(cfg, self.calib.batch_size)
+            toks = _default_tokens_per_step(cfg, self.calib.batch_size)
         return ResolvedRecipe(recipe=self, cfg=cfg, rules=rules,
-                              overrides=overrides,
+                              ffn_groups=ffn_groups, overrides=overrides,
                               shape_ctx=ShapeCtx(tokens_per_step=toks))
 
 
@@ -88,12 +104,42 @@ class ResolvedRecipe:
     recipe: QuantRecipe
     cfg: ArchConfig
     rules: Tuple[Rule, ...]
+    ffn_groups: Tuple[tuple, ...]
     overrides: Tuple[Override, ...]
     shape_ctx: ShapeCtx
 
     @property
     def policy(self) -> M2QPolicy:
         return self.recipe.policy
+
+
+def taxonomy_overrides(rules: Sequence[Rule]) -> Tuple[Override, ...]:
+    """decision=mixed overrides for every compute-kind rule pattern: pins
+    the paper's structural taxonomy (PWConv/MatMul -> mixed) however far
+    the deployment shape sits below the intensity threshold."""
+    return tuple(
+        (rx, PathOverride(decision=pol.DECISION_MIXED))
+        for rx, kind in rules
+        if kind in (pol.KIND_DENSE, pol.KIND_HEAD, pol.KIND_EXPERT))
+
+
+def _default_tokens_per_step(cfg: ArchConfig, batch: int) -> int:
+    if cfg.family == "efficientvit":
+        return batch * cfg.img_res * cfg.img_res  # pixels through a PWConv
+    return batch  # decode deployment shape (batch tokens per step)
+
+
+def _arch_overrides(cfg: ArchConfig, model, rules) -> Tuple[Override, ...]:
+    """The model's QUANT_OVERRIDES when it declares them (efficientvit
+    pins the paper taxonomy); else, for a narrow LM (d_model <= 256) whose
+    every matmul is memory-bound, :func:`taxonomy_overrides`, so the mixed
+    path is exercised at demo sizes."""
+    declared = getattr(model, "QUANT_OVERRIDES", None)
+    if declared is not None:
+        return tuple(declared)
+    if cfg.family != "efficientvit" and 0 < cfg.d_model <= 256:
+        return taxonomy_overrides(rules)
+    return ()
 
 
 PRESETS: Dict[str, QuantRecipe] = {
@@ -134,15 +180,20 @@ def resolve_cfg(arch_or_cfg) -> ArchConfig:
     raise KeyError(f"unknown arch {arch_or_cfg!r}")
 
 
-def _tokens_per_step(cfg: ArchConfig, batch: int) -> int:
-    return batch * cfg.img_res * cfg.img_res  # pixels through a PWConv
-
-
 def synth_calib_batches(cfg: ArchConfig, spec: CalibSpec) -> List[np.ndarray]:
-    """The JAX package's synthesized vision calibration batches."""
+    """The JAX package's synthesized calibration batches: random images
+    for the vision family, random token prompts for token families."""
     rng = np.random.default_rng(spec.seed)
-    return [rng.normal(0, 1, (spec.batch_size, cfg.img_res, cfg.img_res, 3))
-            .astype(np.float32) for _ in range(spec.batches)]
+    if cfg.family == "efficientvit":
+        return [rng.normal(0, 1, (spec.batch_size, cfg.img_res, cfg.img_res,
+                                  3)).astype(np.float32)
+                for _ in range(spec.batches)]
+    if cfg.family in _TOKEN_FAMILIES:
+        return [rng.integers(0, cfg.vocab_size,
+                             (spec.batch_size, spec.seq_len), dtype=np.int32)
+                for _ in range(spec.batches)]
+    raise ValueError(f"cannot synthesize calibration inputs for family "
+                     f"{cfg.family!r}; pass explicit calib_batches")
 
 
 @dataclasses.dataclass
@@ -165,19 +216,33 @@ class QuantizedModel:
     def device(self) -> torch.device:
         return device_of(self.params)
 
-    def forward(self, images, attn: Optional[str] = None) -> torch.Tensor:
-        """One forward pass; images (B, res, res, 3), tensor or numpy."""
-        x = torch.as_tensor(images, device=self.device)
+    def forward(self, inputs, attn: Optional[str] = None) -> torch.Tensor:
+        """One forward pass, tensor or numpy inputs: images (B, res, res,
+        3) -> logits, ``attn`` the MSA token mixer; or tokens (B, S) ->
+        (B, S, padded_vocab) logits."""
+        x = torch.as_tensor(inputs, device=self.device)
         with torch.inference_mode():
-            return self.model.forward(self.cfg, self.params, x, attn=attn)
+            return _model_forward(self.cfg, self.model, self.params, x,
+                                  attn)
 
     def serve(self, **engine_kw):
-        """A :class:`~repro_torch.serving.vision.VisionEngine` over this
-        model (``max_batch``, ``max_delay_ms``, ``attn``, ... forward)."""
-        if self.cfg.family != "efficientvit":
-            raise NotImplementedError("only the vision engine is ported")
-        from .serving.vision import VisionEngine
-        return VisionEngine(self.cfg, self.params, **engine_kw)
+        """The serving engine for this model, by modality: the batched
+        :class:`~repro_torch.serving.vision.VisionEngine` for the vision
+        family (``max_batch``, ``max_delay_ms``, ``attn``, ...), the
+        continuous-batching token
+        :class:`~repro_torch.serving.engine.Engine` otherwise
+        (``max_batch``, ``max_len``, ``seed``, ``max_delay_ms``, ...)."""
+        if self.cfg.family == "efficientvit":
+            from .serving.vision import VisionEngine
+            return VisionEngine(self.cfg, self.params, **engine_kw)
+        from .serving.engine import Engine
+        return Engine(self.cfg, self.params, **engine_kw)
+
+
+def _model_forward(cfg: ArchConfig, model, params, x, attn: Optional[str]):
+    if cfg.family == "efficientvit":
+        return model.forward(cfg, params, x, attn=attn)
+    return model.forward(cfg, params, x)
 
 
 def quantize(arch_or_cfg, params, recipe: Union[str, QuantRecipe] = "m2q-w8a8",
@@ -185,9 +250,10 @@ def quantize(arch_or_cfg, params, recipe: Union[str, QuantRecipe] = "m2q-w8a8",
              attn: Optional[str] = None) -> QuantizedModel:
     """Calibrate -> scheme-select -> quantize, in one call, on the device
     the float ``params`` live on.  ``calib_batches``: model inputs (numpy
-    or tensors); None synthesizes them per the recipe's CalibSpec;
-    weights-only recipes skip calibration.  ``attn``: the MSA token mixer
-    used during calibration (device default when None)."""
+    or tensors: images, or token prompts); None synthesizes them per the
+    recipe's CalibSpec; weights-only recipes skip calibration.  ``attn``:
+    the vision MSA token mixer used during calibration (device default
+    when None)."""
     cfg = resolve_cfg(arch_or_cfg)
     rec = as_recipe(recipe)
     rec.validate()
@@ -207,17 +273,18 @@ def quantize(arch_or_cfg, params, recipe: Union[str, QuantRecipe] = "m2q-w8a8",
         # pins one
         if rec.tokens_per_step is None and calib_batches:
             resolved = dataclasses.replace(resolved, shape_ctx=ShapeCtx(
-                tokens_per_step=_tokens_per_step(
+                tokens_per_step=_default_tokens_per_step(
                     cfg, int(calib_batches[0].shape[0]))))
         wrapped, act_stats = wrap_for_calibration(
             params, rule_matcher(resolved.rules))
         run_calibration(
-            lambda p, b: model.forward(cfg, p, b, attn=attn), wrapped,
+            lambda p, b: _model_forward(cfg, model, p, b, attn), wrapped,
             calib_batches)
 
     qparams, report = quantize_model(
         params, resolved.rules, resolved.shape_ctx, rec.policy,
-        act_stats=act_stats, overrides=resolved.overrides)
+        act_stats=act_stats, ffn_groups=resolved.ffn_groups or None,
+        overrides=resolved.overrides)
     toks = resolved.shape_ctx.tokens_per_step
     return QuantizedModel(
         cfg=cfg, recipe=rec.replace(tokens_per_step=toks), params=qparams,

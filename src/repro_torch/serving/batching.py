@@ -13,13 +13,15 @@ import threading
 from typing import Dict, List, Optional, Set
 
 
-def pow2_bucket(n: int, cap: Optional[int] = None) -> int:
-    """Smallest power of two >= ``n``, bounded by ``cap`` (the engine's
-    ``max_batch``, the largest shape it executes).  Raises ``ValueError``
-    for a negative count."""
+def pow2_bucket(n: int, min_bucket: int = 1,
+                cap: Optional[int] = None) -> int:
+    """Smallest power-of-two multiple of ``min_bucket`` >= ``n`` (the
+    floor should itself be a power of two), bounded by ``cap`` (the
+    largest shape the engine executes: ``max_batch``, or ``max_len`` for
+    prefill lengths).  Raises ``ValueError`` for a negative count."""
     if n < 0:
         raise ValueError(f"bucket size for negative count {n}")
-    b = 1
+    b = max(1, min_bucket)
     while b < n:
         b *= 2
     return b if cap is None else min(b, cap)

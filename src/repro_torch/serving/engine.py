@@ -1,0 +1,369 @@
+"""Continuous-batching token engine over a (quantized) LM parameter tree
+(twin of ``repro.serving.engine.Engine`` without ``FallbackGuard``,
+fault injection, ``mesh=``, preemption, priorities, streaming and the
+debug-numerics cache scan).
+
+Slot-based: a fixed decode batch of ``max_batch`` slots, each holding one
+request's KV cache rows.  Waiting requests are admitted into free slots by
+one ragged prefill per group (prompts right-padded to a power-of-two
+length, at least 8, at most ``max_len``); every :meth:`Engine.step`
+decodes one token for all live slots, and a finished request frees its
+slot at once.  Admission runs on the shared scheduler core in admission
+mode: with the default ``max_delay_ms=0.0`` waiting requests are admitted
+whenever a slot is free; a positive delay coalesces prefills.
+
+Device-resident decode: the pending-token vector, per-slot temperatures,
+the output buffer, the emitted counts and a sticky per-slot non-finite
+flag live on the engine's device, and sampling (greedy, or Gumbel-max at
+a temperature from a ``torch.Generator`` seeded with ``seed`` on that
+device) runs there.  Completion is decided by host-side step counting, so
+the host reads the device once per completed request: the flag and the
+token row, in one transfer.  A request whose logits went non-finite at
+any step fails alone with :class:`~.errors.NumericalError`.
+
+There is no silent retry: a raising prefill fails its group's handles, a
+raising decode step fails the slots live in it, and the engine serves on.
+With ``kv_cache_dtype == "int8"`` every decode step runs the
+``decode_attn_int8`` kernel once per layer on CUDA.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.tree import device_of
+from ..models import get_model
+from ..models.config import ArchConfig
+from .batching import ServeStats, pow2_bucket
+from .errors import NumericalError, RequestTimedOut
+from .scheduler import TIMED_OUT, FlushPolicy, Handle, OverloadPolicy, \
+    Scheduler
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray  # (P,) int32
+    max_new_tokens: int = 16
+    temperature: float = 0.0  # 0 = greedy
+    out_tokens: Optional[List[int]] = None
+    handle: Optional[Handle] = None  # resolves at completion
+
+
+@dataclasses.dataclass
+class EngineStats(ServeStats):
+    """ServeStats + the token engine's decode-loop counters."""
+
+    steps: int = 0
+    decoded_tokens: int = 0
+    prefills: int = 0
+    prefill_batches: int = 0
+    finished: int = 0
+
+
+class Engine:
+    def __init__(self, cfg: ArchConfig, params, max_batch: int = 4,
+                 max_len: int = 256, seed: int = 0,
+                 max_delay_ms: float = 0.0,
+                 clock: Callable[[], float] = time.monotonic,
+                 overload: Optional[OverloadPolicy] = None):
+        if max_delay_ms is None:
+            raise ValueError(
+                "token engine admission needs a deadline: use "
+                "max_delay_ms=0.0 (admit whenever slots free) or > 0 "
+                "(coalesce prefills), not None")
+        self.cfg = cfg
+        self.model = get_model(cfg)
+        if not getattr(self.model, "RAGGED_PREFILL", False):
+            raise NotImplementedError(
+                f"{cfg.family!r}: exact-length prefill buckets (recurrent "
+                "families) are not ported")
+        self.params = params
+        self.device = device_of(params)
+        self.B = max_batch
+        self.T = max_len
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        self.stats = EngineStats()
+        self.scheduler = Scheduler(
+            policy=FlushPolicy(max_batch=max_batch,
+                               max_delay_ms=max_delay_ms),
+            stats=self.stats, clock=clock, overload=overload)
+        dev = self.device
+        self.cache = self.model.init_cache(cfg, max_batch, max_len,
+                                           dtype=torch.float32, device=dev)
+        # device-resident decode state
+        self._gen = torch.Generator(device=dev).manual_seed(seed)
+        self._pending = torch.zeros((max_batch,), dtype=torch.int64,
+                                    device=dev)
+        self._temps = torch.zeros((max_batch,), device=dev)
+        self._outbuf = torch.zeros((max_batch, max_len), dtype=torch.int32,
+                                   device=dev)
+        self._counts = torch.zeros((max_batch,), dtype=torch.int32,
+                                   device=dev)
+        # sticky per-slot non-finite-logits flag, read only at completion
+        self._nonfinite = torch.zeros((max_batch,), dtype=torch.bool,
+                                      device=dev)
+        # host mirror of per-slot emitted-token counts (drives completion
+        # without reading token values back)
+        self._emitted = [0] * max_batch
+
+    # -- request API ---------------------------------------------------------
+    @property
+    def queue(self) -> List[Request]:
+        """Requests waiting for admission (FIFO)."""
+        return self.scheduler.pending_payloads()
+
+    def submit(self, prompt, max_new_tokens: int = 16,
+               temperature: float = 0.0,
+               deadline_ms: Optional[float] = None) -> Request:
+        """Enqueue one request; its ``.handle`` resolves (or fails) at
+        completion with the list of generated token ids.
+
+        ``deadline_ms``: the request times out (``TIMED_OUT``, slot freed)
+        unless it completes within that many ms of submission, queued or
+        mid-decode.  Raises ``ValueError`` up front for a prompt that is
+        not a 1-D vector of integer token ids in ``[0, vocab_size)``, an
+        empty prompt, ``max_new_tokens < 1``, or a prompt plus budget
+        longer than ``max_len``; ``QueueFullError`` when a bounded queue
+        rejects the submit."""
+        arr = np.asarray(prompt)
+        if arr.ndim != 1:
+            raise ValueError(f"prompt must be a 1-D vector of token ids, "
+                             f"got shape {arr.shape}")
+        if arr.size and not np.issubdtype(arr.dtype, np.integer):
+            raise ValueError(f"prompt dtype must be integer token ids, got "
+                             f"{arr.dtype}")
+        if arr.size and (int(arr.min()) < 0
+                         or int(arr.max()) >= self.cfg.vocab_size):
+            raise ValueError(
+                f"prompt token ids must be in [0, {self.cfg.vocab_size}), "
+                f"got range [{int(arr.min())}, {int(arr.max())}]")
+        prompt = arr.astype(np.int32)
+        if len(prompt) == 0:
+            raise ValueError("empty prompt: prefill needs at least one token")
+        if max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens} (every "
+                "admitted request decodes at least its prefill-sampled "
+                "first token)")
+        if len(prompt) + max_new_tokens > self.T:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens})"
+                f" exceeds max_len ({self.T})")
+        req = Request(uid=0, prompt=prompt, max_new_tokens=max_new_tokens,
+                      temperature=float(temperature), out_tokens=[])
+        req.handle = self.scheduler.submit(req, deadline_ms=deadline_ms)
+        req.uid = req.handle.uid
+        return req
+
+    # -- device-side pieces --------------------------------------------------
+    def _sample(self, logits: torch.Tensor, temps: torch.Tensor,
+                draw: bool) -> torch.Tensor:
+        """(n, padded_vocab) logits -> (n,) int64 tokens on the device:
+        argmax, or Gumbel-max of ``logits / t`` where ``t > 0`` (``draw``:
+        whether any row samples; greedy-only calls consume no random
+        numbers)."""
+        lg = logits[:, : self.cfg.vocab_size].to(torch.float32)
+        greedy = torch.argmax(lg, dim=-1)
+        if not draw:
+            return greedy
+        u = torch.rand(lg.shape, generator=self._gen, device=lg.device)
+        gumbel = -torch.log(-torch.log(u))
+        drawn = torch.argmax(lg / temps.clamp(min=1e-6)[:, None] + gumbel,
+                             dim=-1)
+        return torch.where(temps > 0, drawn, greedy)
+
+    def _row_nonfinite(self, logits: torch.Tensor) -> torch.Tensor:
+        lg = logits[:, : self.cfg.vocab_size]
+        return ~torch.isfinite(lg).all(dim=-1)
+
+    def _write_slots(self, slots: List[int], group_cache: dict) -> None:
+        """Copy an (n, ...) prefill cache into the engine cache's slots
+        (the batch axis is 1 for the stacked (L, B, ...) rows)."""
+        idx = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
+        for name, dst in self.cache.items():
+            src = group_cache[name]
+            if dst.ndim == 1:  # lengths (B,)
+                dst[idx] = src
+            else:
+                dst[:, idx] = src
+
+    # -- admission -----------------------------------------------------------
+    def _admit(self) -> None:
+        # free slots and the due-check are recomputed on every pass: a
+        # max_new_tokens == 1 group completes inside _prefill_group and
+        # frees its slots for the queue within the same call
+        while True:
+            free = [i for i, r in enumerate(self.slots) if r is None]
+            if not free:
+                return
+            reason = self.scheduler.due()
+            if reason is None:
+                return
+            group = self.scheduler.pop(self.scheduler.peek(len(free)),
+                                       reason)
+            if not group:
+                continue  # whole group cancelled/expired while queued
+            try:
+                self._prefill_group(free[: len(group)], group)
+            except Exception as e:  # noqa: BLE001 -- per-batch containment
+                for h in group:
+                    h.set_exception(e)
+
+    @torch.no_grad()
+    def _prefill_group(self, gslots: List[int], handles: List[Handle]):
+        greqs = [h.payload for h in handles]
+        lens = np.asarray([len(r.prompt) for r in greqs], np.int32)
+        # a power-of-two padded length (8..max_len) bounds the distinct
+        # prefill shapes; lengths mask the pad columns
+        pmax = pow2_bucket(int(lens.max()), 8, self.T)
+        toks = np.zeros((len(greqs), pmax), np.int64)
+        for i, r in enumerate(greqs):
+            toks[i, : len(r.prompt)] = r.prompt
+        dev = self.device
+        sc = self.model.init_cache(self.cfg, len(greqs), self.T,
+                                   dtype=torch.float32, device=dev)
+        temps_h = [r.temperature for r in greqs]
+        temps = torch.tensor(temps_h, dtype=torch.float32, device=dev)
+        logits, sc = self.model.prefill(
+            self.cfg, self.params, sc, torch.from_numpy(toks).to(dev),
+            lengths=torch.from_numpy(lens).to(dev))
+        first = self._sample(logits[:, -1], temps,
+                             draw=any(t > 0 for t in temps_h))
+        bad = self._row_nonfinite(logits[:, -1])
+        self._write_slots(gslots, sc)
+        idx = torch.as_tensor(gslots, dtype=torch.int64, device=dev)
+        self._pending[idx] = first
+        self._temps[idx] = temps
+        self._outbuf[idx, 0] = first.to(torch.int32)
+        self._counts[idx] = 1
+        self._nonfinite[idx] = bad
+        for s, r in zip(gslots, greqs):
+            self.slots[s] = r
+            self._emitted[s] = 1
+        self.stats.prefills += len(greqs)
+        self.stats.prefill_batches += 1
+        # real prompt tokens vs the padded (n, pmax) prefill executed
+        self.stats.record_batch(items=int(lens.sum()),
+                                padded=int(len(greqs) * pmax - lens.sum()),
+                                capacity=self.B * pmax)
+        self._finish_done()  # max_new_tokens == 1 finishes at prefill
+
+    # -- slots ---------------------------------------------------------------
+    def _release_slot(self, slot: int) -> None:
+        """Free a slot and clear its sticky flag for the next occupant
+        (its cache rows are overwritten at the next prefill)."""
+        self.slots[slot] = None
+        self._emitted[slot] = 0
+        self._nonfinite[slot] = False
+
+    def _sweep_slots(self) -> None:
+        """Retire in-flight requests that went terminal without a result:
+        cancellation, and deadline expiry mid-decode."""
+        self.scheduler.expire()
+        now = self.scheduler.now()
+        for slot, req in enumerate(self.slots):
+            if req is None or req.handle is None:
+                continue
+            h = req.handle
+            if not h.done() and h.deadline is not None and now >= h.deadline:
+                h.set_exception(
+                    RequestTimedOut(
+                        f"request {h.uid} timed out mid-decode after "
+                        f"{self._emitted[slot]} token(s); freeing its slot"),
+                    state=TIMED_OUT)
+            if h.done():
+                self._release_slot(slot)
+
+    def _finish_done(self) -> None:
+        """Retire completed slots.  The only per-request device-to-host
+        read: the slot's sticky flag and its token row, in one copy."""
+        for slot, req in enumerate(self.slots):
+            if req is None or self._emitted[slot] < req.max_new_tokens:
+                continue
+            h = req.handle
+            n = req.max_new_tokens
+            row = torch.cat([self._nonfinite[slot:slot + 1].to(torch.int32),
+                             self._outbuf[slot, :n]]).cpu().numpy()
+            if row[0]:
+                if h is not None:
+                    h.set_exception(NumericalError(
+                        f"request {h.uid} produced non-finite logits "
+                        "during decode (NaN/Inf); its tokens are not "
+                        "trustworthy and were not delivered"))
+                self._release_slot(slot)
+                continue
+            req.out_tokens = [int(t) for t in row[1:]]
+            # a late result into a handle already cancelled or timed out
+            # is dropped by the handle's state machine
+            if h is None or h.set_result(req.out_tokens):
+                self.stats.finished += 1
+            self._release_slot(slot)
+
+    # -- the loop ------------------------------------------------------------
+    @torch.no_grad()
+    def _decode(self, live_mask: np.ndarray) -> None:
+        live = torch.from_numpy(live_mask).to(self.device)
+        logits, self.cache = self.model.decode_step(
+            self.cfg, self.params, self.cache, self._pending[:, None])
+        lg = logits[:, 0]
+        # sticky: once a live slot's logits go non-finite the bit stays
+        # set until the slot retires
+        self._nonfinite |= self._row_nonfinite(lg) & live
+        draw = any(r is not None and r.temperature > 0 for r in self.slots)
+        tok = torch.where(live, self._sample(lg, self._temps, draw),
+                          self._pending)
+        b = torch.arange(self.B, device=self.device)
+        at = torch.clamp(self._counts, max=self.T - 1).to(torch.int64)
+        self._outbuf[b, at] = torch.where(live, tok.to(torch.int32),
+                                          self._outbuf[b, at])
+        self._counts += live.to(torch.int32)
+        self._pending = tok
+
+    def step(self) -> int:
+        """Admit, then one decode step for all live slots; returns the
+        number of live slots.  A raising decode step fails only the slots
+        live in it; the step itself never raises."""
+        self._sweep_slots()
+        self._admit()
+        live_mask = np.asarray([r is not None for r in self.slots], bool)
+        live = [i for i in range(self.B) if live_mask[i]]
+        if not live:
+            return 0
+        try:
+            self._decode(live_mask)
+        except Exception as e:  # noqa: BLE001 -- per-batch containment
+            for slot in live:
+                req = self.slots[slot]
+                if req is not None and req.handle is not None:
+                    req.handle.set_exception(e)
+                self._release_slot(slot)
+            return 0
+        self.stats.steps += 1
+        self.stats.decoded_tokens += len(live)
+        for slot in live:
+            self._emitted[slot] += 1
+        self._finish_done()
+        return len(live)
+
+    def run(self, max_steps: int = 10_000) -> EngineStats:
+        """Step until the queue and every slot are empty (or
+        ``max_steps``)."""
+        for _ in range(max_steps):
+            if self.scheduler.pending == 0 and all(
+                    s is None for s in self.slots):
+                break
+            if self.step() == 0 and self.scheduler.pending \
+                    and self.scheduler.clock is time.monotonic:
+                # nothing live and admission held by max_delay_ms: sleep
+                # toward the deadline (only on the real clock)
+                nd = self.scheduler.next_deadline()
+                if nd is not None:
+                    delay = nd - self.scheduler.clock()
+                    if delay > 0:
+                        time.sleep(min(delay, 1e-3))
+        return self.stats

@@ -1,6 +1,6 @@
-"""The scheduler core behind the vision engine (the executor-mode part of
-``repro.serving.scheduler``; the token engine's admission mode, priorities
-and token streaming come with the token path).
+"""The scheduler core behind both serving engines (twin of
+``repro.serving.scheduler`` without priorities, ``requeue`` and token
+streaming).
 
 ``submit()`` returns a :class:`Handle` immediately; a batch executes when
 the :class:`FlushPolicy` says so -- ``max_batch`` requests are waiting
@@ -15,6 +15,15 @@ Handles are a terminal-state machine: ``PENDING``, then exactly one of
 exception fails only its batch's handles and never leaves the scheduler;
 every outcome is counted in :class:`~.batching.ServeStats`, so
 ``submitted == completed + failed + cancelled + timed_out + shed``.
+
+Two usage modes share the core:
+
+* **executor mode** (VisionEngine): the scheduler owns execution -- give
+  it an ``executor(handles, reason)`` and call :meth:`Scheduler.poll`;
+* **admission mode** (token Engine): the engine owns execution (slots,
+  prefill groups, the decode loop) and uses :meth:`Scheduler.due`,
+  :meth:`Scheduler.peek` and :meth:`Scheduler.pop` to decide when and
+  which waiting requests to admit.
 """
 from __future__ import annotations
 
@@ -180,6 +189,37 @@ class Scheduler:
                 self._last_now = t
             return self._last_now
 
+    # -- queue state ---------------------------------------------------------
+    @property
+    def pending(self) -> int:
+        with self._lock:
+            return len(self._q)
+
+    def pending_payloads(self) -> list:
+        """Payloads still queued, in admission order."""
+        with self._lock:
+            return [h.payload for h in self._q]
+
+    def oldest_age_ms(self, now: Optional[float] = None) -> float:
+        with self._lock:
+            if not self._q:
+                return 0.0
+            oldest = min(h.submitted_at for h in self._q)
+            return max(0.0, (self.now(now) - oldest) * 1000.0)
+
+    def next_deadline(self) -> Optional[float]:
+        """Clock time of the next event -- a waiting request becoming due
+        for admission, or the earliest per-request deadline (None if
+        neither applies): serving loops sleep until it."""
+        with self._lock:
+            cands = []
+            adm = self.policy.admission_deadline(self._q)
+            if adm is not None:
+                cands.append(adm)
+            cands.extend(h.deadline for h in self._q
+                         if h.deadline is not None)
+            return min(cands) if cands else None
+
     def expire(self, now: Optional[float] = None) -> int:
         """Drop cancelled handles; time out requests past their deadline."""
         with self._lock:
@@ -251,7 +291,17 @@ class Scheduler:
             self.poll(now)
         return h
 
-    def _pop(self, handles: Sequence[Handle], reason: str) -> List[Handle]:
+    # -- admission mode (the engine owns execution) --------------------------
+    def peek(self, n: int) -> List[Handle]:
+        """Up to ``n`` next PENDING handles in admission order, not
+        removed."""
+        with self._lock:
+            return [h for h in self._q if h.state == PENDING][: max(0, n)]
+
+    def pop(self, handles: Sequence[Handle], reason: str) -> List[Handle]:
+        """Remove ``handles`` from the queue, stamping each one's queue
+        latency and the batch's flush reason into the stats; returns only
+        those still PENDING (cancelled/expired ones are never executed)."""
         with self._lock:
             now = self.now()
             taken = {id(h) for h in handles}
@@ -281,7 +331,7 @@ class Scheduler:
                 reason = self.due(now)
                 if reason is None:
                     return delivered
-                handles = self._pop(self._q[: self.policy.max_batch], reason)
+                handles = self.pop(self._q[: self.policy.max_batch], reason)
             if not handles:
                 continue
             self._run_executor(handles, reason)
@@ -297,7 +347,7 @@ class Scheduler:
             with self._lock:
                 if not self._q:
                     return flushed
-                handles = self._pop(self._q[: self.policy.max_batch],
+                handles = self.pop(self._q[: self.policy.max_batch],
                                     FLUSH_DRAIN)
             if not handles:
                 continue

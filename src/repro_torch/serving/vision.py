@@ -67,7 +67,7 @@ class VisionEngine:
     def bucket(self, n: int) -> int:
         """Smallest power of two >= n, capped at max_batch: the batch
         shape actually executed."""
-        return pow2_bucket(n, self.B)
+        return pow2_bucket(n, cap=self.B)
 
     def _run_batch(self, images: np.ndarray, bucket: int) -> np.ndarray:
         n = images.shape[0]

@@ -13,8 +13,10 @@ import torch
 from repro_torch import kernels
 from repro_torch.core.qtensor import QAPoT, QM2Q, QUniform
 from repro_torch.core.scheme_select import select_schemes
-from repro_torch.kernels import (apot_matmul, dwconv_w4, int4_matmul,
-                                 int8_matmul, m2q_matmul, ops, relu_attn)
+from repro_torch.kernels import (apot_matmul, decode_attn_int8, dwconv_w4,
+                                 int4_matmul, int8_matmul, m2q_matmul, ops,
+                                 relu_attn)
+from repro_torch.nn.attention import quantize_kv_rows
 
 pytestmark = pytest.mark.gpu
 
@@ -173,3 +175,70 @@ def test_qtensor_matmul_launches_a_kernel_for_every_supported_leaf(cuda):
         launched = {k for k, c in kernels.counts().items() if c["launches"]}
         assert launched == ({name} if name else set()), (qt, launched)
         assert all(c["plain_calls"] == 0 for c in kernels.counts().values())
+
+
+def test_int4_kernel_at_the_lm_head_shape(cuda):
+    """qwen1.5-0.5b's lm_head: M = decode batch 8, K = 1024, N = 151936."""
+    M, K, N = 8, 1024, 151936
+    x = _randn((M, K), 5, cuda, dtype=torch.bfloat16)
+    qt = QUniform.quantize(_randn((K, N), 6, cuda, std=K ** -0.5), bits=4)
+    args = (x, qt.payload, qt.scale.reshape(-1), qt.zero_point.reshape(-1))
+    y = int4_matmul.int4_matmul(*args)
+    _within_f32_bound(y, int4_matmul.int4_matmul_plain(*args), x,
+                      qt.dequant())
+
+
+def decode_inputs(B, T, H, G, D, lengths, device, seed=0,
+                  q_dtype=torch.float32):
+    """q (B, H, G, D) and an int8 cache quantized from random rows, the
+    way the model writes it (``quantize_kv_rows``)."""
+    q = _randn((B, H, G, D), seed, device, dtype=q_dtype)
+    k8, ks = quantize_kv_rows(_randn((B, T, H, D), seed + 1, device))
+    v8, vs = quantize_kv_rows(_randn((B, T, H, D), seed + 2, device))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return q, k8, v8, ks, vs, lens
+
+
+# (B, T, Hkv, G, D, lengths, window): the token path's shape with ragged
+# lengths (0, 1, T and a slot idled past T included), GQA with D = 128,
+# a window, and a cache longer than 1040 rows (|PV| sums above 2^24)
+DECODE_CASES = [
+    (8, 256, 16, 1, 64, [0, 1, 17, 100, 255, 256, 300, 64], None),
+    (3, 40, 2, 4, 128, [1, 17, 40], None),
+    (3, 40, 2, 4, 64, [1, 17, 40], 8),
+    (2, 1500, 2, 2, 64, [1500, 700], None),
+]
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,G,D,lengths,window", DECODE_CASES)
+def test_decode_attn_kernel_within_two_p8_codes_of_plain(
+        cuda, B, T, H, G, D, lengths, window, q_dtype):
+    args = decode_inputs(B, T, H, G, D, lengths, cuda, seed=T + G,
+                         q_dtype=q_dtype)
+    scale = D ** -0.5
+    kernels.reset_counts()
+    y = decode_attn_int8.decode_attn_int8(*args, scale, window)
+    assert kernels.counts()["decode_attn_int8"] == {"launches": 1,
+                                                    "plain_calls": 0}
+    y_ref = decode_attn_int8.decode_attn_int8_plain(*args, scale, window)
+    bound = decode_attn_int8.error_bound(*args, scale, window)
+    assert bool(torch.all((y - y_ref).abs() <= bound)), \
+        float(((y - y_ref).abs() / bound).max())
+    # a length-0 slot gets the uniform softmax, as the plain version does
+    assert bool(torch.isfinite(y).all())
+
+
+def test_decode_attn_kernel_rejects_bad_operands(cuda):
+    q, k8, v8, ks, vs, lens = decode_inputs(2, 8, 2, 1, 64, [1, 2], cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attn_int8.decode_attn_int8(q[..., :40].contiguous(),
+                                          k8[..., :40].contiguous(),
+                                          v8[..., :40].contiguous(), ks, vs,
+                                          lens, 0.125)
+    with pytest.raises(ValueError, match="lengths"):
+        decode_attn_int8.decode_attn_int8(q, k8, v8, ks, vs, lens.long(),
+                                          0.125)
+    with pytest.raises(ValueError, match="shared"):
+        big = decode_inputs(1, 60000, 1, 1, 64, [1], cuda)
+        decode_attn_int8.decode_attn_int8(*big, 0.125)

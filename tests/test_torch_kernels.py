@@ -20,8 +20,9 @@ from repro.kernels import ref
 from repro_torch import kernels
 from repro_torch.core import quant as tquant
 from repro_torch.core.qtensor import QM2Q
-from repro_torch.kernels import (apot_matmul, build, dwconv_w4, int4_matmul,
-                                 int8_matmul, m2q_matmul, ops, relu_attn)
+from repro_torch.kernels import (apot_matmul, build, decode_attn_int8,
+                                 dwconv_w4, int4_matmul, int8_matmul,
+                                 m2q_matmul, ops, relu_attn)
 
 
 def _rng(*key):
@@ -193,10 +194,14 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     int4_matmul.int4_matmul(xm, torch.ones((4, 1), dtype=torch.uint8), s2,
                             s2)
     apot_matmul.apot_matmul(xm, torch.ones((4, 2), dtype=torch.uint8), s2)
+    cache = torch.ones((1, 4, 1, 16), dtype=torch.int8)
+    decode_attn_int8.decode_attn_int8(
+        torch.ones((1, 1, 1, 16)), cache, cache, torch.ones((1, 4, 1)),
+        torch.ones((1, 4, 1)), torch.tensor([2], dtype=torch.int32), 0.25)
     assert kernels.counts() == {
         name: {"launches": 0, "plain_calls": 1}
         for name in ("m2q_matmul", "dwconv_w4", "relu_attn", "int8_matmul",
-                     "int4_matmul", "apot_matmul")}
+                     "int4_matmul", "apot_matmul", "decode_attn_int8")}
     kernels.reset_counts()
     assert all(c == {"launches": 0, "plain_calls": 0}
                for c in kernels.counts().values())

@@ -169,7 +169,8 @@ def test_scheduler_shed_oldest():
 @pytest.mark.parametrize("n,cap,want", [(0, None, 1), (5, 8, 8),
                                         (3, None, 4), (9, 8, 8)])
 def test_pow2_bucket(n, cap, want):
-    assert pow2_bucket(n, cap) == want
+    # JAX's signature: pow2_bucket(n, min_bucket=1, cap=None)
+    assert pow2_bucket(n, cap=cap) == want
 
 
 def test_forward_accepts_numpy_and_runs_on_params_device(qm):
