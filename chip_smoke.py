@@ -20,8 +20,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    N=151936), with kernel / plain / library device times (CUDA graphs
    timed by CUDA events) and the card's least time for the same work
    (int8_matmul and int4_matmul also per path: their shapes of different
-   paths never run in one forward).  int8, m2q, dwconv and relu_attn
-   kernels must equal their plain versions; the f32-dot kernels (int4,
+   paths never run in one forward; m2q rows also record the launch
+   shape: tile, K splits, blocks).  int8 and m2q must equal their plain
+   versions bit for bit, dwconv and relu_attn to within 1e-6 of |y| (a
+   rounding-order slip); the f32-dot kernels (int4,
    APoT) must sit within the f32 summation bound; decode_attn_int8 within
    two flipped p8 codes per (b, h, g) row;
 4. main path -- ``init`` at full B1 R224 width, ``recipe.quantize(...,
@@ -273,8 +275,9 @@ def _randn(torch, rng, shape, std=1.0, dtype=None):
 
 
 def check_m2q(torch, rng, calls) -> Tally:
-    """m2q_matmul at every distinct (M, K, N); yardstick: one bf16
-    torch.matmul on the dequantized weight."""
+    """m2q_matmul at every distinct (M, K, N), bit-exact; each row records
+    the launch shape the wrapper chose (tile, K splits, blocks).
+    Yardstick: one bf16 torch.matmul on the dequantized weight."""
     from repro_torch.core.qtensor import QM2Q
     from repro_torch.core.scheme_select import select_schemes
     from repro_torch.kernels import m2q_matmul as k
@@ -295,7 +298,9 @@ def check_m2q(torch, rng, calls) -> Tally:
         tally.measure(dict(M=M, K=K, N=N), n, lambda: k.m2q_matmul(*args),
                       lambda: k.m2q_matmul_plain(*args),
                       lambda: torch.matmul(x, w_deq),
-                      M * K * 2 + K * N + 3 * N * 4 + 4 + M * N * 4, ops_ms)
+                      M * K * 2 + K * N + 3 * N * 4 + 4 + M * N * 4, ops_ms,
+                      err_bound=0.0)
+        tally.rows[-1]["launch"] = k.launch_plan(M, K, N)
     return tally
 
 

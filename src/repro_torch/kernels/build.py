@@ -121,19 +121,20 @@ def check_operands(name: str, x: torch.Tensor, *operands) -> None:
 
 
 def launch_matmul(source: str, name: str, x: torch.Tensor, n: int,
-                  *operands) -> torch.Tensor:
+                  *operands, ints: tuple = ()) -> torch.Tensor:
     """Launch the matmul kernel ``extern "C" int <name>(x, operands...,
-    y, M, N, K, x_is_bf16, stream)`` of ``csrc/<source>.cu`` on x's
-    current stream after :func:`check_operands`; returns y (M, n) f32."""
+    y, M, N, K, x_is_bf16, ints..., stream)`` of ``csrc/<source>.cu`` on
+    x's current stream after :func:`check_operands`; returns y (M, n) f32.
+    ``ints``: the kernel's own launch parameters, if it takes any."""
     check_operands(name, x, *operands)
     m, k = x.shape
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = getattr(load(source), name)
     fn.argtypes = [ctypes.c_void_p] * (len(operands) + 2) \
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        + [ctypes.c_int] * (4 + len(ints)) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), *(t.data_ptr() for _, t, _ in operands),
-             y.data_ptr(), m, n, k, int(x.dtype == torch.bfloat16),
+             y.data_ptr(), m, n, k, int(x.dtype == torch.bfloat16), *ints,
              torch.cuda.current_stream(x.device).cuda_stream)
     check(err, name)
     return y

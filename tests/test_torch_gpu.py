@@ -17,6 +17,7 @@ from repro_torch.kernels import (apot_matmul, decode_attn_int8, dwconv_w4,
                                  int4_matmul, int8_matmul, m2q_matmul, ops,
                                  relu_attn)
 from repro_torch.nn.attention import quantize_kv_rows
+from m2q_cases import adversarial_m2q
 
 pytestmark = pytest.mark.gpu
 
@@ -40,9 +41,18 @@ def _equal(a, b):
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+# shapes that pick each launch route of the kernel (m2q_matmul.launch_plan):
+# 128-row tiles at N = 16 and N = 64, 32-row tiles split over 2, 4 and 8
+# cluster blocks (late stages, the head, a long K of 128 steps), payload
+# rows not 16-byte aligned (N = 1000: 8-byte copies; N = 130: plain loads)
+# and a ragged K of 72
+M2Q_SHAPES = [(100, 16, 64), (65, 72, 1000), (8, 1024, 1000), (777, 256, 130),
+              (392, 1024, 256), (392, 512, 256), (100352, 64, 16),
+              (64, 4096, 96)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,K,N", [(100, 16, 64), (65, 72, 1000),
-                                   (8, 1024, 1000), (777, 256, 130)])
+@pytest.mark.parametrize("M,K,N", M2Q_SHAPES)
 def test_m2q_kernel_equals_plain(cuda, M, K, N, dtype):
     x = _randn((M, K), M + K, cuda, dtype=dtype)
     w = _randn((K, N), N, cuda, std=K ** -0.5)
@@ -56,6 +66,42 @@ def test_m2q_kernel_equals_plain(cuda, M, K, N, dtype):
     assert kernels.counts()["m2q_matmul"] == {"launches": 1,
                                               "plain_calls": 0}
     _equal(y, m2q_matmul.m2q_matmul_plain(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["mixed", "uniform", "apot"])
+@pytest.mark.parametrize("M,K,N", [(96, 512, 64), (8, 1024, 1000),
+                                   (300, 80, 24)])
+def test_m2q_kernel_equals_plain_on_adversarial_payloads(cuda, M, K, N, kind,
+                                                          dtype):
+    """Every APoT code (+-256 units included) and the zero code, all-uniform
+    and all-APoT layers, and activations that mostly clip at +-127."""
+    x, *rest = adversarial_m2q(M, K, N, kind, seed=M + K + N)
+    args = (torch.from_numpy(x).to(cuda).to(dtype),
+            *(torch.as_tensor(a).to(cuda) for a in rest))
+    assert float((m2q_matmul.m2q_matmul_plain(args[0], args[1], *args[2:])
+                  .abs() > 0).float().mean()) > 0.5
+    xq = torch.round(args[0].float() / args[1]).abs()
+    assert float((xq >= 127).float().mean()) > 0.5
+    _equal(m2q_matmul.m2q_matmul(*args), m2q_matmul.m2q_matmul_plain(*args))
+
+
+@pytest.mark.parametrize("bm,bn", m2q_matmul.TILES)
+@pytest.mark.parametrize("splits", [1, 2, 8])
+def test_m2q_kernel_equals_plain_at_every_tile_and_split(cuda, bm, bn,
+                                                         splits):
+    """Every tile the kernel builds, unsplit and split over clusters of 2
+    and 8, at a shape launch_plan gives another launch shape."""
+    x = _randn((200, 640), 7, cuda, dtype=torch.bfloat16)
+    w = _randn((640, 72), 8, cuda, std=640 ** -0.5)
+    asn = select_schemes(w)
+    qt = QM2Q.quantize(w, asn.apot_idx, asn.uniform_idx,
+                       act_max_abs=float(x.abs().max()))
+    args = (x, qt.act_scale, qt.payload, qt.u_scale.reshape(-1),
+            qt.u_zp.reshape(-1), qt.a_scale.reshape(-1))
+    plan = dict(bm=bm, bn=bn, splits=splits)
+    _equal(m2q_matmul._launch(*args, plan=plan),
+           m2q_matmul.m2q_matmul_plain(*args))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -23,6 +23,7 @@ from repro_torch.core.qtensor import QM2Q
 from repro_torch.kernels import (apot_matmul, build, decode_attn_int8,
                                  dwconv_w4, int4_matmul, int8_matmul,
                                  m2q_matmul, ops, relu_attn)
+from m2q_cases import adversarial_m2q, apot_codes
 
 
 def _rng(*key):
@@ -73,6 +74,91 @@ def test_m2q_plain_matches_ref_qtensor_and_pallas(M, K, N):
     y_pl = jops.m2q_matmul_op(jnp.asarray(x), *args, interpret=True,
                               blocks=(16, 32, 16))
     _close(y.numpy(), y_pl)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "uniform", "apot"])
+def test_m2q_plain_matches_ref_and_pallas_on_adversarial_payloads(kind):
+    """Every APoT code (+-256 units, the kernel's hi plane, included) and
+    the zero code, all-uniform and all-APoT layers, and activations that
+    mostly clip at +-127: exactly the inputs the CUDA kernel's decode must
+    get right, against the reference and the interpreted Pallas kernel."""
+    x, *args = adversarial_m2q(12, 96, 40, kind, seed=3)
+    payload = args[1]
+    if kind != "uniform":
+        apot_cols = np.flatnonzero(args[4])
+        assert set(apot_codes()) <= set(payload[:, apot_cols[0]].view(np.uint8))
+    y = m2q_matmul.m2q_matmul_plain(torch.from_numpy(x), *_torch(args))
+    xq = np.abs(np.asarray(jquant.quantize_act(jnp.asarray(x), args[0])))
+    assert (xq == 127).mean() > 0.5
+    _close(y.numpy(), ref.m2q_merged_ref(jnp.asarray(x), *args))
+    y_pl = jops.m2q_matmul_op(jnp.asarray(x), *args, interpret=True,
+                              blocks=(8, 32, 32))
+    _close(y.numpy(), y_pl)
+
+
+def test_m2q_apot_planes_rebuild_the_decode():
+    """The kernel's split of an APoT byte's units into int8 planes,
+    ``(hi << 7) + lo`` with hi = s*(units >> 7), lo = s*(units & 127),
+    holds for all 256 byte values (the uniform columns' bytes too)."""
+    from repro_torch.core.packing import apot_decode_units
+    units = apot_decode_units(torch.arange(256, dtype=torch.uint8)).numpy()
+    sign = np.sign(units)
+    hi, lo = sign * (np.abs(units) >> 7), sign * (np.abs(units) & 127)
+    assert hi.min() >= -128 and hi.max() <= 127
+    assert lo.min() >= -128 and lo.max() <= 127
+    np.testing.assert_array_equal(hi * 128 + lo, units)
+    codes = apot_codes()
+    assert int(apot_decode_units(torch.from_numpy(codes)).abs().max()) == 256
+
+
+@pytest.mark.parametrize("sa", [0.01, 0.0371, 3.3e-3, 1.7, 1.3 * 2.0 ** -20,
+                                2.0 ** 100])
+def test_m2q_quantize_filter_decides_like_the_ieee_quotient(sa):
+    """The kernel's Quantizer, in numpy float32: wherever the reciprocal
+    product t = RN(x * RN(1/sa)) is not within 2^-12 of a half-integer
+    (|t - rint(t)| > 0.5 - 2^-12) below 128, clip(rint(t)) equals
+    clip(rint(RN(x / sa))); the near-ties (which the kernel divides) stay
+    rare."""
+    rng = np.random.default_rng(11)
+    sa = np.float32(sa)
+    ties = (rng.integers(-140, 140, 4000) + np.float32(0.5)) * sa
+    x = np.concatenate([
+        rng.normal(0, 60, 100_000).astype(np.float32) * sa,
+        rng.normal(0, 1, 20_000).astype(np.float32),
+        *(np.nextafter(ties, np.float32(np.inf) * d).astype(np.float32)
+          for d in (1, -1)), ties.astype(np.float32),
+        np.array([0, -0.0, 1e-45, -1e-38, 3e38, -3e38, np.inf, -np.inf],
+                 dtype=np.float32)]).astype(np.float32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        exact = np.clip(np.rint(x / sa), -127, 127)
+        t = x * (np.float32(1) / sa)
+        n = np.rint(t)
+        near = (np.abs(t) < 128) & (np.abs(t - n) > 0.5 - 2.0 ** -12)
+        fast = np.clip(n, -127, 127)
+    assert t.dtype == np.float32
+    np.testing.assert_array_equal(fast[~near], exact[~near])
+    assert near[:120_000].mean() < 1e-2
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (100352, 16, 64), (100352, 64, 16), (25088, 64, 32), (6272, 128, 64),
+    (1568, 512, 128), (392, 1024, 256), (392, 256, 768), (8, 1024, 1000),
+    (64, 4096, 96), (5, 16, 3)])
+def test_m2q_launch_plan_fills_the_card(M, K, N):
+    """Tiles the kernel instantiates; every SM gets a block unless the
+    shape is too small for 32-row tiles split 8 ways (or too short in K
+    to split further); a cluster's blocks divide the tile's rows."""
+    p = m2q_matmul.launch_plan(M, K, N)
+    assert (p["bm"], p["bn"]) in m2q_matmul.TILES
+    assert p["splits"] in (1, 2, 4, 8) and p["bm"] % p["splits"] == 0
+    tiles = -(-M // p["bm"]) * -(-N // p["bn"])
+    assert p["blocks"] == tiles * p["splits"]
+    steps = -(-K // m2q_matmul.BK)
+    assert steps >= 2 * p["splits"] or p["splits"] == 1
+    if p["blocks"] < m2q_matmul.SMS:
+        assert p["splits"] == m2q_matmul.MAX_SPLIT or steps < 8 \
+            or steps < 4 * p["splits"]
+    assert N > 32 or p["bn"] >= N  # narrow layers waste no tile columns
 
 
 def test_m2q_plain_bf16_activations_quantize_in_f32():
