@@ -20,10 +20,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    N=151936), with kernel / plain / library device times (CUDA graphs
    timed by CUDA events) and the card's least time for the same work
    (int8_matmul and int4_matmul also per path: their shapes of different
-   paths never run in one forward; m2q rows also record the launch
-   shape: tile, K splits, blocks).  int8 and m2q must equal their plain
-   versions bit for bit, dwconv and relu_attn to within 1e-6 of |y| (a
-   rounding-order slip); the f32-dot kernels (int4,
+   paths never run in one forward; m2q, int4 and APoT rows also record
+   the launch shape: tile, K splits, blocks).  int8 and m2q must equal
+   their plain versions bit for bit, dwconv and relu_attn to within 1e-6
+   of |y| (a rounding-order slip); the f32-dot kernels (int4,
    APoT) must sit within the f32 summation bound; decode_attn_int8 within
    two flipped p8 codes per (b, h, g) row;
 4. main path -- ``init`` at full B1 R224 width, ``recipe.quantize(...,
@@ -47,6 +47,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    counters (decode_attn_int8 = 24 per decode step, int4_matmul = one per
    step and per prefill group, 0 plain calls), every handle's token count,
    and teacher-forced kernel logits against ``reference_path()`` logits;
+   where a served token is not the teacher-forced argmax, prints the
+   logits' top-2 margin there and the served token's gap to the top;
    times the batch-8 decode step (eager, in a CUDA graph, plain), traces
    one with torch.profiler and reports the served tokens/s.
 
@@ -408,12 +410,14 @@ def check_weights_only(torch, rng, name, calls_by_path) -> Tally:
     """``int4_matmul`` (the w4-weights-only PWConvs; the qwen lm_head) or
     ``apot_matmul`` (the weights-only APoT PWConvs) at every distinct
     (M, K, N) of each path in ``calls_by_path``, summed per path; within
-    the f32 summation bound.  Yardstick: one bf16 torch.matmul on the
-    dequantized weight.  Operations count at the bf16 tensor-core rate:
-    x is bf16 and each decoded weight is a bf16-exact value ((q - zp) an
-    integer in [-15, 15]; an APoT value has at most 7 significant bits)
-    times a per-filter scale an epilogue can apply, so bf16 MMA with f32
-    accumulation does the same work within the same summation bound."""
+    the f32 summation bound (each row records its largest err / bound and
+    the launch shape: kernel, tile, K splits, blocks).  Yardstick: one
+    bf16 torch.matmul on the dequantized weight.  Operations count at the
+    bf16 tensor-core rate: x is bf16 and each decoded weight is a
+    bf16-exact value ((q - zp) an integer in [-15, 15]; an APoT value has
+    at most 8 significant bits) times a per-filter scale the epilogue
+    applies: the kernel's bf16 MMA with f32 sums, within the same
+    summation bound."""
     from repro_torch.core.qtensor import QAPoT, QUniform
     from repro_torch.kernels import apot_matmul, int4_matmul
     k = int4_matmul if name == "int4_matmul" else apot_matmul
@@ -442,6 +446,7 @@ def check_weights_only(torch, rng, name, calls_by_path) -> Tally:
                           2.0 * M * K * N / BF16_FLOPS_PER_S * 1e3,
                           err_bound=f32_dot_bound(torch, x.float(), w_hat),
                           path=path if len(calls_by_path) > 1 else None)
+            tally.rows[-1]["launch"] = int4_matmul.launch_plan(M, K, N)
             del w_hat, w_deq, qt, args
     return tally
 
@@ -711,6 +716,24 @@ def teacher_forced_logits(torch, cfg, params, prompts, forced):
     return torch.stack(out)
 
 
+def token_margins(logits, served) -> dict:
+    """Where a served token (``served`` (steps, B)) is not the argmax of
+    the teacher-forced ``logits`` (steps, B, vocab): the logits' top-2
+    margin there and the served token's gap below the top."""
+    import numpy as np
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    gap = logits.max(-1) - np.take_along_axis(logits, served[..., None],
+                                              -1)[..., 0]
+    at = np.argwhere(served != logits.argmax(-1))
+    rows = [{"step": int(t), "request": int(b),
+             "top2_margin": float(top2[t, b, 1] - top2[t, b, 0]),
+             "served_gap": float(gap[t, b])} for t, b in at]
+    return {"positions": int(served.size), "mismatches": rows,
+            "largest_top2_margin": max((r["top2_margin"] for r in rows),
+                                       default=0.0),
+            "largest_gap": max((r["served_gap"] for r in rows), default=0.0)}
+
+
 def run_token_path(torch, out_dir):
     """Quantize qwen1.5-0.5b at full width (int8 KV cache) under
     m2q-w8a8 on the card, serve 16 requests through the token Engine, and
@@ -780,9 +803,9 @@ def run_token_path(torch, out_dir):
     diff = float((got - ref).abs().max())
     top = float(ref.abs().max())
     same_argmax = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
-    served_match = float(np.mean(
-        np.array([outs[i][:steps + 1] for i in pick]).T
-        == got.argmax(-1).cpu().numpy()))
+    served = np.array([outs[i][:steps + 1] for i in pick]).T  # (steps+1, B)
+    served_match = float(np.mean(served == got.argmax(-1).cpu().numpy()))
+    margins = token_margins(got.cpu().numpy(), served)
     # bf16 activations through 24 layers: a flipped p8 code in any
     # layer's attention, or the lm_head's f32 sums landing on the other
     # side of a bf16 rounding, moves every later value by a bf16 ulp;
@@ -791,6 +814,10 @@ def run_token_path(torch, out_dir):
     if not diff <= 5e-2 * top:
         fail(f"token path: teacher-forced logits differ from the plain "
              f"versions' by {diff} (max |logit| {top})")
+    print("token path served-vs-teacher-forced mismatches:", json.dumps(dict(
+        margins, bound=5e-2 * top,
+        within_bound=bool(margins["largest_gap"] <= 5e-2 * top))),
+        flush=True)
 
     # the batch-8 decode step at the served run's cache lengths
     cache = {k: v.clone() for k, v in engine.cache.items()}
@@ -811,6 +838,7 @@ def run_token_path(torch, out_dir):
                teacher_forced_max_abs_diff=diff, logits_max_abs=top,
                teacher_forced_same_argmax=same_argmax,
                served_tokens_match_teacher_forced_argmax=served_match,
+               mismatch_margins=margins,
                serve_stats=stats.summary(),
                decode_lengths=cache["lengths"].tolist())
     with torch.no_grad():

@@ -54,9 +54,12 @@ __device__ __forceinline__ float nanmax(float a, float b) {
   return fmaxf(a, b);
 }
 
+// clip(rne(x / s), +-127) as int8.  The conversion rounds half to even,
+// saturates and sends NaN to 0 (cvt.rni.s32.f32), as the plain version's
+// (and XLA's) float -> int8 cast does; an fminf/fmaxf clip in float would
+// send NaN to -127.
 __device__ __forceinline__ int8_t quant8(float x, float s) {
-  const float r = rintf(__fdiv_rn(x, s));
-  return (int8_t)fminf(fmaxf(r, -127.f), 127.f);
+  return (int8_t)max(-127, min(127, __float2int_rn(__fdiv_rn(x, s))));
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -64,9 +64,11 @@ int8_kernel(const T* __restrict__ x, const float* __restrict__ sa_ptr,
       const int gm = m0 + r, gk = k0 + c;
       int q = 0;
       if (gm < M && gk < K) {
-        float v = rintf(__fdiv_rn(to_f32(x[(int64_t)gm * K + gk]), sa));
-        v = fminf(fmaxf(v, -127.f), 127.f);
-        q = (int)v;
+        // rne and clip in one: the conversion rounds half to even,
+        // saturates and sends NaN to 0 (cvt.rni.s32.f32), as the plain
+        // version's (and XLA's) float -> int8 cast does
+        const float v = __fdiv_rn(to_f32(x[(int64_t)gm * K + gk]), sa);
+        q = max(-127, min(127, __float2int_rn(v)));
       }
       xs[r][c] = q;
     }

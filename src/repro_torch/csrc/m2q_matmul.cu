@@ -74,8 +74,12 @@ constexpr int KROW = BK + 16;    // bytes per row of xq and of each plane:
                                  // 48 keeps fragment loads conflict-free
 constexpr int MAX_SPLIT = 8;     // portable cluster size
 
+// rne(v) clipped to +-127, as an int.  The conversion rounds half to
+// even, saturates and sends NaN to 0 (cvt.rni.s32.f32), as the plain
+// version's (and XLA's) float -> int8 cast does; an fminf/fmaxf clip in
+// float would send NaN to -127.
 __device__ __forceinline__ int clip127(float v) {
-  return (int)fminf(fmaxf(v, -127.f), 127.f);
+  return max(-127, min(127, __float2int_rn(v)));
 }
 
 // clip(rint(v / sa), +-127), bit for bit as the plain version rounds it

@@ -23,8 +23,9 @@
 // of the TPU kernel.  All integer sums are exact; the float steps use
 // explicitly rounded operations (IEEE division, no FMA contraction), so
 // the result is bit-identical to the plain version.  D <= 64 (the wrapper
-// raises above that).  Launches on the caller's stream, allocates nothing,
-// and returns cudaGetLastError().
+// raises above that).  NaN behaves as in the reference: ReLU and the kv
+// max propagate it, the int8 quantizer sends it to 0.  Launches on the
+// caller's stream, allocates nothing, and returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,9 +42,26 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// rne(v) clipped to +-127, as an int.  The conversion rounds half to
+// even, saturates and sends NaN to 0 (cvt.rni.s32.f32), as the plain
+// version's (and XLA's) float -> int8 cast does; an fminf/fmaxf clip in
+// float would send NaN to -127.
+__device__ __forceinline__ int clip127(float v) {
+  return max(-127, min(127, __float2int_rn(v)));
+}
+
 __device__ __forceinline__ int8_t quant(float x, float s) {
-  float r = rintf(__fdiv_rn(x, s));
-  return (int8_t)fminf(fmaxf(r, -127.f), 127.f);
+  return (int8_t)clip127(__fdiv_rn(x, s));
+}
+
+// ReLU that keeps NaN, as jnp.maximum and torch.relu do
+__device__ __forceinline__ float relu(float x) { return x < 0.f ? 0.f : x; }
+
+// max that propagates NaN, as jnp.max and torch.amax do
+__device__ __forceinline__ float nanmax(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return fmaxf(a, b);
 }
 
 template <typename T>
@@ -79,7 +97,7 @@ relu_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < rows * D; i += THREADS) {
       const int r = i / D, d = i % D;
       const int64_t n = n0 + r;
-      a8[r][d] = quant(fmaxf(to_f32(kb[n * ksn + d]), 0.f), sk);
+      a8[r][d] = quant(relu(to_f32(kb[n * ksn + d])), sk);
       b8[r][d] = quant(to_f32(vb[n * vsn + d]), sv);
     }
     __syncthreads();
@@ -104,20 +122,19 @@ relu_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int s = 0; s < SLOTS; ++s)
     if (tid + s * THREADS < DD)
-      m = fmaxf(m, fabsf(__fmul_rn((float)acc[s], sksv)));
+      m = nanmax(m, fabsf(__fmul_rn((float)acc[s], sksv)));
   red[tid] = m;
   __syncthreads();
   for (int w = THREADS / 2; w > 0; w >>= 1) {
-    if (tid < w) red[tid] = fmaxf(red[tid], red[tid + w]);
+    if (tid < w) red[tid] = nanmax(red[tid], red[tid + w]);
     __syncthreads();
   }
-  const float skv = fmaxf(__fdiv_rn(red[0], 127.f), 1e-8f);
+  const float skv = nanmax(__fdiv_rn(red[0], 127.f), 1e-8f);
 #pragma unroll
   for (int s = 0; s < SLOTS; ++s) {
     const int e_idx = tid + s * THREADS;
     if (e_idx < DD) {
-      float r = rintf(__fdiv_rn(__fmul_rn((float)acc[s], sksv), skv));
-      kv8[e_idx] = (int)fminf(fmaxf(r, -127.f), 127.f);
+      kv8[e_idx] = clip127(__fdiv_rn(__fmul_rn((float)acc[s], sksv), skv));
     }
   }
   if (tid < D) ksum[tid] = ks;
@@ -130,8 +147,7 @@ relu_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int rows = min(CH, N - n0);
     for (int i = tid; i < rows * D; i += THREADS) {
       const int r = i / D, d = i % D;
-      a8[r][d] = quant(fmaxf(to_f32(qb[(int64_t)(n0 + r) * qsn + d]), 0.f),
-                       sq);
+      a8[r][d] = quant(relu(to_f32(qb[(int64_t)(n0 + r) * qsn + d])), sq);
     }
     __syncthreads();
     for (int i = tid; i < rows * D; i += THREADS) {

@@ -6,10 +6,12 @@ code byte decodes to ``s*(2^-e1 + 2^-e2)`` (bit6 sign, bits5..3 e1,
 bits2..0 e2) and to 0 when bit7 is set.
 
 :func:`apot_matmul` launches the CUDA kernel (``apot_matmul`` in
-``csrc/weights_only_matmul.cu``, which shares its f32-dot kernel with
-``int4_matmul``) for a CUDA tensor and takes :func:`apot_matmul_plain` only
-for a CPU tensor.  The two sum in different orders: they agree to the f32
-summation bound, not bit for bit.
+``csrc/weights_only_matmul.cu``, a template it shares with
+``int4_matmul``, under the same :func:`~.int4_matmul.launch_plan`) for a
+CUDA tensor and takes :func:`apot_matmul_plain` only for a CPU tensor.
+bf16 x runs on bf16 tensor cores (every decoded value is exact in bf16),
+f32 x on f32 FMAs.  The two sum in different orders: they agree to the
+f32 summation bound, not bit for bit.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from ..core.packing import apot_decode_values
 from . import build
+from .int4_matmul import launch_plan
 
 launches = 0
 plain_calls = 0
@@ -31,15 +34,19 @@ def apot_matmul_plain(x: torch.Tensor, codes: torch.Tensor,
     return (x.to(torch.float32) @ apot_decode_values(codes)) * scale
 
 
-def _launch(x, codes, scale) -> torch.Tensor:
-    K = x.shape[-1]
+def _launch(x, codes, scale, plan: dict = None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors; ``plan`` as for
+    ``int4_matmul._launch``."""
+    M, K = x.shape
     N = codes.shape[-1]
     if tuple(codes.shape) != (K, N) or scale.numel() != N:
         raise ValueError(f"apot_matmul: shapes disagree: x {tuple(x.shape)}, "
                          f"codes {tuple(codes.shape)}")
+    p = plan or launch_plan(M, K, N, x.dtype == torch.bfloat16)
     return build.launch_matmul(
         "weights_only_matmul", "apot_matmul", x, N,
-        ("codes", codes, torch.uint8), ("scale", scale, torch.float32))
+        ("codes", codes, torch.uint8), ("scale", scale, torch.float32),
+        ints=(p["bm"], p["bn"], p["splits"]))
 
 
 def apot_matmul(x: torch.Tensor, codes: torch.Tensor,

@@ -32,10 +32,12 @@ SMEM_LIMIT = 232448  # dynamic shared memory one H100 block may use
 
 def _quant_rows(x: torch.Tensor, eps: float):
     """(clip(rne(x / s), +-127) as int32, s) with ``s = max|x|/127 + eps``
-    over the last axis (keepdims)."""
+    over the last axis (keepdims).  Cast through int8 as JAX casts it, so
+    NaN gives 0 on every device (a direct f32 -> int32 cast gives INT_MIN
+    on the CPU)."""
     s = div(torch.amax(torch.abs(x), dim=-1, keepdim=True), 127.0) + eps
     q = torch.clamp(torch.round(div(x, s)), -127, 127)
-    return q.to(torch.int32), s
+    return q.to(torch.int8).to(torch.int32), s
 
 
 def _plain(q, k, v, k_scale, v_scale, lengths, scale, window):

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core.qtensor import QAPoT, QM2Q, QUniform
+from repro_torch.core.quant import quantize_act
 from repro_torch.core.scheme_select import select_schemes
 from repro_torch.kernels import (apot_matmul, decode_attn_int8, dwconv_w4,
                                  int4_matmul, int8_matmul, m2q_matmul, ops,
@@ -288,3 +289,199 @@ def test_decode_attn_kernel_rejects_bad_operands(cuda):
     with pytest.raises(ValueError, match="shared"):
         big = decode_inputs(1, 60000, 1, 1, 64, [1], cuda)
         decode_attn_int8.decode_attn_int8(*big, 0.125)
+
+
+# ---------------------------------------------------------------------------
+# the weights-only tensor-core template (csrc/weights_only_matmul.cu)
+# ---------------------------------------------------------------------------
+
+
+def _weights_only_case(kind, M, K, N, device, dtype, seed=0):
+    """x, the kernel's operands, the plain version and the dequantized W
+    the f32 bound is taken over."""
+    x = _randn((M, K), seed + M + K, device, dtype=dtype)
+    w = _randn((K, N), seed + N, device, std=K ** -0.5)
+    if kind == "int4":
+        qt = QUniform.quantize(w, bits=4)
+        args = (x, qt.payload, qt.scale.reshape(-1),
+                qt.zero_point.reshape(-1))
+        return args, int4_matmul, qt.dequant()
+    qt = QAPoT.quantize(w)
+    return (x, qt.codes, qt.scale.reshape(-1)), apot_matmul, qt.dequant()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["int4", "apot"])
+def test_weights_only_kernels_at_the_lm_head_shape(cuda, kind, dtype):
+    """qwen1.5-0.5b's lm_head shape (M = 8, K = 1024, N = 151936) through
+    both decodes: the narrow tensor-core plan for bf16 x, the FMA kernel
+    for f32 x."""
+    args, mod, w_hat = _weights_only_case(kind, 8, 1024, 151936, cuda, dtype)
+    plan = int4_matmul.launch_plan(8, 1024, 151936,
+                                   dtype == torch.bfloat16)
+    assert plan["kernel"] == ("mma" if dtype == torch.bfloat16 else "fma")
+    name = f"{kind}_matmul"
+    kernels.reset_counts()
+    y = getattr(mod, name)(*args)
+    assert kernels.counts()[name] == {"launches": 1, "plain_calls": 0}
+    _within_f32_bound(y, getattr(mod, f"{name}_plain")(*args), args[0], w_hat)
+
+
+# every tile the kernel builds, unsplit and split over clusters of 2 and 8,
+# at shapes with a ragged K (640 = 10 steps of 64: a split of 8 leaves
+# blocks with no step) and N; the narrow tiles at M below their token count
+WO_PLANS = ([(bm, bn, s) for bm, bn in int4_matmul.TILES for s in (1, 2, 8)]
+            + [(bm, bn, s) for bm, bn in int4_matmul.NARROW_TILES
+               for s in (1, 2, 8)])
+
+
+@pytest.mark.parametrize("kind", ["int4", "apot"])
+@pytest.mark.parametrize("bm,bn,splits", WO_PLANS)
+def test_weights_only_kernel_within_f32_bound_at_every_plan(cuda, kind, bm,
+                                                            bn, splits):
+    M = {8: 5, 16: 13}.get(bm, 200)
+    N = 328 if bm <= 16 else 72
+    args, mod, w_hat = _weights_only_case(kind, M, 640, N, cuda,
+                                          torch.bfloat16, seed=bm + bn)
+    plan = dict(kernel="mma", bm=bm, bn=bn, splits=splits)
+    y = mod._launch(*args, plan=plan)
+    _within_f32_bound(y, getattr(mod, f"{kind}_matmul_plain")(*args),
+                      args[0], w_hat)
+
+
+def test_weights_only_kernels_refuse_a_plan_they_do_not_build(cuda):
+    args, mod, _ = _weights_only_case("int4", 20, 64, 32, cuda,
+                                      torch.bfloat16)
+    for plan in (dict(bm=48, bn=64, splits=1), dict(bm=64, bn=64, splits=3),
+                 dict(bm=8, bn=64, splits=1)):  # M = 20 > 8 tokens
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            mod._launch(*args, plan=plan)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        mod._launch(args[0].float(), *args[1:],
+                    plan=dict(bm=64, bn=32, splits=1))
+
+
+# ---------------------------------------------------------------------------
+# NaN and +-inf: the int8 quantizers send NaN to 0 and +-inf to +-127, as
+# the plain versions (and XLA) do; ReLU and relu_attn's kv maximum
+# propagate NaN.  Equal at zero tolerance, NaN in the same places.
+# ---------------------------------------------------------------------------
+
+
+def _equal_nan(a, b):
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def _with_nonfinite(t, seed):
+    """t with NaN, +inf and -inf at ~2% of its elements each."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    flat = t.clone().reshape(-1)
+    pos = torch.randperm(flat.numel(), generator=g)[:3 * max(1, flat.numel()
+                                                             // 50)]
+    for i, v in enumerate((float("nan"), float("inf"), float("-inf"))):
+        flat[pos[i::3].to(t.device)] = v
+    return flat.reshape(t.shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(100, 16, 64), (392, 1024, 256),
+                                   (8, 1024, 1000), (777, 256, 130)])
+def test_m2q_kernel_equals_plain_on_nan_and_inf(cuda, M, K, N, dtype):
+    x = _randn((M, K), M + K, cuda, dtype=dtype)
+    w = _randn((K, N), N, cuda, std=K ** -0.5)
+    asn = select_schemes(w)
+    qt = QM2Q.quantize(w, asn.apot_idx, asn.uniform_idx,
+                       act_max_abs=float(x.abs().max()))
+    x = _with_nonfinite(x, M)
+    args = (x, qt.act_scale, qt.payload, qt.u_scale.reshape(-1),
+            qt.u_zp.reshape(-1), qt.a_scale.reshape(-1))
+    y = m2q_matmul.m2q_matmul(*args)
+    _equal_nan(y, m2q_matmul.m2q_matmul_plain(*args))
+    assert bool(torch.isfinite(y).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(100352, 27, 16), (65, 72, 1000)])
+def test_int8_kernel_equals_plain_on_nan_and_inf(cuda, M, K, N, dtype):
+    x = _randn((M, K), M + K, cuda, dtype=dtype)
+    qt = QUniform.quantize(_randn((K, N), N, cuda, std=K ** -0.5), bits=8,
+                           act_max_abs=float(x.abs().max()))
+    x = _with_nonfinite(x, K)
+    args = (x, qt.payload, qt.act_scale, qt.scale.reshape(-1),
+            qt.zero_point.reshape(-1))
+    y = int8_matmul.int8_matmul(*args)
+    _equal_nan(y, int8_matmul.int8_matmul_plain(*args))
+    assert bool(torch.isfinite(y).all())
+
+
+@pytest.mark.parametrize("scales", ["finite", "nan_sv", "from_inputs"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relu_attn_kernel_equals_plain_on_nan_and_inf(cuda, dtype, scales):
+    """Finite scales: non-finite q/k/v quantize to 0 / +-127 and the
+    output stays finite.  A NaN sv (or scales reduced from the non-finite
+    batch) reaches every output through the kv maximum."""
+    B, N, H, D = 8, 49, 4, 16
+    qkv = _with_nonfinite(_randn((B, N, 3 * H * D), 3, cuda, dtype=dtype), 4)
+    q, k, v = (t.reshape(B, N, H, D) for t in torch.split(qkv, H * D, -1))
+    if scales == "from_inputs":
+        sc = relu_attn.attn_scales(q, k, v)
+    else:
+        sc = [torch.tensor(s, device=cuda) for s in (0.02, 0.02, 0.03)]
+        if scales == "nan_sv":
+            sc[2] = torch.tensor(float("nan"), device=cuda)
+    y = relu_attn.relu_attn(q, k, v, *sc)
+    _equal_nan(y, relu_attn.relu_attn_plain(q, k, v, *sc))
+    assert bool(torch.isfinite(y).all()) == (scales == "finite")
+
+
+def test_decode_attn_kernel_equals_plain_on_nan_and_inf(cuda):
+    """Rows of one valid cache row (softmax exactly 1, so the kernel and
+    the plain version agree bit for bit); a NaN or inf in a q row, or a
+    NaN row scale the row's softmax reads, makes that (b, h, g) row NaN."""
+    B, T, H, G, D = 5, 16, 2, 2, 64
+    q, k8, v8, ks, vs, lens = decode_inputs(B, T, H, G, D, [1] * B, cuda,
+                                            seed=9, q_dtype=torch.bfloat16)
+    q[0, 0, 1, 5] = float("nan")
+    q[1, 1, 0, 7] = float("inf")
+    q[2, 0, 0, 3] = float("-inf")
+    ks[3, 0, 1] = float("nan")  # the valid row of (b=3, h=1)
+    vs[4, 9, 0] = float("nan")  # a masked row: p * v_scale still reads it
+    args = (q, k8, v8, ks, vs, lens, D ** -0.5, None)
+    y = decode_attn_int8.decode_attn_int8(*args)
+    _equal_nan(y, decode_attn_int8.decode_attn_int8_plain(*args))
+    nan_rows = torch.isnan(y).any(-1).cpu().tolist()
+    assert nan_rows == [[[False, True], [False, False]],
+                        [[False, False], [True, False]],
+                        [[True, False], [False, False]],
+                        [[False, False], [True, True]],
+                        [[True, True], [False, False]]]
+
+
+def test_plain_versions_cast_nan_to_zero_on_the_card(cuda):
+    """torch's float -> int8 cast on CUDA sends NaN to 0 as the CPU's and
+    XLA's do (+-inf clamp to +-127 first), so each plain version gives on
+    the card what it gives on the CPU."""
+    x = _with_nonfinite(_randn((64, 40), 0, "cpu"), 1)
+    s = torch.tensor(0.02)
+    q = quantize_act(x.to(cuda), s.to(cuda))
+    assert q.device.type == "cuda"
+    assert torch.equal(q.cpu(), quantize_act(x, s))
+    assert bool((q[torch.isnan(x).to(cuda)] == 0).all())
+    assert torch.equal(torch.full((3,), float("nan"), device=cuda)
+                       .to(torch.int8).cpu(), torch.zeros(3, dtype=torch.int8))
+    B, N, H, D = 2, 16, 2, 8
+    qkv = _with_nonfinite(_randn((B, N, 3 * H * D), 5, "cpu"), 6)
+    qkv_ = [t.reshape(B, N, H, D) for t in torch.split(qkv, H * D, -1)]
+    sc = [torch.tensor(v) for v in (0.02, 0.02, 0.03)]
+    torch.testing.assert_close(
+        relu_attn.relu_attn_plain(*(t.to(cuda) for t in qkv_),
+                                  *(t.to(cuda) for t in sc)).cpu(),
+        relu_attn.relu_attn_plain(*qkv_, *sc), rtol=0, atol=0,
+        equal_nan=True)
+    dq = _with_nonfinite(_randn((4, 2, 2, 64), 7, "cpu"), 8)
+    for eps in (1e-9, 1e-12):
+        q8, qs = decode_attn_int8._quant_rows(dq.to(cuda), eps)
+        q8c, qsc = decode_attn_int8._quant_rows(dq, eps)
+        assert torch.equal(q8.cpu(), q8c)
+        torch.testing.assert_close(qs.cpu(), qsc, rtol=0, atol=0,
+                                   equal_nan=True)

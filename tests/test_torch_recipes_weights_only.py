@@ -5,6 +5,7 @@ weights-only APoT recipe (``M2QPolicy(compute_scheme="apot",
 quantize_activations=False)``: PWConvs -> apot_matmul).  The checks every
 recipe path passes live in ``torch_parity`` and are imported here beside
 the ``case`` fixture."""
+import numpy as np
 import pytest
 import torch
 
@@ -55,3 +56,19 @@ def test_apot_weights_only_is_built_from_the_public_api():
             assert isinstance(leaf, QAPoT) and leaf.act_scale is None, r.path
             assert leaf.codes.dtype == torch.uint8, r.path
     assert qm.provenance["calib_batches"] == 0
+
+
+def test_4bit_zero_points_are_integral_in_both_packages():
+    """The int4 kernel decodes ``q - zp`` exactly in bf16 only for an
+    integral zero point: every 4-bit QUniform leaf of the reduced B1 under
+    ``w4-weights-only`` has one, in the port and in JAX (same weights)."""
+    from repro_torch.convert import params_to_numpy
+    case = recipe_case("w4-weights-only")
+    trees = (params_to_numpy(case.port.params), case.jax_qparams)
+    for tree in trees:
+        zps = [v for k, v in leaves_with_path(tree)
+               if k.endswith("/zero_point")]
+        assert len(zps) == 23
+        for zp in zps:
+            assert np.array_equal(zp, np.round(zp))
+            assert zp.min() >= 0 and zp.max() <= 15
