@@ -20,10 +20,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    N=151936), with kernel / plain / library device times (CUDA graphs
    timed by CUDA events) and the card's least time for the same work
    (int8_matmul and int4_matmul also per path: their shapes of different
-   paths never run in one forward; m2q, int4 and APoT rows also record
-   the launch shape: tile, K splits, blocks).  int8 and m2q must equal
-   their plain versions bit for bit, dwconv and relu_attn to within 1e-6
-   of |y| (a rounding-order slip); the f32-dot kernels (int4,
+   paths never run in one forward; m2q, int4, APoT and dwconv rows also
+   record the launch shape).  int8, m2q and dwconv (bf16 out, timed, and
+   f32 out) must equal their plain versions bit for bit, relu_attn to
+   within 1e-6 of |y| (a rounding-order slip); the f32-dot kernels (int4,
    APoT) must sit within the f32 summation bound; decode_attn_int8 within
    two flipped p8 codes per (b, h, g) row;
 4. main path -- ``init`` at full B1 R224 width, ``recipe.quantize(...,
@@ -307,8 +307,12 @@ def check_m2q(torch, rng, calls) -> Tally:
 
 
 def check_dwconv(torch, rng, calls) -> Tally:
-    """dwconv_w4 at every distinct conv shape; yardstick: one cuDNN
-    grouped conv2d (bf16, channels-last view, symmetric padding)."""
+    """dwconv_w4 at every distinct conv shape with bf16 x and bf16 y, the
+    launch the served paths make, bit for bit against the plain version
+    cast to bf16; the f32-out launch is held bit for bit too (untimed).
+    Each row records the launch shape (``launch_plan``).  Bytes count y at
+    its stored 2 B.  Yardstick: one cuDNN grouped conv2d (bf16,
+    channels-last view, symmetric padding)."""
     import torch.nn.functional as F
     from repro_torch.core.qtensor import QUniform
     from repro_torch.kernels import dwconv_w4 as k
@@ -319,19 +323,27 @@ def check_dwconv(torch, rng, calls) -> Tally:
                                bits=4)
         args = (x, qt.payload, qt.scale.reshape(-1),
                 qt.zero_point.reshape(-1), ks, ks, s)
+        y32, y32_ref = (k._launch(*args, torch.float32),
+                        k.dwconv_w4_plain(*args, torch.float32))
+        if not torch.equal(y32, y32_ref):
+            fail(f"dwconv_w4 {(B, H, W, C, ks, s)} f32 out: max_abs_err "
+                 f"{float((y32 - y32_ref).abs().max())}")
+        del y32, y32_ref
         x_nchw = x.permute(0, 3, 1, 2)  # channels-last view, no copy
         w_oihw = qt.dequant(torch.bfloat16).reshape(ks, ks, C).permute(
             2, 0, 1).unsqueeze(1).contiguous()
         HO, WO = -(-H // s), -(-W // s)
         nbytes = (B * H * W * C * 2 + ks * ks * C // 2 + 2 * C * 4
-                  + B * HO * WO * C * 4)
+                  + B * HO * WO * C * 2)
         ops_ms = 2.0 * B * HO * WO * C * ks * ks / F32_FLOPS_PER_S * 1e3
         tally.measure(dict(B=B, H=H, W=W, C=C, k=ks, stride=s), n,
-                      lambda: k.dwconv_w4(*args),
-                      lambda: k.dwconv_w4_plain(*args),
+                      lambda: k.dwconv_w4(*args, torch.bfloat16),
+                      lambda: k.dwconv_w4_plain(*args, torch.bfloat16),
                       lambda: F.conv2d(x_nchw, w_oihw, stride=s,
                                        padding=ks // 2, groups=C),
-                      nbytes, ops_ms)
+                      nbytes, ops_ms, err_bound=0.0)
+        tally.rows[-1]["launch"] = k.launch_plan(B, H, W, C, ks, s)
+        tally.rows[-1]["f32_out_exact"] = True
     return tally
 
 

@@ -105,7 +105,9 @@ def dwconv_supported(qt, x: torch.Tensor, stride: int, groups: int,
                      padding: str) -> bool:
     """True when the packed-w4 depthwise kernel computes this conv: a
     weights-only 4-bit QUniform with a depthwise HWIO shape, flattened to
-    a (kh*kw, C/2) payload, under SAME padding."""
+    a (kh*kw, C/2) payload, under SAME padding, at a square window and
+    stride the kernel builds (``dwconv_w4.WINDOWS``; JAX's twin likewise
+    declines what its kernel cannot plan)."""
     if not isinstance(qt, QUniform) or qt.bits != 4 \
             or qt.act_scale is not None:
         return False
@@ -114,17 +116,19 @@ def dwconv_supported(qt, x: torch.Tensor, stride: int, groups: int,
     if len(qt.shape) != 4 or qt.shape[2] != 1:
         return False
     kh, kw, _, c = qt.shape
-    return (padding == "SAME" and stride >= 1 and groups == c
-            and x.shape[-1] == c and qt.payload.shape[0] == kh * kw)
+    return (padding == "SAME" and kh == kw and (kh, stride) in _dw.WINDOWS
+            and groups == c and x.shape[-1] == c
+            and qt.payload.shape[0] == kh * kw)
 
 
 def qtensor_dwconv(x: torch.Tensor, qt, stride: int = 1) -> torch.Tensor:
-    """Depthwise conv for a 4-bit QUniform leaf; output in x.dtype."""
+    """Depthwise conv for a 4-bit QUniform leaf; the kernel stores x.dtype
+    (the f32 sum rounded once, as a cast of the f32 output would)."""
     kh, kw = int(qt.shape[0]), int(qt.shape[1])
     fn = _dw.dwconv_w4_plain if _REFERENCE.get() else _dw.dwconv_w4
-    y = fn(x.contiguous(), qt.payload, qt.scale.reshape(-1),
-           qt.zero_point.reshape(-1), kh=kh, kw=kw, stride=stride)
-    return y.to(x.dtype)
+    return fn(x.contiguous(), qt.payload, qt.scale.reshape(-1),
+              qt.zero_point.reshape(-1), kh=kh, kw=kw, stride=stride,
+              out_dtype=x.dtype)
 
 
 def relu_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

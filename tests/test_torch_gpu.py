@@ -105,17 +105,122 @@ def test_m2q_kernel_equals_plain_at_every_tile_and_split(cuda, bm, bn,
            m2q_matmul.m2q_matmul_plain(*args))
 
 
+def _dw_args(B, H, W, C, k, stride, device, dtype, seed):
+    x = _randn((B, H, W, C), seed, device, dtype=dtype)
+    qt = QUniform.quantize(_randn((k * k, C), seed + 1, device, std=0.3),
+                           bits=4)
+    return (x, qt.payload, qt.scale.reshape(-1), qt.zero_point.reshape(-1),
+            k, k, stride)
+
+
+OUT_DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,W", [(14, 14), (7, 9), (112, 112)])
-@pytest.mark.parametrize("k,stride", [(3, 1), (3, 2), (5, 1)])
-def test_dwconv_kernel_equals_plain(cuda, H, W, k, stride, dtype):
-    C = 64
-    x = _randn((2, H, W, C), H * W + k, cuda, dtype=dtype)
-    qt = QUniform.quantize(_randn((k * k, C), k, cuda, std=0.3), bits=4)
-    args = (x, qt.payload, qt.scale.reshape(-1), qt.zero_point.reshape(-1),
-            k, k, stride)
-    y = dwconv_w4.dwconv_w4(*args)
-    _equal(y, dwconv_w4.dwconv_w4_plain(*args))
+@pytest.mark.parametrize("k,stride", dwconv_w4.WINDOWS)
+def test_dwconv_kernel_equals_plain(cuda, H, W, k, stride, dtype, out_dtype):
+    args = _dw_args(2, H, W, 64, k, stride, cuda, dtype, H * W + k)
+    y = dwconv_w4.dwconv_w4(*args, out_dtype=out_dtype)
+    assert y.dtype == out_dtype
+    _equal(y, dwconv_w4.dwconv_w4_plain(*args, out_dtype=out_dtype))
+
+
+# every R the kernel instantiates at every window, under block shapes
+# that leave ragged row, column and channel tiles (13 x 19 x 40: 5 vectors
+# of 8 channels); the largest halo (f32, r = 8, 5x5 stride 2) is 177 KB
+DW_BLOCKS = [(1, 1, 1), (2, 3, 5), (8, 2, 8)]
+
+
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cv,sw,th", DW_BLOCKS)
+@pytest.mark.parametrize("r", dwconv_w4.RS)
+@pytest.mark.parametrize("k,stride", dwconv_w4.WINDOWS)
+def test_dwconv_kernel_equals_plain_at_every_plan(cuda, k, stride, r, cv, sw,
+                                                  th, dtype, out_dtype):
+    plan = dict(cv=cv, sw=sw, th=th, r=r)
+    assert dwconv_w4.plan_shape(plan, 2, 13, 19, 40, k, stride,
+                                itemsize=4)["smem"] <= dwconv_w4.MAX_SMEM
+    args = _dw_args(2, 13, 19, 40, k, stride, cuda, dtype, k + r + cv)
+    y = dwconv_w4._launch(*args, out_dtype=out_dtype, plan=plan)
+    _equal(y, dwconv_w4.dwconv_w4_plain(*args, out_dtype=out_dtype))
+
+
+# the 11 depthwise shapes of one B1 R224 forward (B, H, W, C, k, stride)
+DW_FORWARD = [(112, 112, 64, 3, 1), (112, 112, 64, 3, 2),
+              (56, 56, 128, 3, 1), (56, 56, 128, 3, 2), (28, 28, 256, 3, 1),
+              (28, 28, 256, 3, 2), (14, 14, 384, 5, 1), (14, 14, 512, 3, 1),
+              (14, 14, 512, 3, 2), (7, 7, 768, 5, 1), (7, 7, 1024, 3, 1)]
+
+
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("H,W,C,k,stride", DW_FORWARD)
+def test_dwconv_kernel_equals_plain_at_the_forward_shapes(cuda, H, W, C, k,
+                                                          stride, B,
+                                                          out_dtype):
+    args = _dw_args(B, H, W, C, k, stride, cuda, torch.bfloat16, C + B)
+    _equal(dwconv_w4.dwconv_w4(*args, out_dtype=out_dtype),
+           dwconv_w4.dwconv_w4_plain(*args, out_dtype=out_dtype))
+
+
+# odd maps, stride 2 on even and odd maps, and channel counts from one
+# pair (scalar copies) through a tail of 2 past a vector to 1024
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
+@pytest.mark.parametrize("C", [2, 10, 64, 1024])
+@pytest.mark.parametrize("H,W,k,stride", [(7, 9, 3, 1), (7, 9, 5, 1),
+                                          (8, 8, 3, 2), (9, 7, 3, 2),
+                                          (10, 11, 5, 2)])
+def test_dwconv_kernel_equals_plain_at_edge_shapes(cuda, H, W, k, stride, C,
+                                                   out_dtype):
+    args = _dw_args(3, H, W, C, k, stride, cuda, torch.bfloat16, C + H)
+    _equal(dwconv_w4.dwconv_w4(*args, out_dtype=out_dtype),
+           dwconv_w4.dwconv_w4_plain(*args, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dwconv_kernel_equals_plain_on_a_misaligned_x(cuda, dtype):
+    """x starting 2 or 4 bytes past a 16-byte boundary takes the scalar
+    copies."""
+    B, H, W, C, k = 2, 9, 9, 64, 3
+    flat = _randn((B * H * W * C + 1,), 3, cuda, dtype=dtype)
+    x = flat[1:].view(B, H, W, C)
+    assert x.data_ptr() % 16 != 0
+    args = (x,) + _dw_args(B, H, W, C, k, 1, cuda, dtype, 4)[1:]
+    _equal(dwconv_w4.dwconv_w4(*args, out_dtype=torch.bfloat16),
+           dwconv_w4.dwconv_w4_plain(*args, out_dtype=torch.bfloat16))
+
+
+def test_dwconv_kernel_refuses_a_plan_it_does_not_build(cuda):
+    args = _dw_args(1, 8, 8, 16, 3, 1, cuda, torch.bfloat16, 0)
+    for plan in (dict(cv=1, sw=1, th=1, r=3), dict(cv=8, sw=8, th=8, r=1),
+                 dict(cv=1, sw=1, th=65, r=1), dict(cv=0, sw=1, th=1, r=1)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            dwconv_w4._launch(*args, plan=plan)
+    # a halo past the 227 KB cap: f32, 3x3 stride 2, 17 x 65 x 64 channels
+    plan = dict(cv=8, sw=4, th=8, r=8)
+    args = _dw_args(1, 40, 80, 64, 3, 2, cuda, torch.float32, 0)
+    assert dwconv_w4.plan_shape(plan, 1, 40, 80, 64, 3, 2, itemsize=4)[
+        "smem"] > dwconv_w4.MAX_SMEM
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        dwconv_w4._launch(*args, plan=plan)
+
+
+def test_qtensor_dwconv_launches_once_and_stores_bf16(cuda):
+    qt = QUniform.quantize(_randn((3, 3, 1, 64), 1, cuda, std=0.3)
+                           .reshape(9, 64), bits=4)
+    leaf = QUniform(qt.payload, qt.scale, qt.zero_point, None, 4, 1,
+                    (3, 3, 1, 64))
+    x = _randn((2, 14, 14, 64), 2, cuda, dtype=torch.bfloat16)
+    kernels.reset_counts()
+    y = ops.qtensor_dwconv(x, leaf, stride=1)
+    assert kernels.counts()["dwconv_w4"] == {"launches": 1, "plain_calls": 0}
+    assert y.dtype == torch.bfloat16
+    with ops.reference_path():
+        _equal(y, ops.qtensor_dwconv(x, leaf, stride=1))
+    kernels.reset_counts()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -412,6 +517,22 @@ def test_int8_kernel_equals_plain_on_nan_and_inf(cuda, M, K, N, dtype):
     y = int8_matmul.int8_matmul(*args)
     _equal_nan(y, int8_matmul.int8_matmul_plain(*args))
     assert bool(torch.isfinite(y).all())
+
+
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,C,k,stride", [(14, 14, 64, 3, 1),
+                                            (7, 9, 10, 5, 1),
+                                            (28, 28, 256, 3, 2)])
+def test_dwconv_kernel_equals_plain_on_nan_and_inf(cuda, H, W, C, k, stride,
+                                                   dtype, out_dtype):
+    """NaN and +-inf in x reach the outputs whose taps read them (inf * 0
+    weight is NaN), in the same places as the plain version's."""
+    args = list(_dw_args(2, H, W, C, k, stride, cuda, dtype, C + k))
+    args[0] = _with_nonfinite(args[0], C)
+    y = dwconv_w4.dwconv_w4(*args, out_dtype=out_dtype)
+    _equal_nan(y, dwconv_w4.dwconv_w4_plain(*args, out_dtype=out_dtype))
+    assert not bool(torch.isfinite(y).all())
 
 
 @pytest.mark.parametrize("scales", ["finite", "nan_sv", "from_inputs"])

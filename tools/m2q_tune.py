@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Time a matmul kernel of the port at every shape its served paths
-launch, under the launch shape its ``launch_plan`` picks and, with
-``--all``, under every other tile and K split the kernel builds.
+"""Time a kernel of the port at every shape its served paths launch,
+under the launch shape its ``launch_plan`` picks and, with ``--all``,
+under every other launch shape the kernel builds.
 
     python3 tools/m2q_tune.py [--kernel K] [--all]  # from a checkout's root
 
 ``--kernel m2q_matmul`` (the default): the 17 shapes of one
 EfficientViT-B1 R224 batch-8 forward, each launch checked bit for bit
-against the plain version.  ``--kernel int4_matmul`` / ``apot_matmul``:
-the same forward's shapes and, for int4, qwen1.5-0.5b's lm_head at decode
-batch 8; each launch checked against the plain version within the f32
-summation bound ``(K + 1) * 2^-23 * (|x| @ |W|)``, and its largest
-err / bound recorded.  Inputs are ``chip_smoke.py``'s (bf16 x, layers
+against the plain version; ``--all`` adds every tile of the chosen width
+and every K split.  ``--kernel int4_matmul`` / ``apot_matmul``: the same
+forward's shapes and, for int4, qwen1.5-0.5b's lm_head at decode batch 8;
+each launch checked against the plain version within the f32 summation
+bound ``(K + 1) * 2^-23 * (|x| @ |W|)``, and its largest err / bound
+recorded.  ``--kernel dwconv_w4``: the 11 depthwise shapes of the same
+forward, bf16 x and bf16 y as the served paths launch them, each launch
+checked bit for bit against the plain version; ``--all`` adds every
+channel slice, column strip, row count and outputs per thread that fits
+the kernel's limits.  Inputs are ``chip_smoke.py``'s (bf16 x, layers
 quantized from seeded normal weights); each launch is timed in a CUDA
 graph as ``chip_smoke.py`` times it.  Prints one JSON line per shape and
 the sum over one forward (each shape weighted by its launches), and
@@ -53,6 +58,55 @@ def plans(mod, M: int, K: int, N: int, every: bool):
             if splits <= steps and p != out[0]:
                 out.append(p)
     return out
+
+
+def dwconv_plans(B: int, H: int, W: int, C: int, k: int, stride: int,
+                 every: bool):
+    """``launch_plan``'s choice first, then (``every``) each other plan of
+    the kernel: r in RS; the strips of a row split into 1, 2, 4, ... even
+    tiles of at most 16 strips; 1-8 channel vectors (no more than C has);
+    1-16 rows (no more than the map has); 32-256 threads; shared memory
+    within the cap."""
+    from repro_torch.kernels import dwconv_w4 as k_
+    keys = ("cv", "sw", "th", "r")
+    chosen = {key: k_.launch_plan(B, H, W, C, k, stride)[key]
+              for key in keys}
+    out = [chosen]
+    if not every:
+        return out
+    HO, WO = -(-H // stride), -(-W // stride)
+    for r in k_.RS:
+        strips = -(-WO // r)
+        sws = sorted({-(-strips // n) for n in (1, 2, 4, 8, 16, 32)
+                      if -(-strips // n) <= 16})
+        for sw in sws:
+            for cv in (1, 2, 4, 8):
+                if cv > -(-C // k_.CPT):
+                    continue
+                for th in (1, 2, 4, 8, 16):
+                    p = {"cv": cv, "sw": sw, "th": th, "r": r}
+                    shape = k_.plan_shape(p, B, H, W, C, k, stride)
+                    if th <= HO and 32 <= shape["threads"] <= k_.MAX_THREADS \
+                            and shape["smem"] <= k_.MAX_SMEM and p != chosen:
+                        out.append(p)
+    return out
+
+
+def dwconv_case(torch, cs, rng, B, H, W, C, ks, s):
+    """(launch(plan), check(y) -> None) for dwconv_w4 with bf16 x and y,
+    as ``chip_smoke.check_dwconv`` builds its inputs."""
+    from repro_torch.core.qtensor import QUniform
+    from repro_torch.kernels import dwconv_w4 as k
+    x = cs._randn(torch, rng, (B, H, W, C), dtype=torch.bfloat16)
+    qt = QUniform.quantize(cs._randn(torch, rng, (ks * ks, C), std=1 / ks),
+                           bits=4)
+    a = (x, qt.payload, qt.scale.reshape(-1), qt.zero_point.reshape(-1),
+         ks, ks, s, torch.bfloat16)
+    y_ref = k.dwconv_w4_plain(*a)
+
+    def check(y):
+        return None if torch.equal(y, y_ref) else float("inf")
+    return (lambda p: k._launch(*a, plan=p)), check
 
 
 def m2q_case(torch, cs, rng, M, K, N):
@@ -101,9 +155,10 @@ def weights_only_case(torch, cs, rng, name, M, K, N):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", default="m2q_matmul",
-                    choices=("m2q_matmul", "int4_matmul", "apot_matmul"))
+                    choices=("m2q_matmul", "int4_matmul", "apot_matmul",
+                             "dwconv_w4"))
     ap.add_argument("--all", action="store_true",
-                    help="also time every other tile and K split")
+                    help="also time every other launch shape")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -112,15 +167,19 @@ def main() -> None:
 
     import chip_smoke as cs
     from repro_torch.configs.registry import ARCHS
-    from repro_torch.kernels import apot_matmul, int4_matmul, m2q_matmul
+    from repro_torch.kernels import int4_matmul, m2q_matmul
 
-    mod = {"m2q_matmul": m2q_matmul, "int4_matmul": int4_matmul,
-           "apot_matmul": apot_matmul}[args.kernel]
-    if mod is apot_matmul:  # the shared template's plan and tiles
-        mod = int4_matmul
     cfg = ARCHS["efficientvit-b1-r224"]
-    calls = Counter(c[1:] for c in cs.main_path_calls(cfg, cs.BATCH)[0])
-    shapes = [(s, n, "forward") for s, n in calls.items()]
+    dense_calls, dw_calls, _ = cs.main_path_calls(cfg, cs.BATCH)
+    if args.kernel == "dwconv_w4":
+        names = ("B", "H", "W", "C", "k", "stride")
+        calls = Counter(c[1:] for c in dw_calls)
+    else:
+        names = ("M", "K", "N")
+        calls = Counter(c[1:] for c in dense_calls)
+        mod = {"m2q_matmul": m2q_matmul, "int4_matmul": int4_matmul,
+               "apot_matmul": int4_matmul}[args.kernel]  # APoT: int4's plan
+    shapes = [(sh, n, "forward") for sh, n in calls.items()]
     if args.kernel == "int4_matmul":
         qwen = ARCHS["qwen1.5-0.5b"]
         shapes.append(((cs.TOKEN_BATCH, qwen.d_model, qwen.padded_vocab), 1,
@@ -128,35 +187,39 @@ def main() -> None:
     rng = np.random.default_rng(0)
     rows = []
     total = {"chosen_ms": 0.0, "best_ms": 0.0}
-    for (M, K, N), count, where in shapes:
-        if args.kernel == "m2q_matmul":
-            launch, check = m2q_case(torch, cs, rng, M, K, N)
+    for shape, count, where in shapes:
+        if args.kernel == "dwconv_w4":
+            launch, check = dwconv_case(torch, cs, rng, *shape)
+            candidates = dwconv_plans(*shape, args.all)
+        elif args.kernel == "m2q_matmul":
+            launch, check = m2q_case(torch, cs, rng, *shape)
+            candidates = plans(mod, *shape, args.all)
         else:
             launch, check = weights_only_case(torch, cs, rng, args.kernel,
-                                              M, K, N)
+                                              *shape)
+            candidates = plans(mod, *shape, args.all)
         timed = []
-        for p in plans(mod, M, K, N, args.all):
+        for p in candidates:
             y = launch(p)
             torch.cuda.synchronize()
             ratio = check(y)
             if ratio is not None and not ratio <= 1.0:
-                sys.exit(f"m2q_tune: {args.kernel} {(M, K, N)} {p} is "
+                sys.exit(f"m2q_tune: {args.kernel} {shape} {p} is "
                          f"outside its bound (err / bound {ratio})")
             del y
             row = dict(p, ms=cs.graph_ms(lambda: launch(p)))
             if ratio is not None:
                 row["err_over_bound"] = ratio
             timed.append(row)
-        row = dict(M=M, K=K, N=N, count=count, where=where,
+        row = dict(zip(names, shape), count=count, where=where,
                    chosen=timed[0], best=min(timed, key=lambda r: r["ms"]),
                    all=timed)
         if where == "forward":
             total["chosen_ms"] += count * row["chosen"]["ms"]
             total["best_ms"] += count * row["best"]["ms"]
         rows.append(row)
-        print(json.dumps({key: row[key] for key in ("M", "K", "N", "count",
-                                                     "where", "chosen",
-                                                     "best")}), flush=True)
+        print(json.dumps({key: v for key, v in row.items() if key != "all"}),
+              flush=True)
         del launch, check
         torch.cuda.empty_cache()
     print("per forward:", json.dumps(total), flush=True)
