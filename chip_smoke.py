@@ -9,8 +9,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
 1. card check -- CUDA must be available; prints ``name, power.limit``;
 2. build -- compiles every CUDA kernel source in ``src/repro_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together; int4
-   and APoT share ``weights_only_matmul.cu``) and prints the ``-Xptxas
-   -v`` report;
+   and APoT share ``weights_only_matmul.cu``, m2q and int8
+   ``m2q_matmul.cu``) and prints the ``-Xptxas -v`` report;
 3. kernel checks -- each of the seven kernels against its plain PyTorch
    version on the card, at every distinct shape of one EfficientViT-B1
    R224 forward at batch 8 under the recipe paths below and of one
@@ -20,12 +20,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
    N=151936), with kernel / plain / library device times (CUDA graphs
    timed by CUDA events) and the card's least time for the same work
    (int8_matmul and int4_matmul also per path: their shapes of different
-   paths never run in one forward; m2q, int4, APoT and dwconv rows also
-   record the launch shape).  int8, m2q and dwconv (bf16 out, timed, and
-   f32 out) must equal their plain versions bit for bit, relu_attn to
-   within 1e-6 of |y| (a rounding-order slip); the f32-dot kernels (int4,
-   APoT) must sit within the f32 summation bound; decode_attn_int8 within
-   two flipped p8 codes per (b, h, g) row;
+   paths never run in one forward; m2q, int8, int4, APoT and dwconv rows
+   also record the launch shape).  int8 and dwconv (bf16 out, timed, and
+   f32 out) and m2q (f32 out) must equal their plain versions bit for
+   bit, relu_attn to within 1e-6 of |y| (a rounding-order slip); the
+   f32-dot kernels (int4, APoT) must sit within the f32 summation bound;
+   decode_attn_int8 within two flipped p8 codes per (b, h, g) row;
 4. main path -- ``init`` at full B1 R224 width, ``recipe.quantize(...,
    "m2q-w8a8")`` with synthesized calibration, ``serve(max_batch=8)``,
    12 submitted images polled to completion; checks the logits, the
@@ -35,8 +35,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    CUDA graph, plain) and traces it with torch.profiler;
 5. the other recipe paths, each the same way (counters, leaf types,
    logits vs the plain-version forward, the batch-8 forward in a CUDA
-   graph; no trace): ``uniform8`` (42 int8_matmul + 14 attention per
-   forward), the opt-in int8 stem (1 int8_matmul + the m2q path's 76),
+   graph; ``uniform8`` also eager, plain and traced, the others not):
+   ``uniform8`` (42 int8_matmul + 14 attention per forward), the opt-in
+   int8 stem (1 int8_matmul + the m2q path's 76),
    ``w4-weights-only`` (42 int4_matmul + 20 dwconv + 14 attention) and
    weights-only APoT (42 apot_matmul + 20 dwconv + 14 attention);
 6. the token path -- qwen1.5-0.5b at full width with the int8 KV cache,
@@ -389,9 +390,12 @@ def _int_mm_fits(M, K, N) -> bool:
 def check_int8(torch, rng, calls_by_path) -> Tally:
     """int8_matmul at every distinct (M, K, N) of each path in
     ``calls_by_path`` (the uniform8 PWConvs; the int8 stem's im2col'd
-    conv), summed per path; exact.  Yardstick: torch._int_mm on the
-    quantized activations where its shape rules allow, else one bf16
-    torch.matmul on the dequantized weight."""
+    conv), summed per path, with bf16 x and bf16 y, the launch the served
+    paths make, bit for bit against the plain version cast to bf16; the
+    f32-y launch is held bit for bit too (untimed).  Each row records the
+    launch shape (``launch_plan``).  Bytes count y at its stored 2 B.
+    Yardstick: torch._int_mm on the quantized activations where its shape
+    rules allow, else one bf16 torch.matmul on the dequantized weight."""
     from repro_torch.core.qtensor import QUniform
     from repro_torch.core.quant import quantize_act
     from repro_torch.kernels import int8_matmul as k
@@ -403,6 +407,11 @@ def check_int8(torch, rng, calls_by_path) -> Tally:
                                    bits=8, act_max_abs=float(x.abs().max()))
             args = (x, qt.payload, qt.act_scale, qt.scale.reshape(-1),
                     qt.zero_point.reshape(-1))
+            y32, y32_ref = k._launch(*args), k.int8_matmul_plain(*args)
+            if not torch.equal(y32, y32_ref):
+                fail(f"int8_matmul {(M, K, N)} f32 out: max_abs_err "
+                     f"{float((y32 - y32_ref).abs().max())}")
+            del y32, y32_ref
             if _int_mm_fits(M, K, N):
                 xq = quantize_act(x, qt.act_scale)
                 library = lambda: torch._int_mm(xq, qt.payload)  # noqa: E731
@@ -410,11 +419,14 @@ def check_int8(torch, rng, calls_by_path) -> Tally:
                 w_deq = qt.dequant(torch.bfloat16)
                 library = lambda: torch.matmul(x, w_deq)  # noqa: E731
             tally.measure(dict(M=M, K=K, N=N), n,
-                          lambda: k.int8_matmul(*args),
-                          lambda: k.int8_matmul_plain(*args), library,
-                          M * K * 2 + K * N + 2 * N * 4 + 4 + M * N * 4,
+                          lambda: k.int8_matmul(*args, torch.bfloat16),
+                          lambda: k.int8_matmul_plain(*args, torch.bfloat16),
+                          library,
+                          M * K * 2 + K * N + 2 * N * 4 + 4 + M * N * 2,
                           2.0 * M * K * N / INT8_OPS_PER_S * 1e3,
                           err_bound=0.0, path=path)
+            tally.rows[-1]["launch"] = k.launch_plan(M, K, N)
+            tally.rows[-1]["f32_out_exact"] = True
     return tally
 
 
@@ -942,7 +954,7 @@ def main() -> None:
     launches = Counter()
     for name in PATHS:
         counts = run_path(torch, cfg, name, calls, out_dir,
-                          full=name == "m2q-w8a8")
+                          full=name in ("m2q-w8a8", "uniform8"))
         launches.update({k: c["launches"] for k, c in counts.items()})
 
     # ---- 6. the token path, read from zeroed counters ---------------------

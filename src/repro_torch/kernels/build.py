@@ -19,15 +19,15 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # each source and the extern "C" entry points it defines
-SOURCES = {"m2q_matmul": ("m2q_matmul",), "dwconv_w4": ("dwconv_w4",),
-           "relu_attn": ("relu_attn",), "int8_matmul": ("int8_matmul",),
+SOURCES = {"m2q_matmul": ("m2q_matmul", "int8_matmul"),
+           "dwconv_w4": ("dwconv_w4",), "relu_attn": ("relu_attn",),
            "weights_only_matmul": ("int4_matmul", "apot_matmul"),
            "decode_attn_int8": ("decode_attn_int8",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -121,20 +121,31 @@ def check_operands(name: str, x: torch.Tensor, *operands) -> None:
 
 
 def launch_matmul(source: str, name: str, x: torch.Tensor, n: int,
-                  *operands, ints: tuple = ()) -> torch.Tensor:
+                  *operands, ints: tuple = (),
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Launch the matmul kernel ``extern "C" int <name>(x, operands...,
-    y, M, N, K, x_is_bf16, ints..., stream)`` of ``csrc/<source>.cu`` on
-    x's current stream after :func:`check_operands`; returns y (M, n) f32.
-    ``ints``: the kernel's own launch parameters, if it takes any."""
+    y, M, N, K, x_is_bf16, [y_is_bf16,] ints..., stream)`` of
+    ``csrc/<source>.cu`` on x's current stream after
+    :func:`check_operands`; returns y (M, n).  ``ints``: the kernel's own
+    launch parameters, if it takes any.  ``out_dtype``: None for a kernel
+    that stores f32 only; float32 or bfloat16 for one that takes the
+    ``y_is_bf16`` flag."""
     check_operands(name, x, *operands)
+    flags = (int(x.dtype == torch.bfloat16),)
+    if out_dtype is not None:
+        if out_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"{name}: out_dtype must be float32 or "
+                             f"bfloat16, got {out_dtype}")
+        flags += (int(out_dtype == torch.bfloat16),)
     m, k = x.shape
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=out_dtype or torch.float32,
+                    device=x.device)
     fn = getattr(load(source), name)
     fn.argtypes = [ctypes.c_void_p] * (len(operands) + 2) \
-        + [ctypes.c_int] * (4 + len(ints)) + [ctypes.c_void_p]
+        + [ctypes.c_int] * (3 + len(flags) + len(ints)) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), *(t.data_ptr() for _, t, _ in operands),
-             y.data_ptr(), m, n, k, int(x.dtype == torch.bfloat16), *ints,
+             y.data_ptr(), m, n, k, *flags, *ints,
              torch.cuda.current_stream(x.device).cuda_stream)
     check(err, name)
     return y

@@ -76,7 +76,8 @@ def kernel_supported(qt) -> bool:
 
 def _kernel_matmul(x2: torch.Tensor, qt) -> torch.Tensor:
     """x2 (M, K) through the leaf's kernel (or its plain version inside
-    :func:`reference_path`) -> (M, N) f32."""
+    :func:`reference_path`) -> (M, N): x2's dtype from ``int8_matmul``,
+    which stores it itself, f32 from the others."""
     ref = _REFERENCE.get()
     if isinstance(qt, QM2Q):
         fn = _m2q.m2q_matmul_plain if ref else _m2q.m2q_matmul
@@ -88,13 +89,14 @@ def _kernel_matmul(x2: torch.Tensor, qt) -> torch.Tensor:
     if qt.bits == 8:
         fn = _int8.int8_matmul_plain if ref else _int8.int8_matmul
         return fn(x2, qt.payload, qt.act_scale, qt.scale.reshape(-1),
-                  qt.zero_point.reshape(-1))
+                  qt.zero_point.reshape(-1), out_dtype=x2.dtype)
     fn = _int4.int4_matmul_plain if ref else _int4.int4_matmul
     return fn(x2, qt.payload, qt.scale.reshape(-1), qt.zero_point.reshape(-1))
 
 
 def qtensor_matmul(x: torch.Tensor, qt) -> torch.Tensor:
-    """y = x @ W for a 2-D QTensor leaf; x (..., K) -> (..., N) in x.dtype."""
+    """y = x @ W for a 2-D QTensor leaf; x (..., K) -> (..., N) in x.dtype
+    (a cast of the kernel's f32 output, except where it stored x.dtype)."""
     if not kernel_supported(qt):
         return qt.matmul(x)
     y = _kernel_matmul(x.reshape(-1, x.shape[-1]).contiguous(), qt)

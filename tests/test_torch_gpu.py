@@ -6,11 +6,15 @@ machine with an H100 and nvcc:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.configs.registry import ARCHS
 from repro_torch.core.qtensor import QAPoT, QM2Q, QUniform
 from repro_torch.core.quant import quantize_act
 from repro_torch.core.scheme_select import select_schemes
@@ -18,7 +22,10 @@ from repro_torch.kernels import (apot_matmul, decode_attn_int8, dwconv_w4,
                                  int4_matmul, int8_matmul, m2q_matmul, ops,
                                  relu_attn)
 from repro_torch.nn.attention import quantize_kv_rows
-from m2q_cases import adversarial_m2q
+from m2q_cases import adversarial_int8, adversarial_m2q
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402  (the served paths' shapes)
 
 pytestmark = pytest.mark.gpu
 
@@ -256,19 +263,130 @@ MATMUL_SHAPES = [(100352, 27, 16), (100, 16, 64), (65, 72, 1000),
                  (8, 1024, 1000), (777, 256, 130)]
 
 
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N", MATMUL_SHAPES)
-def test_int8_kernel_equals_plain(cuda, M, K, N, dtype):
+def test_int8_kernel_equals_plain(cuda, M, K, N, dtype, out_dtype):
+    """f32 and bf16 x, f32 and bf16 y (the f32 result rounded to nearest
+    even, as the plain version's cast rounds it)."""
     x = _randn((M, K), M + K, cuda, dtype=dtype)
     qt = QUniform.quantize(_randn((K, N), N, cuda, std=K ** -0.5), bits=8,
                            act_max_abs=float(x.abs().max()))
     args = (x, qt.payload, qt.act_scale, qt.scale.reshape(-1),
             qt.zero_point.reshape(-1))
     kernels.reset_counts()
-    y = int8_matmul.int8_matmul(*args)
+    y = int8_matmul.int8_matmul(*args, out_dtype=out_dtype)
     assert kernels.counts()["int8_matmul"] == {"launches": 1,
                                                "plain_calls": 0}
-    _equal(y, int8_matmul.int8_matmul_plain(*args))
+    assert y.dtype == out_dtype
+    _equal(y, int8_matmul.int8_matmul_plain(*args, out_dtype=out_dtype))
+
+
+def _int8_args(M, K, N, device, dtype, seed):
+    x = _randn((M, K), seed, device, dtype=dtype)
+    qt = QUniform.quantize(_randn((K, N), seed + 1, device, std=K ** -0.5),
+                           bits=8, act_max_abs=float(x.abs().max()))
+    return (x, qt.payload, qt.act_scale, qt.scale.reshape(-1),
+            qt.zero_point.reshape(-1))
+
+
+# the distinct (M, K, N) of one uniform8 B1 R224 batch-8 forward (17) and
+# the im2col'd int8 stem
+INT8_FORWARD = sorted(
+    {c[1:] for c in chip_smoke.main_path_calls(
+        ARCHS["efficientvit-b1-r224"], 8)[0]}) + [(100352, 27, 16)]
+# every launch shape the kernel builds
+INT8_PLANS = [dict(bm=bm, bn=bn, splits=s) for bm, bn in m2q_matmul.TILES
+              for s in (1, 2, 4, 8)]
+
+
+def _equal_under_plans(args, plans, equal=_equal):
+    for out_dtype in OUT_DTYPES:
+        want = int8_matmul.int8_matmul_plain(*args, out_dtype=out_dtype)
+        for plan in plans:
+            y = int8_matmul._launch(*args, out_dtype=out_dtype, plan=plan)
+            try:
+                equal(y, want)
+            except AssertionError as e:
+                raise AssertionError(f"plan {plan}, y {out_dtype}") from e
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", INT8_FORWARD)
+def test_int8_kernel_equals_plain_at_every_plan_at_the_served_shapes(
+        cuda, M, K, N, dtype):
+    """Every tile and K split the kernel builds, launch_plan's own
+    included, with f32 and bf16 y."""
+    args = _int8_args(M, K, N, cuda, dtype, M + K + N)
+    assert {k: v for k, v in int8_matmul.launch_plan(M, K, N).items()
+            if k != "blocks"} in INT8_PLANS
+    _equal_under_plans(args, INT8_PLANS)
+
+
+@pytest.mark.parametrize("sa", [0.01, 2.0 ** -7, 1e-39])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(300, 27, 16), (100, 16, 64),
+                                   (8, 1024, 1000), (200, 640, 72),
+                                   (777, 256, 130)])
+def test_int8_kernel_equals_plain_on_adversarial_inputs(cuda, M, K, N, dtype,
+                                                        sa):
+    """x at and one ulp beside rounding ties of x / sa (exact ties in bf16
+    as well at sa = 2^-7), beyond the clip, NaN and +-inf; a subnormal
+    scale, whose reciprocal overflows, sends every element through the
+    IEEE division.  Every plan, f32 and bf16 y."""
+    x, sa_, wq, scale, zp = adversarial_int8(M, K, N, seed=M + K + N, sa=sa,
+                                             nonfinite=True)
+    xt = torch.from_numpy(x).to(cuda).to(dtype)
+    args = (xt, torch.from_numpy(wq).to(cuda),
+            torch.tensor(sa_, device=cuda), torch.from_numpy(scale).to(cuda),
+            torch.from_numpy(zp).to(cuda))
+    if dtype == torch.float32 or sa == 2.0 ** -7:  # bf16 keeps these ties
+        q = xt.float() / args[2]
+        assert float(((q - q.round()).abs() > 0.499).float().mean()) > 0.05
+    _equal_under_plans(args, INT8_PLANS, _equal_nan)
+
+
+def test_int8_kernel_on_a_misaligned_x_and_refused_plans(cuda):
+    """x 2 bytes past a 16-byte boundary takes the plain loads; plans and
+    output dtypes the kernel does not build are refused."""
+    M, K, N = 300, 64, 48
+    flat = _randn((M * K + 1,), 3, cuda, dtype=torch.bfloat16)
+    x = flat[1:].view(M, K)
+    assert x.data_ptr() % 16 != 0
+    args = (x,) + _int8_args(M, K, N, cuda, torch.bfloat16, 4)[1:]
+    _equal_under_plans(args, [dict(bm=64, bn=64, splits=1),
+                              dict(bm=32, bn=32, splits=2)])
+    for plan in (dict(bm=48, bn=64, splits=1), dict(bm=64, bn=64, splits=3),
+                 dict(bm=64, bn=64, splits=16), dict(bm=128, bn=64, splits=1)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            int8_matmul._launch(*args, plan=plan)
+    with pytest.raises(ValueError, match="out_dtype"):
+        int8_matmul._launch(*args, out_dtype=torch.float16)
+
+
+def test_qtensor_matmul_int8_is_one_kernel_and_no_cast(cuda):
+    """A uniform8 leaf on bf16 x: the kernel stores bf16 itself, so the
+    device runs one kernel and no cast after it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = _randn((2, 196, 64), 5, cuda, dtype=torch.bfloat16)
+    w = _randn((64, 128), 6, cuda, std=0.125)
+    qt = QUniform.quantize(w, bits=8, act_max_abs=float(x.abs().max()))
+    ops.qtensor_matmul(x, qt)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        y = ops.qtensor_matmul(x, qt)
+        torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (2, 196, 128)
+    assert kernels.counts()["int8_matmul"] == {"launches": 1,
+                                               "plain_calls": 0}
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "matmul_kernel" in names[0], names
+    with ops.reference_path():
+        _equal(y, ops.qtensor_matmul(x, qt))
 
 
 def _within_f32_bound(y, y_ref, x, w_hat):

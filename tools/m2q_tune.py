@@ -12,11 +12,15 @@ and every K split.  ``--kernel int4_matmul`` / ``apot_matmul``: the same
 forward's shapes and, for int4, qwen1.5-0.5b's lm_head at decode batch 8;
 each launch checked against the plain version within the f32 summation
 bound ``(K + 1) * 2^-23 * (|x| @ |W|)``, and its largest err / bound
-recorded.  ``--kernel dwconv_w4``: the 11 depthwise shapes of the same
-forward, bf16 x and bf16 y as the served paths launch them, each launch
-checked bit for bit against the plain version; ``--all`` adds every
-channel slice, column strip, row count and outputs per thread that fits
-the kernel's limits.  Inputs are ``chip_smoke.py``'s (bf16 x, layers
+recorded.  ``--kernel int8_matmul``: the same forward's 17 shapes (the
+uniform8 PWConvs) and the int8 stem's im2col'd conv (M = 100352, K = 27,
+N = 16), bf16 x and bf16 y as the served paths launch them, each launch
+checked bit for bit against the plain version; ``--all`` adds every tile
+the kernel builds and every K split.  ``--kernel dwconv_w4``: the 11
+depthwise shapes of the same forward, bf16 x and bf16 y as the served
+paths launch them, each launch checked bit for bit against the plain
+version; ``--all`` adds every channel slice, column strip, row count and
+outputs per thread that fits the kernel's limits.  Inputs are ``chip_smoke.py``'s (bf16 x, layers
 quantized from seeded normal weights); each launch is timed in a CUDA
 graph as ``chip_smoke.py`` times it.  Prints one JSON line per shape and
 the sum over one forward (each shape weighted by its launches), and
@@ -38,20 +42,25 @@ KEYS = ("bm", "bn", "splits")
 
 def plans(mod, M: int, K: int, N: int, every: bool):
     """The chosen launch shape first, then (``every``) each other tile of
-    its kind (the chosen width for m2q_matmul; the narrow tiles that hold
-    M tokens, or the M > 16 tiles, for the weights-only kernels) and
-    power-of-two split that leaves no more splits than K steps."""
+    its kind (the chosen width for m2q_matmul; every tile for
+    int8_matmul; the narrow tiles that hold M tokens, or the M > 16
+    tiles, for the weights-only kernels) and power-of-two split that
+    leaves no more splits than K steps."""
+    from repro_torch.kernels import int8_matmul, m2q_matmul
     chosen = mod.launch_plan(M, K, N)
     out = [{key: chosen[key] for key in KEYS}]
     if not every:
         return out
-    if not hasattr(mod, "NARROW_TILES"):  # m2q_matmul
+    bk = m2q_matmul.BK if mod is int8_matmul else mod.BK
+    steps = -(-K // bk)
+    if mod is int8_matmul:
+        tiles = list(m2q_matmul.TILES)
+    elif mod is m2q_matmul:
         tiles = [t for t in mod.TILES if t[1] == chosen["bn"]]
     elif chosen["bm"] <= 16:
         tiles = [t for t in mod.NARROW_TILES if t[0] >= M]
     else:
         tiles = list(mod.TILES)
-    steps = -(-K // mod.BK)
     for bm, bn in tiles:
         for splits in (1, 2, 4, 8):
             p = {"bm": bm, "bn": bn, "splits": splits}
@@ -128,6 +137,23 @@ def m2q_case(torch, cs, rng, M, K, N):
     return (lambda p: k._launch(*a, plan=p)), check
 
 
+def int8_case(torch, cs, rng, M, K, N):
+    """(launch(plan), check(y) -> None) for int8_matmul with bf16 x and
+    y, as ``chip_smoke.check_int8`` builds its inputs."""
+    from repro_torch.core.qtensor import QUniform
+    from repro_torch.kernels import int8_matmul as k
+    x = cs._randn(torch, rng, (M, K), dtype=torch.bfloat16)
+    qt = QUniform.quantize(cs._randn(torch, rng, (K, N), std=K ** -0.5),
+                           bits=8, act_max_abs=float(x.abs().max()))
+    a = (x, qt.payload, qt.act_scale, qt.scale.reshape(-1),
+         qt.zero_point.reshape(-1), torch.bfloat16)
+    y_ref = k.int8_matmul_plain(*a)
+
+    def check(y):
+        return None if torch.equal(y, y_ref) else float("inf")
+    return (lambda p: k._launch(*a, plan=p)), check
+
+
 def weights_only_case(torch, cs, rng, name, M, K, N):
     """(launch(plan), check(y) -> err / bound) for int4 or APoT."""
     from repro_torch.core.qtensor import QAPoT, QUniform
@@ -155,8 +181,8 @@ def weights_only_case(torch, cs, rng, name, M, K, N):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", default="m2q_matmul",
-                    choices=("m2q_matmul", "int4_matmul", "apot_matmul",
-                             "dwconv_w4"))
+                    choices=("m2q_matmul", "int8_matmul", "int4_matmul",
+                             "apot_matmul", "dwconv_w4"))
     ap.add_argument("--all", action="store_true",
                     help="also time every other launch shape")
     args = ap.parse_args()
@@ -167,7 +193,7 @@ def main() -> None:
 
     import chip_smoke as cs
     from repro_torch.configs.registry import ARCHS
-    from repro_torch.kernels import int4_matmul, m2q_matmul
+    from repro_torch.kernels import int4_matmul, int8_matmul, m2q_matmul
 
     cfg = ARCHS["efficientvit-b1-r224"]
     dense_calls, dw_calls, _ = cs.main_path_calls(cfg, cs.BATCH)
@@ -177,9 +203,13 @@ def main() -> None:
     else:
         names = ("M", "K", "N")
         calls = Counter(c[1:] for c in dense_calls)
-        mod = {"m2q_matmul": m2q_matmul, "int4_matmul": int4_matmul,
+        mod = {"m2q_matmul": m2q_matmul, "int8_matmul": int8_matmul,
+               "int4_matmul": int4_matmul,
                "apot_matmul": int4_matmul}[args.kernel]  # APoT: int4's plan
     shapes = [(sh, n, "forward") for sh, n in calls.items()]
+    if args.kernel == "int8_matmul":
+        r = -(-cfg.img_res // 2)  # the stem's im2col'd 3x3 stride-2 conv
+        shapes.append(((cs.BATCH * r * r, 27, cfg.widths[0]), 1, "stem"))
     if args.kernel == "int4_matmul":
         qwen = ARCHS["qwen1.5-0.5b"]
         shapes.append(((cs.TOKEN_BATCH, qwen.d_model, qwen.padded_vocab), 1,
@@ -193,6 +223,9 @@ def main() -> None:
             candidates = dwconv_plans(*shape, args.all)
         elif args.kernel == "m2q_matmul":
             launch, check = m2q_case(torch, cs, rng, *shape)
+            candidates = plans(mod, *shape, args.all)
+        elif args.kernel == "int8_matmul":
+            launch, check = int8_case(torch, cs, rng, *shape)
             candidates = plans(mod, *shape, args.all)
         else:
             launch, check = weights_only_case(torch, cs, rng, args.kernel,
