@@ -10,8 +10,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
 2. build -- compiles every CUDA kernel source in ``src/repro_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together; int4
    and APoT share ``weights_only_matmul.cu``, m2q and int8
-   ``m2q_matmul.cu``) and prints the ``-Xptxas -v`` report;
-3. kernel checks -- each of the seven kernels against its plain PyTorch
+   ``m2q_matmul.cu``, relu_attn and its scale kernel ``relu_attn.cu``)
+   and prints the ``-Xptxas -v`` report;
+3. kernel checks -- each of the eight kernels against its plain PyTorch
    version on the card, at every distinct shape of one EfficientViT-B1
    R224 forward at batch 8 under the recipe paths below and of one
    qwen1.5-0.5b decode step at batch 8 (``decode_attn_int8`` at
@@ -20,26 +21,29 @@ Phases, each fatal on failure (nonzero exit, no result line):
    N=151936), with kernel / plain / library device times (CUDA graphs
    timed by CUDA events) and the card's least time for the same work
    (int8_matmul and int4_matmul also per path: their shapes of different
-   paths never run in one forward; m2q, int8, int4, APoT and dwconv rows
-   also record the launch shape).  int8 and dwconv (bf16 out, timed, and
-   f32 out) and m2q (f32 out) must equal their plain versions bit for
-   bit, relu_attn to within 1e-6 of |y| (a rounding-order slip); the
-   f32-dot kernels (int4, APoT) must sit within the f32 summation bound;
-   decode_attn_int8 within two flipped p8 codes per (b, h, g) row;
+   paths never run in one forward; every row but decode_attn_int8's
+   also records the launch shape).  int8, dwconv and relu_attn (bf16
+   out, timed, and f32 out), m2q (f32 out) and relu_attn_scales (against
+   the plain scale chain it replaces, timed as its plain version) must
+   equal their plain versions bit for bit; the f32-dot kernels (int4,
+   APoT) must sit within the f32 summation bound; decode_attn_int8
+   within two flipped p8 codes per (b, h, g) row;
 4. main path -- ``init`` at full B1 R224 width, ``recipe.quantize(...,
    "m2q-w8a8")`` with synthesized calibration, ``serve(max_batch=8)``,
    12 submitted images polled to completion; checks the logits, the
-   launch counters (42 m2q / 20 dwconv / 14 attention launches per
-   forward, 0 plain calls) and the logits against a plain-version forward
+   launch counters (42 m2q / 20 dwconv / 14 relu_attn / 14
+   relu_attn_scales launches per forward, 0 plain calls) and the logits
+   against a plain-version forward
    of the same batches on the card; times the batch-8 forward (eager, in a
    CUDA graph, plain) and traces it with torch.profiler;
 5. the other recipe paths, each the same way (counters, leaf types,
    logits vs the plain-version forward, the batch-8 forward in a CUDA
    graph; ``uniform8`` also eager, plain and traced, the others not):
-   ``uniform8`` (42 int8_matmul + 14 attention per forward), the opt-in
-   int8 stem (1 int8_matmul + the m2q path's 76),
-   ``w4-weights-only`` (42 int4_matmul + 20 dwconv + 14 attention) and
-   weights-only APoT (42 apot_matmul + 20 dwconv + 14 attention);
+   ``uniform8`` (42 int8_matmul + 14 + 14 attention per forward), the
+   opt-in int8 stem (1 int8_matmul + the m2q path's 90),
+   ``w4-weights-only`` (42 int4_matmul + 20 dwconv + 14 + 14 attention)
+   and weights-only APoT (42 apot_matmul + 20 dwconv + 14 + 14
+   attention);
 6. the token path -- qwen1.5-0.5b at full width with the int8 KV cache,
    ``recipe.quantize(..., "m2q-w8a8")`` on the card (every dense leaf
    4-bit at the decode shape), ``serve(max_batch=8, max_len=256)``, 16
@@ -221,6 +225,8 @@ class Tally:
         summation bound), and the row records the largest err / bound."""
         import torch
         y, y_ref = kernel(), plain()
+        if isinstance(y, tuple):  # (sq, sk, sv)
+            y, y_ref = torch.stack(y), torch.stack(y_ref)
         torch.cuda.synchronize()
         diff = (y - y_ref).abs()
         err = float(diff.max())
@@ -348,27 +354,71 @@ def check_dwconv(torch, rng, calls) -> Tally:
     return tally
 
 
+def _attn_qkv(torch, rng, B, N, Hh, D):
+    """bf16 q, k, v as the MSA hands them over: column slices of one
+    (B, N, 3C) tensor."""
+    C = Hh * D
+    qkv = _randn(torch, rng, (B, N, 3 * C), dtype=torch.bfloat16)
+    return [t.reshape(B, N, Hh, D) for t in torch.split(qkv, C, dim=-1)]
+
+
 def check_attn(torch, rng, calls) -> Tally:
     """relu_attn at both MSA token counts, on strided q/k/v slices of one
-    qkv tensor as the model hands them over.  No single PyTorch call
-    computes int8 linear attention; the f32 einsum path (the port's other
-    token mixer) is timed as the yardstick but reported as no library."""
+    qkv tensor, with bf16 q/k/v and bf16 y (the launch the served paths
+    make), bit for bit against the plain version rounded once to bf16;
+    the f32-out launch is held bit for bit too (untimed).  Each row
+    records the launch plan (token slices a cluster, CTAs).  Bytes count
+    y at its stored 2 B.  No single PyTorch call computes int8 linear
+    attention; the f32 einsum path (the port's other token mixer) is
+    timed as the yardstick but reported as no
+    library."""
     from repro_torch.kernels import relu_attn as k
+    from repro_torch.kernels import relu_attn_scales as ks
     from repro_torch.nn.attention import relu_linear_attention
     tally = Tally("relu_attn")
     for (B, N, Hh, D), n in Counter(calls).items():
+        q, kk, v = _attn_qkv(torch, rng, B, N, Hh, D)
+        sc = ks.relu_attn_scales_plain(q, kk, v)
+        y32, y32_ref = (k._launch(q, kk, v, *sc, 1e-6),
+                        k.relu_attn_plain(q, kk, v, *sc))
+        if not torch.equal(y32, y32_ref):
+            fail(f"relu_attn {(B, N, Hh, D)} f32 out: max_abs_err "
+                 f"{float((y32 - y32_ref).abs().max())}")
+        del y32, y32_ref
         C = Hh * D
-        qkv = _randn(torch, rng, (B, N, 3 * C), dtype=torch.bfloat16)
-        q, kk, v = (t.reshape(B, N, Hh, D)
-                    for t in torch.split(qkv, C, dim=-1))
-        sc = k.attn_scales(q, kk, v)
         ops = B * Hh * (4.0 * N * D * D + 3.0 * N * D)
         tally.measure(dict(B=B, N=N, H=Hh, D=D), n,
-                      lambda: k.relu_attn(q, kk, v, *sc),
-                      lambda: k.relu_attn_plain(q, kk, v, *sc),
+                      lambda: k.relu_attn(q, kk, v, *sc,
+                                          out_dtype=torch.bfloat16),
+                      lambda: k.relu_attn_plain(q, kk, v, *sc,
+                                                out_dtype=torch.bfloat16),
                       lambda: relu_linear_attention(q, kk, v, attn="f32"),
-                      3 * B * N * C * 2 + 3 * 4 + B * N * C * 4,
-                      ops / INT8_OPS_PER_S * 1e3)
+                      3 * B * N * C * 2 + 3 * 4 + B * N * C * 2,
+                      ops / INT8_OPS_PER_S * 1e3, err_bound=0.0)
+        tally.rows[-1]["launch"] = k.launch_plan(B, N, Hh, D)
+        tally.rows[-1]["f32_out_exact"] = True
+    return tally
+
+
+def check_scales(torch, rng, calls) -> Tally:
+    """relu_attn_scales at both MSA shapes, on the same strided bf16
+    slices, bit for bit against the plain chain it replaces (q.max,
+    k.max, |v|.max and the scalar steps after each: ~20 launches, timed
+    as the plain version).  Each row records the launch plan (the one
+    cluster's CTAs).  Bytes: q, k and v read once, three f32 scales
+    written; operations: one comparison an element at the f32 rate.  No single PyTorch call computes the three scales (library:
+    none)."""
+    from repro_torch.kernels import relu_attn_scales as ks
+    tally = Tally("relu_attn_scales", source="relu_attn")
+    for (B, N, Hh, D), n in Counter(calls).items():
+        q, kk, v = _attn_qkv(torch, rng, B, N, Hh, D)
+        elems = 3 * B * N * Hh * D
+        tally.measure(dict(B=B, N=N, H=Hh, D=D), n,
+                      lambda: ks.relu_attn_scales(q, kk, v),
+                      lambda: ks.relu_attn_scales_plain(q, kk, v), None,
+                      elems * 2 + 3 * 4, elems / F32_FLOPS_PER_S * 1e3,
+                      err_bound=0.0)
+        tally.rows[-1]["launch"] = ks.launch_plan(B, N, Hh * D, True)
     return tally
 
 
@@ -399,7 +449,7 @@ def check_int8(torch, rng, calls_by_path) -> Tally:
     from repro_torch.core.qtensor import QUniform
     from repro_torch.core.quant import quantize_act
     from repro_torch.kernels import int8_matmul as k
-    tally = Tally("int8_matmul")
+    tally = Tally("int8_matmul", source="m2q_matmul")
     for path, calls in calls_by_path.items():
         for (M, K, N), n in Counter([c[1:] for c in calls]).items():
             x = _randn(torch, rng, (M, K), dtype=torch.bfloat16)
@@ -543,18 +593,21 @@ def _get(tree, path):
 PATHS = {
     "m2q-w8a8": (("QM2Q+act", "QUniform4", "float"),
                  {"m2q_matmul": "dense", "dwconv_w4": "dw",
-                  "relu_attn": "attn"}),
+                  "relu_attn": "attn", "relu_attn_scales": "attn"}),
     "uniform8": (("QUniform8+act", "QUniform8", "float"),
-                 {"int8_matmul": "dense", "relu_attn": "attn"}),
+                 {"int8_matmul": "dense", "relu_attn": "attn",
+                  "relu_attn_scales": "attn"}),
     "int8-stem": (("QM2Q+act", "QUniform4", "QUniform8+act"),
                   {"int8_matmul": 1, "m2q_matmul": "dense",
-                   "dwconv_w4": "dw", "relu_attn": "attn"}),
+                   "dwconv_w4": "dw", "relu_attn": "attn",
+                   "relu_attn_scales": "attn"}),
     "w4-weights-only": (("QUniform4", "QUniform4", "float"),
                         {"int4_matmul": "dense", "dwconv_w4": "dw",
-                         "relu_attn": "attn"}),
+                         "relu_attn": "attn", "relu_attn_scales": "attn"}),
     "apot-weights-only": (("QAPoT", "QUniform4", "float"),
                           {"apot_matmul": "dense", "dwconv_w4": "dw",
-                           "relu_attn": "attn"}),
+                           "relu_attn": "attn",
+                           "relu_attn_scales": "attn"}),
 }
 
 
@@ -930,6 +983,7 @@ def main() -> None:
     tallies = [check_m2q(torch, rng, m2q_calls),
                check_dwconv(torch, rng, dw_calls),
                check_attn(torch, rng, attn_calls),
+               check_scales(torch, rng, attn_calls),
                check_int8(torch, rng, {"uniform8": m2q_calls,
                                        "int8-stem": [stem_call]}),
                check_weights_only(torch, rng, "int4_matmul",
@@ -965,6 +1019,8 @@ def main() -> None:
     replaces = {"m2q_matmul": "src/repro/kernels/m2q_matmul.py:80",
                 "dwconv_w4": "src/repro/kernels/dwconv_w4.py:107",
                 "relu_attn": "src/repro/kernels/relu_attn.py:74",
+                # the three reductions XLA fuses ahead of that pallas_call
+                "relu_attn_scales": "src/repro/kernels/ops.py:649",
                 "int8_matmul": "src/repro/kernels/int8_matmul.py:53",
                 "int4_matmul": "src/repro/kernels/int4_matmul.py:47",
                 "apot_matmul": "src/repro/kernels/apot_matmul.py:56",
@@ -972,6 +1028,7 @@ def main() -> None:
                     "src/repro/kernels/decode_attn_int8.py:60"}
     entries = [t.entry(replaces[t.name], launches[t.name],
                        library=t.name not in ("relu_attn",
+                                              "relu_attn_scales",
                                               "decode_attn_int8"))
                for t in tallies]
     print(card, flush=True)  # again, beside the results it qualifies

@@ -4,12 +4,12 @@ launch and plain-call counters."""
 from typing import Dict
 
 from . import (apot_matmul, decode_attn_int8, dwconv_w4, int4_matmul,
-               int8_matmul, m2q_matmul, relu_attn)
+               int8_matmul, m2q_matmul, relu_attn, relu_attn_scales)
 
 KERNELS = {"m2q_matmul": m2q_matmul, "dwconv_w4": dwconv_w4,
-           "relu_attn": relu_attn, "int8_matmul": int8_matmul,
-           "int4_matmul": int4_matmul, "apot_matmul": apot_matmul,
-           "decode_attn_int8": decode_attn_int8}
+           "relu_attn": relu_attn, "relu_attn_scales": relu_attn_scales,
+           "int8_matmul": int8_matmul, "int4_matmul": int4_matmul,
+           "apot_matmul": apot_matmul, "decode_attn_int8": decode_attn_int8}
 
 
 def counts() -> Dict[str, Dict[str, int]]:

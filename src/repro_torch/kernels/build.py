@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # each source and the extern "C" entry points it defines
 SOURCES = {"m2q_matmul": ("m2q_matmul", "int8_matmul"),
-           "dwconv_w4": ("dwconv_w4",), "relu_attn": ("relu_attn",),
+           "dwconv_w4": ("dwconv_w4",),
+           "relu_attn": ("relu_attn", "relu_attn_scales"),
            "weights_only_matmul": ("int4_matmul", "apot_matmul"),
            "decode_attn_int8": ("decode_attn_int8",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

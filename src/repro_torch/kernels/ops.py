@@ -31,6 +31,7 @@ from . import int4_matmul as _int4
 from . import int8_matmul as _int8
 from . import m2q_matmul as _m2q
 from . import relu_attn as _attn
+from . import relu_attn_scales as _scales
 
 ATTN_INT8 = "int8"
 ATTN_F32 = "f32"
@@ -135,10 +136,15 @@ def qtensor_dwconv(x: torch.Tensor, qt, stride: int = 1) -> torch.Tensor:
 
 def relu_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
-    """Int8 ReLU linear attention with tensor-wide scales; (B,N,H,D) f32."""
-    sq, sk, sv = _attn.attn_scales(q, k, v)
-    fn = _attn.relu_attn_plain if _REFERENCE.get() else _attn.relu_attn
-    return fn(q, k, v, sq, sk, sv, eps)
+    """Int8 ReLU linear attention with tensor-wide scales: (B,N,H,D) in
+    q's dtype (the kernel stores it; the plain version casts its f32
+    result once).  The scales come from their own kernel, or the plain
+    chain inside :func:`reference_path`."""
+    ref = _REFERENCE.get()
+    scales = (_scales.relu_attn_scales_plain if ref
+              else _scales.relu_attn_scales)
+    fn = _attn.relu_attn_plain if ref else _attn.relu_attn
+    return fn(q, k, v, *scales(q, k, v), eps, q.dtype)
 
 
 def decode_attn_int8_op(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,

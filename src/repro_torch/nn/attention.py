@@ -147,10 +147,11 @@ def relu_linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``attn="f32"``: ``(q' (k'^T v)) / (q' sum(k'))`` in f32 einsums with
     q' = relu(q), k' = relu(k).  ``attn="int8"``: the fused int8 kernel
-    (``kernels.relu_attn``), which quantizes q/k/v -- numerics move by
-    int8 quantization error."""
+    (``kernels.relu_attn``, after ``kernels.relu_attn_scales``), which
+    quantizes q/k/v and stores q's dtype -- numerics move by int8
+    quantization error."""
     if attn == ops.ATTN_INT8:
-        return ops.relu_attn_op(q, k, v, eps=eps).to(q.dtype)
+        return ops.relu_attn_op(q, k, v, eps=eps)
     if attn != ops.ATTN_F32:
         raise ValueError(f"attn must be {ops.ATTN_INT8!r} or "
                          f"{ops.ATTN_F32!r}, got {attn!r}")

@@ -20,7 +20,7 @@ from repro_torch.core.quant import quantize_act
 from repro_torch.core.scheme_select import select_schemes
 from repro_torch.kernels import (apot_matmul, decode_attn_int8, dwconv_w4,
                                  int4_matmul, int8_matmul, m2q_matmul, ops,
-                                 relu_attn)
+                                 relu_attn, relu_attn_scales)
 from repro_torch.nn.attention import quantize_kv_rows
 from m2q_cases import adversarial_int8, adversarial_m2q
 
@@ -237,7 +237,7 @@ def test_relu_attn_kernel_equals_plain_on_strided_views(cuda, B, N, H, D,
                                                         dtype):
     qkv = _randn((B, N, 3 * H * D), B * N + D, cuda, dtype=dtype)
     q, k, v = (t.reshape(B, N, H, D) for t in torch.split(qkv, H * D, -1))
-    scales = relu_attn.attn_scales(q, k, v)
+    scales = relu_attn_scales.relu_attn_scales_plain(q, k, v)
     y = relu_attn.relu_attn(q, k, v, *scales)
     _equal(y, relu_attn.relu_attn_plain(q, k, v, *scales))
 
@@ -245,7 +245,184 @@ def test_relu_attn_kernel_equals_plain_on_strided_views(cuda, B, N, H, D,
 def test_relu_attn_refuses_wide_heads(cuda):
     q = torch.zeros((1, 4, 1, 128), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
-        relu_attn.relu_attn(q, q, q, *relu_attn.attn_scales(q, q, q))
+        relu_attn.relu_attn(q, q, q,
+                            *relu_attn_scales.relu_attn_scales_plain(q, q, q))
+
+
+def _attn_inputs(B, N, H, D, seed, device, dtype=torch.bfloat16):
+    """q, k, v: column slices of one (B, N, 3C) tensor, as the MSA hands
+    them over."""
+    qkv = _randn((B, N, 3 * H * D), seed, device, dtype=dtype)
+    return [t.reshape(B, N, H, D) for t in torch.split(qkv, H * D, -1)]
+
+
+def _attn_plans():
+    """Every split the kernel takes (at every shape)."""
+    return [dict(splits=s) for s in relu_attn.SPLITS]
+
+
+# the B1 R224 MSA shapes of the served paths (stage 3 and stage 4), at
+# VisionEngine's buckets
+ATTN_SHAPES = sorted(set(chip_smoke.main_path_calls(
+    ARCHS["efficientvit-b1-r224"], 1)[2]))
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 8])
+@pytest.mark.parametrize("N,H,D", [s[1:] for s in ATTN_SHAPES])
+def test_relu_attn_kernel_equals_plain_at_every_plan(cuda, B, N, H, D):
+    """bf16 in and out (as served) under every plan, and f32 out under
+    launch_plan's, bit for bit; the plain result is the f32 one rounded
+    once."""
+    q, k, v = _attn_inputs(B, N, H, D, B + N, cuda)
+    sc = relu_attn_scales.relu_attn_scales_plain(q, k, v)
+    want = relu_attn.relu_attn_plain(q, k, v, *sc, out_dtype=torch.bfloat16)
+    for plan in _attn_plans():
+        y = relu_attn._launch(q, k, v, *sc, 1e-6, torch.bfloat16, plan)
+        assert y.dtype == torch.bfloat16, plan
+        torch.testing.assert_close(y, want, rtol=0, atol=0, msg=str(plan))
+    _equal(relu_attn.relu_attn(q, k, v, *sc),
+           relu_attn.relu_attn_plain(q, k, v, *sc))
+
+
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,D", [(2, 1, 2, 16), (3, 2, 4, 16),
+                                     (2, 197, 8, 16), (1, 50, 16, 16),
+                                     (2, 300, 2, 32), (1, 700, 1, 64),
+                                     (2, 33, 4, 8), (2, 45, 3, 12),
+                                     (1, 9, 2, 5)])
+def test_relu_attn_kernel_equals_plain_at_edge_shapes(cuda, B, N, H, D,
+                                                      dtype, out_dtype):
+    """One token, token counts no slice divides, slices longer than a
+    CTA's 256-token chunk (q requantized chunk by chunk), D = 8 / 16 / 32 /
+    64 and head dims the kernel pads (12, 5; scalar loads), under every
+    plan."""
+    q, k, v = _attn_inputs(B, N, H, D, N + D, cuda, dtype)
+    sc = relu_attn_scales.relu_attn_scales_plain(q, k, v)
+    want = relu_attn.relu_attn_plain(q, k, v, *sc, out_dtype=out_dtype)
+    for plan in _attn_plans():
+        y = relu_attn._launch(q, k, v, *sc, 1e-6, out_dtype, plan)
+        torch.testing.assert_close(y, want, rtol=0, atol=0, msg=str(plan))
+
+
+def test_relu_attn_kernel_refuses_a_plan_it_does_not_build(cuda):
+    q, k, v = _attn_inputs(1, 8, 2, 64, 0, cuda)
+    sc = relu_attn_scales.relu_attn_scales_plain(q, k, v)
+    for plan in (dict(splits=0), dict(splits=3), dict(splits=16)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            relu_attn._launch(q, k, v, *sc, 1e-6, torch.float32, plan)
+
+
+def _scale_plans():
+    return [dict(ctas=c) for c in relu_attn_scales.CTAS]
+
+
+def _equal_scales(got, want):
+    torch.testing.assert_close(torch.stack(list(got)),
+                               torch.stack(list(want)), rtol=0, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 8])
+@pytest.mark.parametrize("N,H,D", [s[1:] for s in ATTN_SHAPES])
+def test_scale_kernel_equals_plain_chain_at_every_plan(cuda, B, N, H, D):
+    q, k, v = _attn_inputs(B, N, H, D, 3 * B + N, cuda)
+    want = relu_attn_scales.relu_attn_scales_plain(q, k, v)
+    for plan in _scale_plans():
+        _equal_scales(relu_attn_scales._launch(q, k, v, plan), want)
+    kernels.reset_counts()
+    got = relu_attn_scales.relu_attn_scales(q, k, v)
+    assert kernels.counts()["relu_attn_scales"] == {"launches": 1,
+                                                    "plain_calls": 0}
+    assert all(s.shape == () and s.dtype == torch.float32 for s in got)
+    _equal_scales(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["nan", "inf", "-inf", "negative", "-0.0",
+                                  "zero", "misaligned", "odd_width"])
+def test_scale_kernel_equals_plain_chain_on_special_inputs(cuda, kind,
+                                                           dtype):
+    """NaN in a tensor: its scale NaN; +inf: inf; -inf, all-negative q/k
+    and -0.0: the 1e-8 floor (|-inf| = inf for v); a view that starts off
+    16-byte alignment and a row width no 16-byte load divides (scalar
+    loads)."""
+    B, N, H, D = 2, 49, 4, 16
+    if kind == "odd_width":
+        H, D = 3, 5
+    q, k, v = _attn_inputs(B, N, H, D, 11, cuda, dtype)
+    if kind == "misaligned":
+        big = _randn((B, N, 3 * H * D + 1), 12, cuda, dtype=dtype)[..., 1:]
+        q, k, v = (t.reshape(B, N, H, D)
+                   for t in torch.split(big, H * D, -1))
+    for t in (q, k, v):
+        if kind == "nan":
+            t[1, 7, 2, 3] = float("nan")
+        elif kind == "inf":
+            t[0, 3, 1, 0] = float("inf")
+        elif kind == "-inf":
+            t[1, 0, 0, 9] = float("-inf")
+        elif kind == "negative":
+            t.copy_(-t.abs() - 0.5)
+        elif kind == "-0.0":
+            t.fill_(-0.0)
+        elif kind == "zero":
+            t.zero_()
+    want = relu_attn_scales.relu_attn_scales_plain(q, k, v)
+    for plan in (dict(ctas=1), dict(ctas=4),
+                 relu_attn_scales.launch_plan(B, N, H * D,
+                                              dtype == torch.bfloat16)):
+        _equal_scales(relu_attn_scales._launch(q, k, v, plan), want)
+
+
+def test_scale_kernel_refuses_bad_plans_and_operands(cuda):
+    q, k, v = _attn_inputs(1, 8, 2, 16, 0, cuda)
+    for plan in (dict(ctas=0), dict(ctas=3), dict(ctas=32)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            relu_attn_scales._launch(q, k, v, plan)
+    with pytest.raises(ValueError, match="dtype"):
+        relu_attn_scales.relu_attn_scales(q, k, v.float())
+
+
+def test_relu_attn_op_launches_both_kernels_and_stores_bf16(cuda):
+    q, k, v = _attn_inputs(8, 196, 8, 16, 5, cuda)
+    kernels.reset_counts()
+    y = ops.relu_attn_op(q, k, v)
+    c = kernels.counts()
+    assert c["relu_attn"] == c["relu_attn_scales"] == {"launches": 1,
+                                                       "plain_calls": 0}
+    assert y.dtype == torch.bfloat16
+    with ops.reference_path():
+        _equal(y, ops.relu_attn_op(q, k, v))
+    kernels.reset_counts()
+
+
+def test_scales_and_attention_replay_from_one_cuda_graph(cuda):
+    """The scale kernel and relu_attn captured in one CUDA graph, replayed
+    with new inputs copied in: equal to the plain chain both times."""
+    B, N, H, D = 8, 49, 16, 16
+    qkv = torch.zeros((B, N, 3 * H * D), device=cuda, dtype=torch.bfloat16)
+    q, k, v = (t.reshape(B, N, H, D) for t in torch.split(qkv, H * D, -1))
+
+    def step():
+        return ops.relu_attn_op(q, k, v)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = step()
+    for seed in (1, 2):
+        qkv.copy_(_randn(qkv.shape, seed, cuda, std=seed,
+                         dtype=torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        sc = relu_attn_scales.relu_attn_scales_plain(q, k, v)
+        _equal(y, relu_attn.relu_attn_plain(q, k, v, *sc,
+                                            out_dtype=torch.bfloat16))
 
 
 def test_kernel_rejects_bad_operands(cuda):
@@ -663,7 +840,9 @@ def test_relu_attn_kernel_equals_plain_on_nan_and_inf(cuda, dtype, scales):
     qkv = _with_nonfinite(_randn((B, N, 3 * H * D), 3, cuda, dtype=dtype), 4)
     q, k, v = (t.reshape(B, N, H, D) for t in torch.split(qkv, H * D, -1))
     if scales == "from_inputs":
-        sc = relu_attn.attn_scales(q, k, v)
+        sc = relu_attn_scales.relu_attn_scales(q, k, v)
+        _equal_nan(torch.stack(list(sc)), torch.stack(list(
+            relu_attn_scales.relu_attn_scales_plain(q, k, v))))
     else:
         sc = [torch.tensor(s, device=cuda) for s in (0.02, 0.02, 0.03)]
         if scales == "nan_sv":

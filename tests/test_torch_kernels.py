@@ -22,7 +22,8 @@ from repro_torch.core import quant as tquant
 from repro_torch.core.qtensor import QM2Q
 from repro_torch.kernels import (apot_matmul, build, decode_attn_int8,
                                  dwconv_w4, int4_matmul, int8_matmul,
-                                 m2q_matmul, ops, relu_attn)
+                                 m2q_matmul, ops, relu_attn,
+                                 relu_attn_scales)
 from m2q_cases import adversarial_m2q, apot_codes
 
 
@@ -226,7 +227,7 @@ def _attn_case(B, N, H, D):
 def test_relu_attn_plain_matches_ref_with_equal_integers(B, N, H, D):
     q, k, v = _attn_case(B, N, H, D)
     tq_, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
-    sq, sk, sv = relu_attn.attn_scales(tq_, tk, tv)
+    sq, sk, sv = relu_attn_scales.relu_attn_scales_plain(tq_, tk, tv)
     # the scales as ops._relu_attn_core computes them
     jsq = jquant.act_scale_from_stats(jnp.maximum(jnp.max(q), 0.0))
     jsk = jquant.act_scale_from_stats(jnp.maximum(jnp.max(k), 0.0))
@@ -272,7 +273,7 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     xd, packed, scale, zp = _dw_case(1, 5, 5, 8, 3, 0)
     dwconv_w4.dwconv_w4(torch.from_numpy(xd), *_torch((packed, scale, zp)))
     q, k, v = (torch.from_numpy(a) for a in _attn_case(1, 4, 1, 8))
-    relu_attn.relu_attn(q, k, v, *relu_attn.attn_scales(q, k, v))
+    relu_attn.relu_attn(q, k, v, *relu_attn_scales.relu_attn_scales(q, k, v))
     xm = torch.ones((3, 4))
     s1, s2 = torch.ones(()), torch.ones(2)
     int8_matmul.int8_matmul(xm, torch.ones((4, 2), dtype=torch.int8), s1,
@@ -286,8 +287,9 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
         torch.ones((1, 4, 1)), torch.tensor([2], dtype=torch.int32), 0.25)
     assert kernels.counts() == {
         name: {"launches": 0, "plain_calls": 1}
-        for name in ("m2q_matmul", "dwconv_w4", "relu_attn", "int8_matmul",
-                     "int4_matmul", "apot_matmul", "decode_attn_int8")}
+        for name in ("m2q_matmul", "dwconv_w4", "relu_attn",
+                     "relu_attn_scales", "int8_matmul", "int4_matmul",
+                     "apot_matmul", "decode_attn_int8")}
     kernels.reset_counts()
     assert all(c == {"launches": 0, "plain_calls": 0}
                for c in kernels.counts().values())

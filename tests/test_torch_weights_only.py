@@ -33,7 +33,7 @@ from repro_torch.core import quant as tquant
 from repro_torch.core.packing import apot_decode_values
 from repro_torch.core.qtensor import QUniform
 from repro_torch.kernels import decode_attn_int8 as tdec
-from repro_torch.kernels import int4_matmul, relu_attn
+from repro_torch.kernels import int4_matmul, relu_attn, relu_attn_scales
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402  (the served paths' shapes)
@@ -198,7 +198,8 @@ def test_plain_relu_attn_matches_jax_on_nan_and_inf(scales):
     q, k, v = (_nonfinite((B, N, H, D), s) for s in (1, 2, 3))
     if scales == "from_inputs":
         tq_, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
-        sq, sk, sv = (s.numpy() for s in relu_attn.attn_scales(tq_, tk, tv))
+        sq, sk, sv = (s.numpy() for s in
+                      relu_attn_scales.relu_attn_scales_plain(tq_, tk, tv))
         assert np.isnan(sv)
     else:
         sq, sk, sv = (np.float32(x) for x in (0.02, 0.02, 0.03))

@@ -25,6 +25,16 @@ quantized from seeded normal weights); each launch is timed in a CUDA
 graph as ``chip_smoke.py`` times it.  Prints one JSON line per shape and
 the sum over one forward (each shape weighted by its launches), and
 writes the rows to ``chiprun_out/<kernel>_tune.json``.  One GPU.
+
+``--kernel relu_attn`` / ``relu_attn_scales`` always sweep every plan the
+kernel takes (``--all`` is implied): the two MSA shapes of the same
+forward (stage 3: N = 196, 8 heads; stage 4: N = 49, 16 heads; D = 16)
+at batch 1, 2, 4 and 8 (VisionEngine's buckets), bf16 q/k/v sliced from
+one qkv tensor as the model hands them over; relu_attn under every
+token split with bf16 out, the scale kernel under every cluster size;
+each plan checked bit for bit against the plain version
+(the plain scale chain) before it is timed.  Prints, per shape and per
+batch-B forward, the ``launch_plan`` choice against the best plan.
 """
 from __future__ import annotations
 
@@ -178,11 +188,75 @@ def weights_only_case(torch, cs, rng, name, M, K, N):
     return (lambda p: k._launch(*a, plan=p)), check
 
 
+def attn_plans(kernel: str, B: int, N: int, H: int, D: int):
+    """``launch_plan``'s choice first, then every other plan the kernel
+    takes at this shape."""
+    from repro_torch.kernels import relu_attn, relu_attn_scales
+    if kernel == "relu_attn":
+        chosen = {"splits": relu_attn.launch_plan(B, N, H, D)["splits"]}
+        every = [dict(splits=s) for s in relu_attn.SPLITS]
+    else:
+        chosen = relu_attn_scales.launch_plan(B, N, H * D, True)
+        every = [dict(ctas=c) for c in relu_attn_scales.CTAS]
+    return [chosen] + [p for p in every if p != chosen]
+
+
+def attn_main(torch, cs, kernel: str) -> None:
+    """The relu_attn / relu_attn_scales sweep (see the module doc)."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import relu_attn, relu_attn_scales
+    import numpy as np
+    cfg = ARCHS["efficientvit-b1-r224"]
+    rng = np.random.default_rng(0)
+    rows, totals = [], {}
+    for B in (1, 2, 4, 8):
+        calls = Counter(cs.main_path_calls(cfg, B)[2])
+        total = totals.setdefault(f"batch {B}",
+                                  {"chosen_ms": 0.0, "best_ms": 0.0})
+        for (b, N, H, D), count in sorted(calls.items()):
+            q, k, v = cs._attn_qkv(torch, rng, b, N, H, D)
+            sc = relu_attn_scales.relu_attn_scales_plain(q, k, v)
+            if kernel == "relu_attn":
+                want = relu_attn.relu_attn_plain(q, k, v, *sc,
+                                                 out_dtype=torch.bfloat16)
+
+                def launch(p):
+                    return relu_attn._launch(q, k, v, *sc, 1e-6,
+                                             torch.bfloat16, p)
+            else:
+                want = torch.stack(sc)
+
+                def launch(p):
+                    return relu_attn_scales._launch(q, k, v, p)
+            timed = []
+            for p in attn_plans(kernel, b, N, H, D):
+                y = launch(p)
+                torch.cuda.synchronize()
+                if not torch.equal(y, want):
+                    sys.exit(f"m2q_tune: {kernel} {(b, N, H, D)} {p} "
+                             "differs from the plain version")
+                timed.append(dict(p, ms=cs.graph_ms(lambda: launch(p))))
+            row = dict(B=b, N=N, H=H, D=D, count=count, chosen=timed[0],
+                       best=min(timed, key=lambda r: r["ms"]), all=timed)
+            total["chosen_ms"] += count * row["chosen"]["ms"]
+            total["best_ms"] += count * row["best"]["ms"]
+            rows.append(row)
+            print(json.dumps({key: val for key, val in row.items()
+                              if key != "all"}), flush=True)
+            del q, k, v, want
+    for name, total in totals.items():
+        print(f"per {name} forward:", json.dumps(total), flush=True)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / f"{kernel}_tune.json").write_text(json.dumps(rows, indent=1))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", default="m2q_matmul",
                     choices=("m2q_matmul", "int8_matmul", "int4_matmul",
-                             "apot_matmul", "dwconv_w4"))
+                             "apot_matmul", "dwconv_w4", "relu_attn",
+                             "relu_attn_scales"))
     ap.add_argument("--all", action="store_true",
                     help="also time every other launch shape")
     args = ap.parse_args()
@@ -192,6 +266,8 @@ def main() -> None:
     import numpy as np
 
     import chip_smoke as cs
+    if args.kernel in ("relu_attn", "relu_attn_scales"):
+        return attn_main(torch, cs, args.kernel)
     from repro_torch.configs.registry import ARCHS
     from repro_torch.kernels import int4_matmul, int8_matmul, m2q_matmul
 
