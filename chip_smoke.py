@@ -16,8 +16,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    version on the card, at every distinct shape of one EfficientViT-B1
    R224 forward at batch 8 under the recipe paths below and of one
    qwen1.5-0.5b decode step at batch 8 (``decode_attn_int8`` at
-   B=8 T=256 Hkv=16 G=1 D=64 with ragged lengths, plus a G=4 D=128 shape
-   and a windowed case; ``int4_matmul`` also at the lm_head's M=8 K=1024
+   B=8 T=256 Hkv=16 G=1 D=64 with ragged lengths, plus a G=4 D=128 shape,
+   a windowed case and the decode shape at B=1, 2 and 4, each row with
+   its launch plan; ``int4_matmul`` also at the lm_head's M=8 K=1024
    N=151936), with kernel / plain / library device times (CUDA graphs
    timed by CUDA events) and the card's least time for the same work
    (int8_matmul and int4_matmul also per path: their shapes of different
@@ -27,7 +28,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    the plain scale chain it replaces, timed as its plain version) must
    equal their plain versions bit for bit; the f32-dot kernels (int4,
    APoT) must sit within the f32 summation bound; decode_attn_int8
-   within two flipped p8 codes per (b, h, g) row;
+   within two flipped p8 codes per (b, h, g) row (f32 store), its bf16
+   store (the served one, timed) equal to the f32 store rounded once, and
+   two replays of one CUDA graph bit-identical;
 4. main path -- ``init`` at full B1 R224 width, ``recipe.quantize(...,
    "m2q-w8a8")`` with synthesized calibration, ``serve(max_batch=8)``,
    12 submitted images polled to completion; checks the logits, the
@@ -54,8 +57,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    and teacher-forced kernel logits against ``reference_path()`` logits;
    where a served token is not the teacher-forced argmax, prints the
    logits' top-2 margin there and the served token's gap to the top;
-   times the batch-8 decode step (eager, in a CUDA graph, plain), traces
-   one with torch.profiler and reports the served tokens/s.
+   times the batch-8 decode step (eager, in a CUDA graph -- a step that
+   cannot be captured fails the run -- and plain), traces one with
+   torch.profiler and reports the served tokens/s.
 
 It then prints the card's name and power limit again, one JSON line with
 every kernel's numbers and, last, the ``{"ok": true, "device": ...}``
@@ -105,10 +109,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
-    """Device time of one ``fn`` call in ms: ``iters`` calls captured in a
-    CUDA graph, replayed ``reps`` times between CUDA events, so host launch
-    overhead is out of the measurement."""
+def capture(fn, iters: int = 1):
+    """(graph, output of the last call): ``iters`` calls of ``fn``
+    captured in a CUDA graph after three warm-up calls on a side stream."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -119,7 +122,16 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(iters):
-            fn()
+            y = fn()
+    return graph, y
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one ``fn`` call in ms: ``iters`` calls captured in a
+    CUDA graph, replayed ``reps`` times between CUDA events, so host launch
+    overhead is out of the measurement."""
+    import torch
+    graph, _ = capture(fn, iters)
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -210,11 +222,13 @@ class Tally:
 
     def measure(self, shape: dict, count: int, kernel, plain, library,
                 nbytes: float, ops_ms: float, err_bound=None,
-                path: str = None) -> None:
+                path: str = None, timed=None) -> None:
         """Hold ``kernel()`` against ``plain()`` and time kernel, plain and
         ``library`` (a PyTorch yardstick, or None).  ``path``: the recipe
         path this shape belongs to, where one kernel serves two paths that
-        never run in one forward; each gets its own sums.
+        never run in one forward; each gets its own sums.  ``timed``: the
+        launch to time in place of ``kernel`` (the served one, where the
+        check holds another store of the same kernel).
 
         ``err_bound`` None: the kernel's integer sums are exact and its
         float steps repeat the plain version's operations in the same
@@ -239,8 +253,9 @@ class Tally:
             fail(f"{self.name} {shape}: max_abs_err {err} vs |y| {scale} "
                  f"(err / bound {ratio})")
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        row = dict(shape, count=count, err=err, ms=graph_ms(kernel),
-                   eager_ms=cuda_ms(kernel), plain_ms=graph_ms(plain, 5),
+        timed = timed or kernel
+        row = dict(shape, count=count, err=err, ms=graph_ms(timed),
+                   eager_ms=cuda_ms(timed), plain_ms=graph_ms(plain, 5),
                    library_ms=graph_ms(library) if library else None,
                    bound_ms=max(b_ms, ops_ms), bytes_ms=b_ms, ops_ms=ops_ms)
         row["bound_by"] = "bytes" if b_ms >= ops_ms else "operations"
@@ -536,15 +551,55 @@ def decode_valid_rows(lengths, T: int, window=None):
     return rows
 
 
+def graph_replays(torch, fn):
+    """``fn()`` captured once in a CUDA graph and replayed twice: the two
+    replays' outputs (cloned)."""
+    graph, y = capture(fn)
+    outs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(y.clone())
+    return outs
+
+
+def sdpa_reference_ms(torch, q, k8, v8, lengths, window):
+    """Device ms of torch.nn.functional.scaled_dot_product_attention on
+    bf16 q, k and v of the same shape (k and v repeated over the group)
+    under the same mask: a float attention, not the same function, timed
+    as a reference only."""
+    import torch.nn.functional as F
+    B, H, G, D = q.shape
+    T = k8.shape[1]
+    qs = q.reshape(B, H * G, 1, D)
+    k, v = (t.to(torch.bfloat16).permute(0, 2, 1, 3)
+            .repeat_interleave(G, dim=1).contiguous() for t in (k8, v8))
+    pos = torch.arange(T, device=q.device)[None, :]
+    lens = lengths.long()[:, None]
+    valid = pos < lens
+    if window is not None:
+        valid &= pos >= lens - window
+    mask = valid[:, None, None, :]
+    return graph_ms(lambda: F.scaled_dot_product_attention(
+        qs, k, v, attn_mask=mask))
+
+
 def check_decode_attn(torch, rng, n_layers: int) -> Tally:
     """decode_attn_int8 at the token path's decode shape (B=8, T=256,
     Hkv=16, G=1, D=64, bf16 q, ragged lengths as the served run holds
     them; ``n_layers`` launches per decode step), plus a GQA shape (G=4,
-    D=128) and a windowed case that the path does not run (0 launches).
-    Within two flipped p8 codes per (b, h, g) row of the plain version;
-    the share of elements within 1e-6 of max |out| is recorded.  No single
-    PyTorch call computes int8 decode attention (library: none).  Bytes:
-    q, the valid cache rows (int8 k and v, f32 row scales), out."""
+    D=128), a windowed case and the decode shape at batch 1, 2 and 4,
+    which the path does not run (0 launches).  Each row: the f32 store
+    within two flipped p8 codes per (b, h, g) row of the plain version
+    (the share of elements within 1e-6 of max |out| recorded); the bf16
+    store (the served one, timed) equal to the f32 store rounded once,
+    at zero tolerance; two replays of one CUDA graph of the bf16 launch
+    bit-identical to each other and to the eager launch; the launch plan
+    (``launch_plan``).  No single PyTorch call computes int8 decode
+    attention (library: none); scaled_dot_product_attention on bf16 q, k
+    and v of the same shape and mask is timed as a reference and marked
+    not the same function.  Bytes: bf16 q, the valid cache rows (int8 k
+    and v, f32 row scales), bf16 out."""
     from repro_torch.kernels import decode_attn_int8 as k
     from repro_torch.nn.attention import quantize_kv_rows
     tally = Tally("decode_attn_int8")
@@ -553,7 +608,8 @@ def check_decode_attn(torch, rng, n_layers: int) -> Tally:
          n_layers),
         (8, 256, 4, 4, 128, list(rng.integers(1, 257, 8)), None, 0),
         (8, 256, 16, 1, 64, list(rng.integers(1, 257, 8)), 64, 0),
-    ]
+    ] + [(B, 256, 16, 1, 64, list(rng.integers(8, 137, B)), None, 0)
+         for B in (1, 2, 4)]
     for B, T, H, G, D, lengths, window, n in cases:
         lengths = [int(x) for x in lengths]
         q = _randn(torch, rng, (B, H, G, D), dtype=torch.bfloat16)
@@ -561,23 +617,41 @@ def check_decode_attn(torch, rng, n_layers: int) -> Tally:
         v8, vs = quantize_kv_rows(_randn(torch, rng, (B, T, H, D)))
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         args = (q, k8, v8, ks, vs, lens, D ** -0.5, window)
+        shape = dict(B=B, T=T, Hkv=H, G=G, D=D, window=window,
+                     lengths=lengths)
+
+        def served():
+            return k.decode_attn_int8(*args, out_dtype=torch.bfloat16)
+        y32, y16 = k.decode_attn_int8(*args), served()
+        if not torch.equal(y16, y32.to(torch.bfloat16)):
+            fail(f"decode_attn_int8 {shape}: the bf16 store differs from "
+                 "the f32 store rounded to bf16")
+        replays = graph_replays(torch, served)
+        if not (torch.equal(replays[0], replays[1])
+                and torch.equal(replays[0], y16)):
+            fail(f"decode_attn_int8 {shape}: two replays of one CUDA graph "
+                 "(or the eager launch) differ")
         rows = sum(decode_valid_rows(lengths, T, window))
         nbytes = (B * H * G * D * 2 + rows * H * (2 * D + 8)
-                  + B * H * G * D * 4 + B * 4)
+                  + B * H * G * D * 2 + B * 4)
         ops_ms = 4.0 * rows * H * G * D / INT8_OPS_PER_S * 1e3
-        tally.measure(dict(B=B, T=T, Hkv=H, G=G, D=D, window=window,
-                           lengths=lengths), n,
-                      lambda: k.decode_attn_int8(*args),
+        tally.measure(shape, n, lambda: k.decode_attn_int8(*args),
                       lambda: k.decode_attn_int8_plain(*args), None,
-                      nbytes, ops_ms, err_bound=k.error_bound(*args))
-        y, y_ref = k.decode_attn_int8(*args), k.decode_attn_int8_plain(*args)
-        err = (y - y_ref).abs()
+                      nbytes, ops_ms, err_bound=k.error_bound(*args),
+                      timed=served)
+        y_ref = k.decode_attn_int8_plain(*args)
+        err = (y32 - y_ref).abs()
         row = tally.rows[-1]
         row["share_within_1e-6_of_max"] = float(
             (err <= 1e-6 * float(y_ref.abs().max())).float().mean())
         # the bound over every cache row, as if all T were valid
-        row["bound_all_rows_ms"] = (B * H * G * D * 6 + B * T * H * (2 * D + 8)
+        row["bound_all_rows_ms"] = (B * H * G * D * 4 + B * T * H * (2 * D + 8)
                                     + B * 4) / HBM_BYTES_PER_S * 1e3
+        row["launch"] = k.launch_plan(B, T, H, G, D)
+        row["bf16_store_is_f32_cast"] = True
+        row["graph_replays_identical"] = True
+        row["sdpa_ms_not_same_function"] = sdpa_reference_ms(
+            torch, q, k8, v8, lens, window)
     return tally
 
 
@@ -924,9 +998,9 @@ def run_token_path(torch, out_dir):
             res["plain_decode_step_ms"] = cuda_ms(step, iters=3, warmup=1)
         try:
             res["decode_step_graph_ms"] = graph_ms(step, iters=3)
-        except Exception as e:  # noqa: BLE001 -- reported, not hidden
-            res["decode_step_graph_ms"] = None
-            res["graph_capture_error"] = repr(e)[:300]
+        except Exception as e:  # noqa: BLE001 -- a failed phase fails the run
+            fail(f"token path: the decode step did not run in a CUDA graph: "
+                 f"{e!r}"[:400])
         trace = device_profile(step, top=5)
     if trace:
         trace["busy_share"] = trace["busy_ms"] / res["decode_step_ms"]

@@ -153,13 +153,16 @@ def decode_attn_int8_op(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
                         scale: Optional[float] = None) -> torch.Tensor:
     """Decode attention over the int8 KV cache: q (B, 1, Hq, D) float,
     k_q/v_q (B, T, Hkv, D) int8 + (B, T, Hkv) f32 row scales, lengths
-    (B,) -> (B, 1, Hq, D) in q's dtype.  Runs per (batch, kv-head)."""
+    (B,) -> (B, 1, Hq, D) in q's dtype (the kernel stores it; the plain
+    version's f32 result is cast once).  Runs per (batch, kv-head)."""
     B, _, Hq, D = q.shape
     Hkv = k_q.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qh = q.reshape(B, Hkv, Hq // Hkv, D).contiguous()
     lens = lengths.to(torch.int32).contiguous()
-    fn = _dec.decode_attn_int8_plain if _REFERENCE.get() \
-        else _dec.decode_attn_int8
-    out = fn(qh, k_q, v_q, k_scale, v_scale, lens, scale, window)
-    return out.reshape(B, 1, Hq, D).to(q.dtype)
+    args = (qh, k_q, v_q, k_scale, v_scale, lens, scale, window)
+    if _REFERENCE.get():
+        out = _dec.decode_attn_int8_plain(*args).to(q.dtype)
+    else:
+        out = _dec.decode_attn_int8(*args, out_dtype=q.dtype)
+    return out.reshape(B, 1, Hq, D)

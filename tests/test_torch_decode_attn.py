@@ -157,3 +157,119 @@ def test_float_cache_decode_attention_matches_jax(window):
                               window=window).numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+
+
+# qwen1.5-0.5b's decode attention at VisionEngine-like batch buckets
+SERVED_ROWS = [(B, 256, 16, 1, 64) for B in (1, 2, 4, 8)]
+
+
+@pytest.mark.parametrize("B,T,H,G,D", SERVED_ROWS)
+def test_launch_plan_at_the_served_rows(B, T, H, G, D):
+    """The plan rule as a pure function: the swept plan (PERF.md), its
+    shared memory as the source lays it out, one block per (b, kv-head)."""
+    plan = tdec.launch_plan(B, T, H, G, D)
+    assert {k: plan[k] for k in ("rows", "depth")} == tdec.PLAN
+    assert plan["ctas"] == B * H
+    assert plan["smem"] == tdec.smem_bytes(T, G, D, tdec.PLAN)
+    assert plan["smem"] <= tdec.SMEM_LIMIT
+
+
+def _first_version_smem(T, G, D):
+    """The first version's shared memory: G x T f32 scores and int8
+    codes, q8, two scales per row g, the PV partials, and 32 static
+    bytes."""
+    return G * T * 5 + 2 * G * 4 + max(G * D, 256) * 4 + G * D + 32
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
+def test_every_cache_the_first_version_took_still_fits(G):
+    """At each head dim and group size, the longest cache the first
+    version launched fits under the fitted plan, and shared memory grows
+    with T by at most the first version's 5 bytes a row and query."""
+    for D in range(16, 129, 16):
+        T = (tdec.SMEM_LIMIT - _first_version_smem(0, G, D)) // (5 * G)
+        assert _first_version_smem(T, G, D) <= tdec.SMEM_LIMIT
+        plan = tdec.fit_plan(T, G, D, tdec.PLAN)
+        assert tdec.smem_bytes(T, G, D, plan) <= tdec.SMEM_LIMIT
+        assert plan["rows"] >= 4 and plan["depth"] >= 1
+        for t in (T // 4, T // 2):
+            grow = (tdec.smem_bytes(T, G, D, tdec.PLAN)
+                    - tdec.smem_bytes(t, G, D, tdec.PLAN))
+            # the codes' block rounded up to 16 bytes
+            assert grow <= 5 * G * (T - t) + 16
+    with pytest.raises(ValueError, match="shared memory"):
+        tdec.fit_plan(60000, 1, 64, tdec.PLAN)
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm: byte n of the result is byte (sel >> 4n) & 7
+    of the 8-byte pair (y:x)."""
+    pair = (y << 32) | x
+    return sum(((pair >> (8 * ((sel >> (4 * n)) & 7))) & 0xFF) << (8 * n)
+               for n in range(4))
+
+
+def _dp4a(a, b):
+    """Signed 4 x int8 dot of two 32-bit words."""
+    ai = np.array([a], np.uint32).view(np.int8).astype(np.int64)
+    bi = np.array([b], np.uint32).view(np.int8).astype(np.int64)
+    return int((ai * bi).sum())
+
+
+def test_the_kernels_pv_transpose_gives_the_integer_dot():
+    """The PV pass's __byte_perm transposition and quad-row rotation, read
+    from csrc/decode_attn_int8.cu and run in Python: for every rotation x
+    a warp's streams use, the four column words dotted with the permuted
+    p8 word give sum_j p8_j * v8_j per column, as the plain version's
+    integer einsum does."""
+    import re
+    from pathlib import Path
+    src = (Path(tdec.__file__).resolve().parent.parent / "csrc"
+           / "decode_attn_int8.cu").read_text()
+    steps = re.findall(r"const (?:unsigned|int) (\w+) = \(?(?:int\)\s*)?"
+                       r"__byte_perm\(([\w\[\]]+), ([\w\[\]]+), "
+                       r"(0x[0-9a-f]+)\)", src)
+    assert [s[0] for s in steps] == ["t0", "t1", "t2", "t3", "col0", "col1",
+                                     "col2", "col3"]
+    rng = np.random.default_rng(0)
+    for x in range(4):
+        v8 = rng.integers(-127, 128, (4, 4)).astype(np.int8)  # rows x cols
+        p8 = rng.integers(-127, 128, 4).astype(np.int8)
+        words = v8.view(np.uint32).reshape(4)  # one word per row
+        env = {f"a[{j}]": int(words[j ^ x]) for j in range(4)}
+        for name, a, b, sel in steps:
+            env[name] = _byte_perm(env[a], env[b], int(sel, 16))
+        psel = (0 ^ x) | (1 ^ x) << 4 | (2 ^ x) << 8 | (3 ^ x) << 12
+        pp = _byte_perm(int(p8.view(np.uint32)[0]), 0, psel)
+        got = [_dp4a(env[f"col{c}"], pp) for c in range(4)]
+        want = (p8.astype(np.int64)[:, None] * v8.astype(np.int64)).sum(0)
+        assert got == want.tolist()
+
+
+def test_decode_attn_op_returns_q_dtype_and_matches_jax_chain():
+    """``decode_attn_int8_op`` on bf16 q returns bf16 (the plain version's
+    f32 result cast once on the CPU), within the two-code bound of JAX's
+    dispatch-off chain cast to bf16, plus one bf16 ulp of the value for
+    the two casts of values that differ by less than the bound."""
+    B, T, Hkv, G, D = 4, 40, 2, 2, 64
+    lengths = np.array([0, 1, 17, T], np.int32)
+    q, k8, v8, ks, vs = _decode_case(B, T, Hkv, G, D)
+    q16 = jnp.asarray(q).astype(jnp.bfloat16)
+    jargs = (q16, jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(ks),
+             jnp.asarray(vs), jnp.asarray(lengths))
+    with jops.dispatch(dense=False, conv=False, attn=False):
+        want = ja.decode_attention_int8(*jargs)
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    tq = torch.from_numpy(np.asarray(q16.astype(jnp.float32))).to(
+        torch.bfloat16)
+    targs = [tq] + [_t(a) for a in (k8, v8, ks, vs, lengths)]
+    kernels.reset_counts()
+    got = ops.decode_attn_int8_op(*targs)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, 1, Hkv * G, D)
+    assert kernels.counts()["decode_attn_int8"] == {"launches": 0,
+                                                    "plain_calls": 1}
+    bound = tdec.error_bound(tq.reshape(B, Hkv, G, D), *targs[1:],
+                             D ** -0.5).numpy().reshape(B, 1, Hkv * G, 1)
+    err = np.abs(got.float().numpy() - want)
+    assert np.all(err <= bound + 2.0 ** -7 * np.abs(want))

@@ -6,6 +6,7 @@ machine with an H100 and nvcc:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import ctypes
 import sys
 from pathlib import Path
 
@@ -18,9 +19,9 @@ from repro_torch.configs.registry import ARCHS
 from repro_torch.core.qtensor import QAPoT, QM2Q, QUniform
 from repro_torch.core.quant import quantize_act
 from repro_torch.core.scheme_select import select_schemes
-from repro_torch.kernels import (apot_matmul, decode_attn_int8, dwconv_w4,
-                                 int4_matmul, int8_matmul, m2q_matmul, ops,
-                                 relu_attn, relu_attn_scales)
+from repro_torch.kernels import (apot_matmul, build, decode_attn_int8,
+                                 dwconv_w4, int4_matmul, int8_matmul,
+                                 m2q_matmul, ops, relu_attn, relu_attn_scales)
 from repro_torch.nn.attention import quantize_kv_rows
 from m2q_cases import adversarial_int8, adversarial_m2q
 
@@ -689,6 +690,152 @@ def test_decode_attn_kernel_rejects_bad_operands(cuda):
     with pytest.raises(ValueError, match="shared"):
         big = decode_inputs(1, 60000, 1, 1, 64, [1], cuda)
         decode_attn_int8.decode_attn_int8(*big, 0.125)
+    for plan in ({"rows": 2, "depth": 2}, {"rows": 48, "depth": 2},
+                 {"rows": 64, "depth": 3}):  # not plans
+        with pytest.raises(RuntimeError, match="cudaError"):
+            decode_attn_int8._launch(q, k8, v8, ks, vs, lens, 0.125, None,
+                                     plan=plan)
+
+
+def _within_two_codes(y, args, scale, window):
+    y_ref = decode_attn_int8.decode_attn_int8_plain(*args, scale, window)
+    bound = decode_attn_int8.error_bound(*args, scale, window)
+    assert bool(torch.all((y - y_ref).abs() <= bound)), \
+        float(((y - y_ref).abs() / bound).max())
+
+
+def _every_decode_plan():
+    return [{"rows": r, "depth": d} for r in decode_attn_int8.ROWS
+            for d in decode_attn_int8.DEPTHS]
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 8])
+def test_decode_attn_every_plan_at_the_served_shape(cuda, B):
+    """Every plan the sweep tries, at qwen1.5-0.5b's decode shape (T 256,
+    Hkv 16, G 1, D 64, bf16 q) with served-like ragged lengths: the f32
+    store within two p8 codes of the plain version, the bf16 store the
+    f32 store rounded once, and the same bits as the chosen plan's where
+    the rounding of the softmax sum does not move (every plan sums in
+    its own order, so only the bound is asserted across plans)."""
+    lengths = [int(x) for x in np.random.default_rng(B).integers(8, 137, B)]
+    lengths[0] = 256
+    args = decode_inputs(B, 256, 16, 1, 64, lengths, cuda, seed=B,
+                         q_dtype=torch.bfloat16)
+    for plan in _every_decode_plan():
+        y = decode_attn_int8._launch(*args, 0.125, None, plan=plan)
+        _within_two_codes(y, args, 0.125, None)
+        y16 = decode_attn_int8._launch(*args, 0.125, None, torch.bfloat16,
+                                       plan=plan)
+        _equal(y16, y.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,G,D,lengths,window", DECODE_CASES)
+def test_decode_attn_bf16_store_is_the_cast_of_the_f32_store(
+        cuda, B, T, H, G, D, lengths, window, q_dtype):
+    args = decode_inputs(B, T, H, G, D, lengths, cuda, seed=T + 3 * G,
+                         q_dtype=q_dtype)
+    y = decode_attn_int8.decode_attn_int8(*args, D ** -0.5, window)
+    y16 = decode_attn_int8.decode_attn_int8(*args, D ** -0.5, window,
+                                            out_dtype=torch.bfloat16)
+    assert y16.dtype == torch.bfloat16
+    _equal(y16, y.to(torch.bfloat16))
+
+
+def _first_version_max_T(G, D):
+    """The longest cache the first version of the kernel launched: its
+    G x T f32 scores and int8 codes, q8, two scales per row g and the PV
+    partials in dynamic shared memory, and 32 bytes of static reduction
+    slots, within the block's 232448 bytes."""
+    fixed = 2 * G * 4 + max(G * D, 256) * 4 + G * D + 32
+    return (decode_attn_int8.SMEM_LIMIT - fixed) // (5 * G)
+
+
+@pytest.mark.parametrize("G,D", [(1, 64), (4, 128)])
+def test_decode_attn_kernel_at_the_longest_cache(cuda, G, D):
+    """T 1500 and the longest cache the first version took: the ring
+    shrinks to fit beside the G x T scores and codes, and the result stays
+    within two p8 codes (one slot idled past T, one windowed)."""
+    for T in (1500, _first_version_max_T(G, D)):
+        plan = decode_attn_int8.launch_plan(2, T, 1, G, D)
+        assert plan["smem"] <= decode_attn_int8.SMEM_LIMIT
+        args = decode_inputs(2, T, 1, G, D, [T, T + 5], cuda, seed=G,
+                             q_dtype=torch.bfloat16)
+        for window in (None, 700):
+            y = decode_attn_int8.decode_attn_int8(*args, D ** -0.5, window)
+            _within_two_codes(y, args, D ** -0.5, window)
+
+
+def test_decode_attn_smem_matches_the_source(cuda):
+    """The wrapper's shared-memory count is the source's layout."""
+    fn = build.load("decode_attn_int8").decode_attn_int8_smem
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 5
+    for T, G, D in ((256, 1, 64), (256, 4, 128), (40, 2, 48), (46000, 1, 64),
+                    (7, 3, 16)):
+        for plan in _every_decode_plan():
+            want = fn(T, G, D, plan["rows"], plan["depth"])
+            assert decode_attn_int8.smem_bytes(T, G, D, plan) == want
+
+
+def test_decode_attn_graph_replays_give_the_same_bits(cuda):
+    """The decode attention captured in a CUDA graph at the served shape
+    (bf16 q, bf16 store as the op launches it): two replays give the
+    bits of the eager launch, and new inputs copied in give new bits
+    within the bound."""
+    B, T, H, G, D = 8, 256, 16, 1, 64
+    lengths = [1, 256] + [int(x) for x in
+                          np.random.default_rng(3).integers(8, 137, 6)]
+    args = decode_inputs(B, T, H, G, D, lengths, cuda, seed=4,
+                         q_dtype=torch.bfloat16)
+    q = args[0]
+
+    def step():
+        return decode_attn_int8.decode_attn_int8(*args, 0.125, None,
+                                                 out_dtype=torch.bfloat16)
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = step()
+    outs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(y.clone())
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], eager)
+    q.copy_(_randn(q.shape, 5, cuda, dtype=torch.bfloat16))
+    graph.replay()
+    torch.cuda.synchronize()
+    _within_two_codes(decode_attn_int8.decode_attn_int8(*args, 0.125, None),
+                      args, 0.125, None)
+    _equal(y, decode_attn_int8.decode_attn_int8(*args, 0.125, None)
+           .to(torch.bfloat16))
+
+
+def test_decode_attn_op_stores_q_dtype_without_a_cast(cuda):
+    """``decode_attn_int8_op`` on bf16 q: one kernel launch storing bf16,
+    the same bits as the kernel's f32 store rounded once; f32 q keeps
+    the f32 store."""
+    B, T, H, G, D = 2, 64, 2, 2, 64
+    q, k8, v8, ks, vs, lens = decode_inputs(B, T, H, G, D, [9, 64], cuda,
+                                            seed=6, q_dtype=torch.bfloat16)
+    for dtype in (torch.bfloat16, torch.float32):
+        q4 = q.to(dtype).reshape(B, 1, H * G, D)
+        kernels.reset_counts()
+        y = ops.decode_attn_int8_op(q4, k8, v8, ks, vs, lens)
+        assert y.dtype == dtype and y.shape == (B, 1, H * G, D)
+        assert kernels.counts()["decode_attn_int8"] == {"launches": 1,
+                                                        "plain_calls": 0}
+        y32 = decode_attn_int8.decode_attn_int8(
+            q.to(dtype), k8, v8, ks, vs, lens, D ** -0.5)
+        _equal(y, y32.to(dtype).reshape(B, 1, H * G, D))
+    kernels.reset_counts()
 
 
 # ---------------------------------------------------------------------------

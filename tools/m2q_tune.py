@@ -35,10 +35,24 @@ token split with bf16 out, the scale kernel under every cluster size;
 each plan checked bit for bit against the plain version
 (the plain scale chain) before it is timed.  Prints, per shape and per
 batch-B forward, the ``launch_plan`` choice against the best plan.
+
+``--kernel decode_attn_int8`` always sweeps every plan (rows a ring slot
+x ring slots, ``decode_attn_int8.ROWS`` x ``DEPTHS``): qwen1.5-0.5b's
+decode shape (T 256, Hkv 16, G 1, D 64) and a GQA shape (T 256, Hkv 4,
+G 4, D 128) at batch 1, 2, 4 and 8, bf16 q, the cache lengths of
+``chip_smoke.py``'s timed decode step (its first B requests' prompts +
+30) and the same with the first cache filled to T; each plan's f32 store
+checked within the stated bound ``2 * p_s * max|v8|`` of the plain
+version and its bf16 store against the f32 store rounded once before the
+bf16 launch (the served one) is timed.  Each row also times the chosen plan with every length
+halved, quartered and cut to one row: how the time follows the rows
+one block reads, which bounds what splitting a (b, h) over several
+blocks could gain.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
 from collections import Counter
@@ -251,12 +265,83 @@ def attn_main(torch, cs, kernel: str) -> None:
     (out / f"{kernel}_tune.json").write_text(json.dumps(rows, indent=1))
 
 
+def decode_plans(B: int, T: int, H: int, G: int, D: int):
+    """``launch_plan``'s choice first, then every other plan the sweep
+    tries that fits the card's shared memory unchanged."""
+    from repro_torch.kernels import decode_attn_int8 as k
+    chosen = {key: k.launch_plan(B, T, H, G, D)[key]
+              for key in ("rows", "depth")}
+    every = [{"rows": r, "depth": d} for r in k.ROWS for d in k.DEPTHS]
+    return [chosen] + [p for p in every if p != chosen
+                       and k.fit_plan(T, G, D, p) == p]
+
+
+def decode_main(torch, cs) -> None:
+    """The decode_attn_int8 sweep (see the module doc)."""
+    import numpy as np
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import decode_attn_int8 as k
+    from repro_torch.nn.attention import quantize_kv_rows
+    qwen = ARCHS["qwen1.5-0.5b"]
+    T = cs.TOKEN_MAX_LEN
+    served = [min(len(p) + 30, T - 1) for p, _, _ in cs.token_requests(qwen)]
+    rng = np.random.default_rng(0)
+    rows = []
+    for (H, G, D), B, full in itertools.product(((16, 1, 64), (4, 4, 128)),
+                                                (1, 2, 4, 8), (False, True)):
+        q = cs._randn(torch, rng, (B, H, G, D), dtype=torch.bfloat16)
+        k8, ks = quantize_kv_rows(cs._randn(torch, rng, (B, T, H, D)))
+        v8, vs = quantize_kv_rows(cs._randn(torch, rng, (B, T, H, D)))
+
+        def case(lengths):
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            return (q, k8, v8, ks, vs, lens, D ** -0.5, None)
+        # full: the first cache filled to T, as chip_smoke's decode row has
+        lengths = [T] + served[:B - 1] if full else served[:B]
+        args = case(lengths)
+        y_ref = k.decode_attn_int8_plain(*args)
+        bound = k.error_bound(*args)
+        timed = []
+        for p in decode_plans(B, T, H, G, D):
+            y = k._launch(*args, plan=p)
+            y16 = k._launch(*args, out_dtype=torch.bfloat16, plan=p)
+            torch.cuda.synchronize()
+            ratio = float(((y - y_ref).abs() / bound).max())
+            if not ratio <= 1.0 or not torch.equal(y16,
+                                                   y.to(torch.bfloat16)):
+                sys.exit(f"m2q_tune: decode_attn_int8 {(B, H, G, D)} {p}: "
+                         f"err / bound {ratio}, or the bf16 store is not "
+                         "the f32 store rounded")
+            timed.append(dict(p, err_over_bound=ratio, ms=cs.graph_ms(
+                lambda: k._launch(*args, out_dtype=torch.bfloat16,
+                                  plan=p))))
+        scaling = {}
+        for frac in (2, 4, 256):
+            a = case([max(1, n // frac) for n in lengths])
+            scaling[f"lengths/{frac}"] = cs.graph_ms(
+                lambda: k._launch(*a, out_dtype=torch.bfloat16,
+                                  plan=timed[0]))
+        best = min(timed, key=lambda r: r["ms"])
+        row = dict(B=B, T=T, Hkv=H, G=G, D=D, lengths=lengths,
+                   chosen=timed[0], best=best,
+                   chosen_over_best=timed[0]["ms"] / best["ms"],
+                   rows_scaling=scaling, all=timed)
+        rows.append(row)
+        print(json.dumps({key: v for key, v in row.items() if key != "all"}),
+              flush=True)
+        del q, k8, v8, ks, vs
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "decode_attn_int8_tune.json").write_text(json.dumps(rows,
+                                                               indent=1))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", default="m2q_matmul",
                     choices=("m2q_matmul", "int8_matmul", "int4_matmul",
                              "apot_matmul", "dwconv_w4", "relu_attn",
-                             "relu_attn_scales"))
+                             "relu_attn_scales", "decode_attn_int8"))
     ap.add_argument("--all", action="store_true",
                     help="also time every other launch shape")
     args = ap.parse_args()
@@ -268,6 +353,8 @@ def main() -> None:
     import chip_smoke as cs
     if args.kernel in ("relu_attn", "relu_attn_scales"):
         return attn_main(torch, cs, args.kernel)
+    if args.kernel == "decode_attn_int8":
+        return decode_main(torch, cs)
     from repro_torch.configs.registry import ARCHS
     from repro_torch.kernels import int4_matmul, int8_matmul, m2q_matmul
 
