@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version.  ``counts()``/``reset_counts()`` read and zero the per-kernel
-launch and plain-call counters."""
+version.  ``counts()``/``reset_counts()``/``set_counts()`` read, zero and
+set the per-kernel launch and plain-call counters."""
 from typing import Dict
 
 from . import (apot_matmul, decode_attn_int8, dwconv_w4, int4_matmul,
@@ -21,3 +21,10 @@ def reset_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
         mod.plain_calls = 0
+
+
+def set_counts(c: Dict[str, Dict[str, int]]) -> None:
+    """Set every counter to ``c`` (a :func:`counts` reading)."""
+    for name, mod in KERNELS.items():
+        mod.launches = c[name]["launches"]
+        mod.plain_calls = c[name]["plain_calls"]

@@ -21,6 +21,17 @@ the host reads the device once per completed request: the flag and the
 token row, in one transfer.  A request whose logits went non-finite at
 any step fails alone with :class:`~.errors.NumericalError`.
 
+On CUDA (``graphs=True``, the default) the decode step is a CUDA graph
+(:mod:`.graphs`) at ``(max_batch, max_len)``, one for greedy-only steps
+and one that draws (so a greedy step consumes no random numbers, as
+eagerly), each captured at its first use; the twin of the JAX engine's
+jitted decode step.  The step writes the engine's buffers in place, the
+live mask is copied into a static buffer before each replay, and the
+draw graph takes its uniforms from the engine's generator as the eager
+step would.  Prefill stays eager: its shapes vary with the group and the
+padded prompt length.  ``graphs=False`` runs every step eagerly (the
+twin of ``jax.disable_jit()``), as the CPU always does.
+
 There is no silent retry: a raising prefill fails its group's handles, a
 raising decode step fails the slots live in it, and the engine serves on.
 With ``kv_cache_dtype == "int8"`` every decode step runs the
@@ -40,6 +51,7 @@ from ..models import get_model
 from ..models.config import ArchConfig
 from .batching import ServeStats, pow2_bucket
 from .errors import NumericalError, RequestTimedOut
+from .graphs import for_device, in_use
 from .scheduler import TIMED_OUT, FlushPolicy, Handle, OverloadPolicy, \
     Scheduler
 
@@ -70,7 +82,8 @@ class Engine:
                  max_len: int = 256, seed: int = 0,
                  max_delay_ms: float = 0.0,
                  clock: Callable[[], float] = time.monotonic,
-                 overload: Optional[OverloadPolicy] = None):
+                 overload: Optional[OverloadPolicy] = None,
+                 graphs: bool = True):
         if max_delay_ms is None:
             raise ValueError(
                 "token engine admission needs a deadline: use "
@@ -107,6 +120,9 @@ class Engine:
         # sticky per-slot non-finite-logits flag, read only at completion
         self._nonfinite = torch.zeros((max_batch,), dtype=torch.bool,
                                       device=dev)
+        # the host's live-slot mask, copied in before every decode step
+        self._live = torch.zeros((max_batch,), dtype=torch.bool, device=dev)
+        self.step_graphs = for_device(dev, graphs)
         # host mirror of per-slot emitted-token counts (drives completion
         # without reading token values back)
         self._emitted = [0] * max_batch
@@ -307,14 +323,28 @@ class Engine:
     # -- the loop ------------------------------------------------------------
     @torch.no_grad()
     def _decode(self, live_mask: np.ndarray) -> None:
-        live = torch.from_numpy(live_mask).to(self.device)
-        logits, self.cache = self.model.decode_step(
+        self._live.copy_(torch.from_numpy(live_mask))
+        draw = any(r is not None and r.temperature > 0 for r in self.slots)
+        if in_use(self.step_graphs):
+            self.step_graphs.run(
+                draw, lambda: self._decode_step(draw),
+                state=(*self.cache.values(), self._pending, self._outbuf,
+                       self._counts, self._nonfinite),
+                generators=(self._gen,) if draw else ())
+        else:
+            self._decode_step(draw)
+
+    def _decode_step(self, draw: bool) -> None:
+        """One decode step for every slot, in place over the engine's
+        buffers (what a graph captures; ``draw`` as in :meth:`_sample`)."""
+        live = self._live
+        logits, cache = self.model.decode_step(
             self.cfg, self.params, self.cache, self._pending[:, None])
+        self.cache["lengths"].copy_(cache["lengths"])
         lg = logits[:, 0]
         # sticky: once a live slot's logits go non-finite the bit stays
         # set until the slot retires
         self._nonfinite |= self._row_nonfinite(lg) & live
-        draw = any(r is not None and r.temperature > 0 for r in self.slots)
         tok = torch.where(live, self._sample(lg, self._temps, draw),
                           self._pending)
         b = torch.arange(self.B, device=self.device)
@@ -322,7 +352,7 @@ class Engine:
         self._outbuf[b, at] = torch.where(live, tok.to(torch.int32),
                                           self._outbuf[b, at])
         self._counts += live.to(torch.int32)
-        self._pending = tok
+        self._pending.copy_(tok)
 
     def step(self) -> int:
         """Admit, then one decode step for all live slots; returns the

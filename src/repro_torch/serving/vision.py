@@ -9,6 +9,12 @@ power-of-two bucket and runs one forward on the engine's device.  Logits
 are finite-checked per row: a non-finite row fails its own request with
 :class:`~.errors.NumericalError` while its batchmates are delivered.
 
+On CUDA (``graphs=True``, the default) each bucket's forward is a CUDA
+graph (:mod:`.graphs`), captured at the bucket's first use over a static
+input buffer and replayed for every later batch of that bucket: the twin
+of the JAX engine's jitted forward.  ``graphs=False`` runs every forward
+eagerly (the twin of ``jax.disable_jit()``), as the CPU always does.
+
 There is no silent retry: a kernel that raises fails its batch's requests
 (the scheduler contains the exception) and the engine keeps serving.
 """
@@ -26,6 +32,7 @@ from ..models import get_model
 from ..models.config import ArchConfig
 from .batching import ServeStats, pow2_bucket
 from .errors import NumericalError
+from .graphs import for_device, in_use
 from .scheduler import DONE, FlushPolicy, Handle, OverloadPolicy, Scheduler
 
 
@@ -49,7 +56,8 @@ class VisionEngine:
                  max_delay_ms: Optional[float] = None,
                  attn: Optional[str] = None,
                  clock: Callable[[], float] = time.monotonic,
-                 overload: Optional[OverloadPolicy] = None):
+                 overload: Optional[OverloadPolicy] = None,
+                 graphs: bool = True):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.cfg = cfg
@@ -59,6 +67,8 @@ class VisionEngine:
         self.attn = attn
         self.B = max_batch
         self.stats = VisionStats()
+        self.step_graphs = for_device(self.device, graphs)
+        self._inputs = {}  # graph key -> its static (bucket, res, res, 3)
         self.scheduler = Scheduler(
             policy=FlushPolicy(max_batch=max_batch, max_delay_ms=max_delay_ms),
             executor=self._execute, stats=self.stats, clock=clock,
@@ -75,13 +85,29 @@ class VisionEngine:
         if pad:
             images = np.concatenate(
                 [images, np.zeros((pad,) + images.shape[1:], np.float32)])
-        x = torch.from_numpy(images).to(self.device)
         with torch.inference_mode():
-            logits = self.model.forward(self.cfg, self.params, x,
-                                        attn=self.attn)
+            if in_use(self.step_graphs):
+                logits = self._replay(images)
+            else:
+                logits = self.model.forward(
+                    self.cfg, self.params,
+                    torch.from_numpy(images).to(self.device), attn=self.attn)
         self.stats.record_batch(items=n, padded=pad, capacity=self.B,
                                 bucket=bucket)
         return logits.to(torch.float32).cpu().numpy()[:n]
+
+    def _replay(self, images: np.ndarray) -> torch.Tensor:
+        """The bucket's forward replayed from its graph (captured here at
+        the bucket's first use); the launch plans depend on the batch, so
+        each bucket has its own."""
+        key = (images.shape[0], self.attn)
+        x = self._inputs.get(key)
+        if x is None:
+            x = self._inputs[key] = torch.zeros(
+                images.shape, dtype=torch.float32, device=self.device)
+        x.copy_(torch.from_numpy(images))
+        return self.step_graphs.run(key, lambda: self.model.forward(
+            self.cfg, self.params, x, attn=self.attn))
 
     def _execute(self, handles: List[Handle], reason: str) -> None:
         """One flushed batch -> per-handle logits, finite-checked per row."""

@@ -134,6 +134,31 @@ def test_greedy_tokens_equal_a_model_level_greedy_loop(kv):
     assert all(c["launches"] == 0 for c in counts.values())
 
 
+@pytest.mark.parametrize("kv", KV)
+def test_decode_step_writes_the_engine_buffers_in_place(kv):
+    """What a CUDA graph of the decode step needs: every step (and every
+    prefill between steps) writes the same cache, pending-token, output,
+    count and non-finite buffers, never rebinding one; the tokens are the
+    model-level greedy loop's."""
+    qm = _qm(kv)
+    prompts = [p[:n] for p, n in zip(_prompts(3, seed=8), (4, 7, 2))]
+    max_new = [5, 3, 6]
+    eng = qm.serve(max_batch=4, max_len=32)
+
+    def buffers():
+        return [t.data_ptr() for t in (*eng.cache.values(), eng._pending,
+                                       eng._outbuf, eng._counts,
+                                       eng._nonfinite, eng._live)]
+
+    first = buffers()
+    reqs = [eng.submit(p, max_new_tokens=m) for p, m in zip(prompts, max_new)]
+    while eng.step():
+        assert buffers() == first
+    assert eng.stats.steps == 5 and buffers() == first
+    assert [r.handle.result() for r in reqs] == _greedy_loop(
+        qm, prompts, max_new, 4, 32)
+
+
 def test_max_new_tokens_one_finishes_at_prefill():
     eng = _qm("int8").serve(max_batch=2, max_len=32)
     reqs = [eng.submit(p, max_new_tokens=1) for p in _prompts(3, seed=1)]

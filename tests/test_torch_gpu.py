@@ -1050,3 +1050,90 @@ def test_plain_versions_cast_nan_to_zero_on_the_card(cuda):
         assert torch.equal(q8.cpu(), q8c)
         torch.testing.assert_close(qs.cpu(), qsc, rtol=0, atol=0,
                                    equal_nan=True)
+
+
+# ---------------------------------------------------------------------------
+# The engines' CUDA graphs (serving/graphs.py): graph-served outputs equal
+# the eager engine's on the same batches and seeds at zero tolerance, with
+# the same launch counts and no plain calls.
+# ---------------------------------------------------------------------------
+
+
+def _vision_cfg(width):
+    from repro_torch.configs.efficientvit_b1 import REDUCED
+    return REDUCED if width == "reduced" else ARCHS["efficientvit-b1-r224"]
+
+
+@pytest.mark.parametrize("width", ["reduced", "full"])
+@pytest.mark.parametrize("path", list(chip_smoke.PATHS))
+def test_vision_engine_graphs_equal_eager(cuda, path, width):
+    """Batches of 1, 2, 3, 8 and 5 images (buckets 1, 2, 4, 8, 8), twice:
+    one graph per bucket, and the graph-served logits equal the eager
+    engine's on every batch."""
+    from repro_torch import recipe
+    from repro_torch.models import efficientvit
+    cfg = _vision_cfg(width)
+    qm = recipe.quantize(cfg, efficientvit.init(cfg, seed=0, device=cuda),
+                         chip_smoke.path_recipe(path))
+    rng = np.random.default_rng(5)
+    batches = [rng.normal(0, 1, (n, cfg.img_res, cfg.img_res, 3))
+               .astype(np.float32) for n in (1, 2, 3, 8, 5)]
+    served = {}
+    for graphs in (False, True):
+        eng = qm.serve(max_batch=8, graphs=graphs)
+        for rep in range(2):
+            kernels.reset_counts()
+            served[graphs, rep] = ([eng.classify(b) for b in batches],
+                                   kernels.counts())
+        assert (eng.step_graphs is not None) == graphs
+    assert len(eng.step_graphs) == 4
+    want, want_counts = served[False, 0]
+    assert sum(c["launches"] for c in want_counts.values()) > 0
+    assert all(c["plain_calls"] == 0 for c in want_counts.values())
+    for key, (got, counts) in served.items():
+        assert counts == want_counts, key
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def _token_requests(cfg, seed=3):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, cfg.vocab_size, int(rng.integers(2, 40)),
+                          dtype=np.int32), int(rng.integers(3, 12)),
+             0.8 if i >= 5 else 0.0) for i in range(7)]
+
+
+@pytest.mark.parametrize("width", ["reduced", "full"])
+@pytest.mark.parametrize("kv", ["int8", "bf16"])
+def test_token_engine_graphs_equal_eager(cuda, kv, width):
+    """Five greedy and two sampled requests over four slots at seed 0:
+    two graphed engines and the eager engine give the same tokens and
+    the same launch counts; the graphed engines capture one greedy and
+    one drawing step."""
+    from repro_torch import recipe
+    from repro_torch.configs.registry import REDUCED
+    from repro_torch.models import dense_lm
+    base = (REDUCED if width == "reduced" else ARCHS)["qwen1.5-0.5b"]
+    cfg = base.replace(kv_cache_dtype=kv)
+    qm = recipe.quantize(cfg, dense_lm.init(cfg, seed=0, device=cuda),
+                         "w4-weights-only" if width == "reduced"
+                         else "m2q-w8a8")
+    reqs = _token_requests(cfg)
+    runs = []
+    for graphs in (False, True, True):
+        eng = qm.serve(max_batch=4, max_len=64, seed=0, graphs=graphs)
+        kernels.reset_counts()
+        hs = [eng.submit(p, max_new_tokens=n, temperature=t)
+              for p, n, t in reqs]
+        eng.run()
+        runs.append(([h.handle.result() for h in hs], kernels.counts(),
+                     eng.stats.steps))
+        if graphs:
+            assert len(eng.step_graphs) == 2
+    (want, want_counts, steps), *graphed = runs
+    assert want_counts["int4_matmul"]["launches"] > steps
+    assert want_counts["decode_attn_int8"]["launches"] == (
+        cfg.n_layers * steps if kv == "int8" else 0)
+    assert all(c["plain_calls"] == 0 for c in want_counts.values())
+    for got, counts, n in graphed:
+        assert got == want and counts == want_counts and n == steps
