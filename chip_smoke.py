@@ -43,10 +43,16 @@ Phases, each fatal on failure (nonzero exit, no result line):
    batches: relu_attn's scales span the batch), and the logits against a
    plain-version forward of the same batches on the card; reports served
    images/s both ways; times the batch-8 forward (eager, in a CUDA graph,
-   plain) and traces it with torch.profiler;
+   plain) and traces it with torch.profiler; then the artifact:
+   ``qm.save`` and ``QuantizedModel.load(..., device="cuda")`` (timed,
+   with the artifact's bytes), every leaf bit-identical with equal class
+   and static fields, equal cfg, recipe, reports, act_stats and
+   provenance, and a new engine's graph-served logits of the 12 images
+   and its launch counts equal to the original's at zero tolerance;
 5. the other recipe paths, each the same way (counters, leaf types,
    logits vs the plain-version forward, the batch-8 forward in a CUDA
-   graph; ``uniform8`` also eager, plain and traced, the others not):
+   graph, the artifact round trip; ``uniform8`` also eager, plain and
+   traced, the others not):
    ``uniform8`` (42 int8_matmul + 14 + 14 attention per forward), the
    opt-in int8 stem (1 int8_matmul + the m2q path's 90),
    ``w4-weights-only`` (42 int4_matmul + 20 dwconv + 14 + 14 attention)
@@ -69,7 +75,21 @@ Phases, each fatal on failure (nonzero exit, no result line):
    bound; times the batch-8 decode step (eager, in a CUDA graph -- a
    step that cannot be captured fails the run -- and plain), traces one
    with torch.profiler and reports the served tokens/s both ways and,
-   over one more graphed pass, its time in prefill and in decode steps.
+   over one more graphed pass, its time in prefill and in decode steps;
+   the artifact round trip as in phase 4 (~0.3 GB of 4-bit payload), a
+   new engine's graph-served tokens of the 16 requests at seed 0 and its
+   launch counts equal to the original's first graphed pass;
+7. the trained proxy -- the reduced B1 the JAX package trained on the
+   synthetic vision task: its committed JAX-written ``m2q-w8a8`` artifact
+   (``results/artifacts/proxy_efficientvit_m2q``) loaded on the card
+   classifies ``expected.json``'s 256 images through the kernels (int8
+   attention; the launch counts printed) and with f32 attention; both
+   forwards' logits must equal the same forward's under
+   ``reference_path()`` exactly, and the f32-attention ones the JAX
+   package's recorded logits and predictions within ``proxy_vs_jax``'s
+   bounds; reports top-1 beside JAX's, the float proxy's, and the port's
+   own quantization of the float proxy on the card (its top-1, and the
+   payload bytes that differ from the JAX artifact's).
 
 It then prints the card's name and power limit again, one JSON line with
 every kernel's numbers and, last, the ``{"ok": true, "device": ...}``
@@ -95,6 +115,50 @@ F32_FLOPS_PER_S = 67e12     # outside the tensor cores
 
 BATCH = 8
 N_IMAGES = 12
+
+# The trained proxy's JAX-written m2q-w8a8 artifact served with f32
+# attention, against the JAX package's dispatch-off logits (expected.json).
+# Measured with the same forward on the CPU (plain versions,
+# tests/test_torch_artifact.py) and on an H100 (kernels): 251 of the 256
+# images' logits are bit-identical to JAX's on each, 5 differ (3 of them
+# the same images on both) by up to 0.067 (CPU) and 0.146 (H100) of a max
+# |logit| of 8.18 -- float summation order moves an activation across an
+# int8 rounding step upstream -- and no prediction differs.  The gate: at
+# most PROXY_IMAGES_OFF images differ by more than PROXY_FLOAT of JAX's
+# max |logit| (a float slip; a wrong kernel or quantizer moves nearly
+# every image), none by more than PROXY_LOGITS of it, and at most
+# PROXY_MISMATCHES predictions differ (2 images have a JAX top-2 margin
+# below five times the CPU's largest difference).
+PROXY_FLOAT = 1e-3
+PROXY_IMAGES_OFF = 10
+PROXY_LOGITS = 5e-2
+PROXY_MISMATCHES = 2
+
+
+def proxy_vs_jax(got, want):
+    """The proxy gate: (numbers, failures) of f32-attention logits ``got``
+    against the JAX package's ``want``, both (images, classes)."""
+    import numpy as np
+    top = float(np.abs(want).max())
+    per_image = np.abs(got - want).max(1)
+    res = dict(logits_max_abs_diff=float(per_image.max()),
+               jax_logits_max_abs=top,
+               images_off=int((per_image > PROXY_FLOAT * top).sum()),
+               predictions_differing=int((got.argmax(-1) != want.argmax(-1))
+                                         .sum()))
+    failures = []
+    if res["images_off"] > PROXY_IMAGES_OFF:
+        failures.append(f"{res['images_off']} images' logits differ from "
+                        f"JAX's by more than {PROXY_FLOAT} of {top} (bound "
+                        f"{PROXY_IMAGES_OFF} images)")
+    if not res["logits_max_abs_diff"] <= PROXY_LOGITS * top:
+        failures.append(f"logits differ from JAX's by "
+                        f"{res['logits_max_abs_diff']} (bound {PROXY_LOGITS}"
+                        f" of {top})")
+    if res["predictions_differing"] > PROXY_MISMATCHES:
+        failures.append(f"{res['predictions_differing']} predictions differ "
+                        f"from JAX's (bound {PROXY_MISMATCHES})")
+    return res, failures
 
 
 def fail(msg: str) -> None:
@@ -723,6 +787,83 @@ def leaf_kind(leaf) -> str:
     return "float"
 
 
+ARTIFACTS = ROOT / "build" / "chip_smoke_artifacts"
+
+
+def _bits(torch, t):
+    """``t``'s bits as an integer tensor (equal bits, not equal values)."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def check_same_model(torch, what, a, b) -> None:
+    """Fail unless ``b`` (a loaded artifact) holds ``a``'s model: every
+    leaf of the same class with equal static fields and bit-identical
+    tensors on the card, and equal cfg, recipe, reports and act_stats."""
+    import dataclasses
+    from repro_torch.core.tree import leaves_with_path
+    la, lb = dict(leaves_with_path(a.params)), dict(leaves_with_path(b.params))
+    if sorted(la) != sorted(lb):
+        fail(f"{what}: the loaded tree's leaves differ: "
+             f"{sorted(set(la) ^ set(lb))[:5]}")
+    for key, x in la.items():
+        y = lb[key]
+        if type(x) is not type(y):
+            fail(f"{what}: {key} loaded as {type(y).__name__}, saved as "
+                 f"{type(x).__name__}")
+        pairs = ({"": (x, y)} if isinstance(x, torch.Tensor) else
+                 {f.name: (getattr(x, f.name), getattr(y, f.name))
+                  for f in dataclasses.fields(x)})
+        for field, (u, v) in pairs.items():
+            if isinstance(u, torch.Tensor):
+                same = (isinstance(v, torch.Tensor) and u.dtype == v.dtype
+                        and u.shape == v.shape and v.device.type == "cuda"
+                        and torch.equal(_bits(torch, u), _bits(torch, v)))
+            else:
+                same = u == v
+            if not same:
+                fail(f"{what}: {key} {field} is not bit-identical after "
+                     "save and load")
+    for field in ("cfg", "recipe", "report", "act_stats", "provenance"):
+        if getattr(a, field) != getattr(b, field):
+            fail(f"{what}: the loaded {field} differs from the saved one")
+
+
+def round_trip(torch, qm, what: str):
+    """``qm.save`` and ``QuantizedModel.load(..., device="cuda")``, timed;
+    fails unless the loaded model is ``qm``'s.  Returns (the loaded
+    model, {artifact_bytes, save_s, load_s})."""
+    import shutil
+    from repro_torch import recipe
+    path = ARTIFACTS / what
+    if path.exists():
+        shutil.rmtree(path)
+    torch.cuda.synchronize()
+    try:  # fail() exits through here too: no artifact stays behind
+        t0 = time.perf_counter()
+        step_dir = qm.save(path)
+        t1 = time.perf_counter()
+        loaded = recipe.QuantizedModel.load(path, device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = sum(f.stat().st_size for f in step_dir.iterdir())
+        check_same_model(torch, what, qm, loaded)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return loaded, {"artifact_bytes": size, "save_s": t1 - t0,
+                    "load_s": t2 - t1}
+
+
+def poll_until_done(engine, handles, what: str) -> None:
+    """Poll a VisionEngine until every handle is done (300 s at most)."""
+    t0 = time.perf_counter()
+    while not all(h.done() for h in handles):
+        if time.perf_counter() - t0 > 300:
+            fail(f"{what}: requests still pending after 300 s of polling")
+        engine.poll()
+        time.sleep(0.001)
+
+
 def run_path(torch, cfg, name, calls, out_dir, full: bool):
     """Quantize a full-width B1 under one recipe path, serve 12 images
     eagerly and from the engine's CUDA graphs, and check leaves, launch
@@ -773,7 +914,7 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
     # each mode serves the 12 images twice (the graph mode's first pass
     # captures its buckets) and classifies them once; every pass runs the
     # same batches (8, then 4), so every logit must equal the first pass's
-    served, seconds, classify_s = {}, {}, {}
+    served, seconds, classify_s, pass_counts = {}, {}, {}, {}
     for graphs in (False, True):
         mode = "graph" if graphs else "eager"
         engine = qm.serve(max_batch=BATCH, max_delay_ms=50.0, graphs=graphs)
@@ -782,12 +923,7 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
             kernels.reset_counts()
             t1 = time.perf_counter()
             handles = [engine.submit(img) for img in images]
-            while not all(h.done() for h in handles):
-                if time.perf_counter() - t1 > 300:
-                    fail(f"{name}: requests still pending after 300 s of "
-                         "polling")
-                engine.poll()
-                time.sleep(0.001)
+            poll_until_done(engine, handles, name)
             torch.cuda.synchronize()
             seconds[mode, rep] = time.perf_counter() - t1
             counts = kernels.counts()
@@ -799,6 +935,7 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
                      f"{forwards} batches over buckets "
                      f"{sorted(engine.stats.buckets_used)}")
             check_launches(counts, forwards, f"{mode} {rep}")
+            pass_counts[mode, rep] = counts
             if graphs and rep == "warm":
                 capture_s = engine.step_graphs.capture_s
                 if len(engine.step_graphs) != 2:
@@ -817,6 +954,23 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
     if logits.shape != (N_IMAGES, cfg.n_classes) \
             or not np.all(np.isfinite(logits)):
         fail(f"{name}: logits shape {logits.shape} or non-finite values")
+
+    # the artifact: save, load on the card, serve the same 12 images from
+    # a new engine's CUDA graphs; logits and launches equal the original's
+    loaded, artifact = round_trip(torch, qm, name)
+    engine2 = loaded.serve(max_batch=BATCH, max_delay_ms=50.0, graphs=True)
+    kernels.reset_counts()
+    handles = [engine2.submit(img) for img in images]
+    poll_until_done(engine2, handles, f"{name} loaded")
+    if kernels.counts() != pass_counts["graph", "warm"]:
+        fail(f"{name}: the loaded model's launches {kernels.counts()} "
+             f"differ from the original's {pass_counts['graph', 'warm']}")
+    got = np.stack([h.result() for h in handles])
+    if not np.array_equal(got, served["graph", "warm"]):
+        fail(f"{name}: the loaded model's graph-served logits differ from "
+             f"the original's by "
+             f"{float(np.abs(got - served['graph', 'warm']).max())}")
+    del loaded, engine2
 
     with ops.reference_path():
         ref = np.concatenate([
@@ -851,7 +1005,7 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
                                      if c["launches"]},
                logits_max_abs_diff=diff, logits_max_abs=top,
                logits_exact=bool(diff == 0.0), same_argmax=same_argmax,
-               forward_b8_graph_ms=fwd_graph_ms,
+               forward_b8_graph_ms=fwd_graph_ms, artifact=artifact,
                serve_stats=engine.stats.summary())
     if full:
         res["forward_b8_ms"] = cuda_ms(lambda: qm.forward(x8), iters=10)
@@ -973,7 +1127,7 @@ def run_token_path(torch, out_dir):
     # draws on from the first's generator state, so every pass's tokens
     # must equal the eager engine's pass for pass
     reqs = token_requests(cfg)
-    served, seconds, passes = {}, {}, {}
+    served, seconds, passes, pass_counts = {}, {}, {}, {}
     for graphs in (False, True):
         mode = "graph" if graphs else "eager"
         engine = qm.serve(max_batch=TOKEN_BATCH, max_len=TOKEN_MAX_LEN,
@@ -993,7 +1147,8 @@ def run_token_path(torch, out_dir):
             steps = engine.stats.steps - s0[0]
             groups = engine.stats.prefill_batches - s0[1]
             passes[f"{mode} {rep}"] = {"decode_steps": steps,
-                                 "prefill_groups": groups}
+                                       "prefill_groups": groups}
+            pass_counts[f"{mode} {rep}"] = counts
             for (p, n, _), toks in zip(reqs, outs):
                 if len(toks) != n \
                         or not all(0 <= t < cfg.vocab_size for t in toks):
@@ -1049,6 +1204,25 @@ def run_token_path(torch, out_dir):
     split["pass_s"] = time.perf_counter() - t1
     del engine._prefill_group, engine._decode
 
+    # the artifact (~0.3 GB of 4-bit payload): save, load on the card,
+    # serve the 16 requests from a new engine's decode-step graphs at
+    # seed 0; tokens and launches equal the original's first graph pass
+    loaded, artifact = round_trip(torch, qm, "token")
+    engine2 = loaded.serve(max_batch=TOKEN_BATCH, max_len=TOKEN_MAX_LEN,
+                           seed=0, graphs=True)
+    kernels.reset_counts()
+    handles = [engine2.submit(p, max_new_tokens=n, temperature=t)
+               for p, n, t in reqs]
+    engine2.run()
+    if kernels.counts() != pass_counts["graph warm"]:
+        fail(f"token path: the loaded model's launches {kernels.counts()} "
+             f"differ from the original's {pass_counts['graph warm']}")
+    for i, h in enumerate(handles):
+        if h.handle.result() != served["graph", "warm"][i]:
+            fail(f"token path: request {i}'s tokens from the loaded model "
+                 "differ from the original's")
+    del loaded, engine2
+
     # teacher-forced logits, kernels vs plain versions: two greedy
     # requests, their served tokens fed back
     pick = [0, 1]
@@ -1099,7 +1273,7 @@ def run_token_path(torch, out_dir):
                serve_first_pass_s={m: seconds[m, "warm"]
                                    for m in ("eager", "graph")},
                graph_capture_s=capture_s, graph_pass_split=split,
-               passes=passes,
+               passes=passes, artifact=artifact,
                decode_steps=passes["graph timed"]["decode_steps"],
                prefill_groups=passes["graph timed"]["prefill_groups"],
                launches={k: c["launches"] for k, c in counts.items()
@@ -1127,6 +1301,151 @@ def run_token_path(torch, out_dir):
         json.dumps(res, indent=1))
     print("path token:", json.dumps(res), flush=True)
     del qm, engine, cache
+    torch.cuda.empty_cache()
+    return counts
+
+
+def payload_diff(torch, a, b) -> dict:
+    """Where two quantized trees of one model differ: payload / code
+    bytes, Eq. 6 splits, and the largest relative difference of each
+    kind of scale."""
+    import dataclasses
+    from repro_torch.core.qtensor import is_qtensor
+    from repro_torch.core.tree import leaves_with_path
+    lb = dict(leaves_with_path(b))
+    out = {"payload_bytes": 0, "payload_bytes_differing": 0,
+           "leaves_differing": [], "splits_differing": [],
+           "max_rel_diff": {}}
+    for key, x in leaves_with_path(a):
+        y = lb[key]
+        if not is_qtensor(x):
+            continue
+        if getattr(x, "n_apot", None) != getattr(y, "n_apot", None):
+            out["splits_differing"].append(key)
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if not isinstance(u, torch.Tensor) or v is None:
+                continue
+            if f.name in ("payload", "codes"):
+                n = int((u.view(torch.uint8) != v.view(torch.uint8)).sum())
+                out["payload_bytes"] += u.numel()
+                out["payload_bytes_differing"] += n
+                if n:
+                    out["leaves_differing"].append(key)
+            else:
+                rel = float(((u - v).abs() / u.abs().clamp(min=1e-30))
+                            .max())
+                out["max_rel_diff"][f.name] = max(
+                    rel, out["max_rel_diff"].get(f.name, 0.0))
+    return out
+
+
+def run_proxy(torch, out_dir):
+    """The trained proxy (the reduced B1 trained by the JAX package): load
+    its committed JAX-written m2q-w8a8 artifact on the card and classify
+    the 256 images of ``expected.json`` through the kernels with int8
+    attention (counters zeroed before, read after) and with f32
+    attention.  Both are held against the same forward under
+    ``reference_path()`` (exactly), and the f32-attention logits against
+    the JAX package's (:func:`proxy_vs_jax`).  Reports top-1 beside
+    JAX's, the float proxy's top-1, and the port's own quantization of the
+    float proxy on the card (same four calibration batches): its top-1 and
+    how its payloads differ from JAX's."""
+    import numpy as np
+    from repro_torch import kernels, recipe
+    from repro_torch.data import proxy
+    from repro_torch.kernels import ops
+
+    expected = json.loads((proxy.ARTIFACT / "expected.json").read_text())
+    labels = np.array(expected["labels"])
+    jax_preds = np.array(expected["quantized"]["predictions"])
+    jax_logits = np.array(expected["quantized"]["logits"], np.float32)
+    t0 = time.perf_counter()
+    qm = recipe.QuantizedModel.load(proxy.ARTIFACT, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    def run(params, attn):
+        out, y = proxy.logits(params, attn=attn)
+        if not np.array_equal(y, labels):
+            fail("proxy: the images' labels differ from expected.json's")
+        if out.shape != (len(labels), proxy.CFG.n_classes) \
+                or not np.all(np.isfinite(out)):
+            fail(f"proxy {attn}: logits shape {out.shape} or non-finite "
+                 "values")
+        return out, out.argmax(-1), float(np.mean(out.argmax(-1) == labels))
+
+    kernels.reset_counts()
+    logits_int8, preds_int8, acc_int8 = run(qm.params, "int8")
+    counts = kernels.counts()
+    launched = {k: c["launches"] for k, c in counts.items() if c["launches"]}
+    print("proxy forward launches (8 batches of 32, int8 attention):",
+          json.dumps(launched), flush=True)
+    want = ("m2q_matmul", "dwconv_w4", "relu_attn", "relu_attn_scales")
+    if any(c["plain_calls"] for c in counts.values()) \
+            or sorted(launched) != sorted(want):
+        fail(f"proxy: launches {counts}, expected kernels {want} only and "
+             "no plain calls")
+    logits_f32, preds_f32, acc_f32 = run(qm.params, "f32")
+
+    # the kernels at the reduced shapes against their plain versions: all
+    # four are bit-exact with them and the activations are f32, so exact
+    vs_plain = {}
+    with ops.reference_path():
+        for attn, got in (("int8", logits_int8), ("f32", logits_f32)):
+            ref, _, _ = run(qm.params, attn)
+            diff = float(np.abs(got - ref).max())
+            vs_plain[attn] = dict(logits_max_abs_diff=diff,
+                                  logits_max_abs=float(np.abs(ref).max()))
+            if diff != 0.0:
+                fail(f"proxy {attn}: kernel logits differ from the plain "
+                     f"forward by {diff}")
+
+    # the f32-attention forward against the JAX package's
+    if not np.array_equal(jax_logits.argmax(-1), jax_preds):
+        fail("proxy: expected.json's logits and predictions disagree")
+    vs_jax, failures = proxy_vs_jax(logits_f32, jax_logits)
+    if failures:
+        fail("proxy: f32 attention: " + "; ".join(failures))
+
+    float_params = proxy.load_proxy("cuda")
+    float_logits, float_preds, acc_float = run(float_params, "f32")
+    t0 = time.perf_counter()
+    port = recipe.quantize(proxy.CFG, float_params, "m2q-w8a8",
+                           calib_batches=proxy.calib_batches(), attn="f32")
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    _, _, port_acc_int8 = run(port.params, "int8")
+    _, port_f32, port_acc_f32 = run(port.params, "f32")
+    res = dict(
+        cfg=proxy.CFG.name, images=len(labels), artifact_load_s=load_s,
+        jax=dict(float_top1=expected["float"]["accuracy"],
+                 m2q_top1=expected["quantized"]["accuracy"]),
+        float_top1=acc_float,
+        float_predictions_differing=int(
+            (float_preds != np.array(expected["float"]["predictions"]))
+            .sum()),
+        float_logits_max_abs_diff_vs_jax=float(np.abs(
+            float_logits - np.array(expected["float"]["logits"],
+                                    np.float32)).max()),
+        jax_artifact=dict(top1_int8_attn=acc_int8, top1_f32_attn=acc_f32,
+                          vs_plain=vs_plain, f32_vs_jax=vs_jax,
+                          bounds=dict(float=PROXY_FLOAT,
+                                      images_off=PROXY_IMAGES_OFF,
+                                      logits=PROXY_LOGITS,
+                                      predictions=PROXY_MISMATCHES),
+                          int8_predictions_differing=int(
+                              (preds_int8 != jax_preds).sum())),
+        port_quantized=dict(quantize_s=quant_s, top1_int8_attn=port_acc_int8,
+                            top1_f32_attn=port_acc_f32,
+                            f32_predictions_differing=int(
+                                (port_f32 != jax_preds).sum()),
+                            vs_jax_artifact=payload_diff(
+                                torch, qm.params, port.params)),
+        launches=launched)
+    (out_dir / "chip_smoke_proxy.json").write_text(json.dumps(res, indent=1))
+    print("proxy:", json.dumps(res), flush=True)
+    del qm, port, float_params
     torch.cuda.empty_cache()
     return counts
 
@@ -1207,7 +1526,11 @@ def main() -> None:
     counts = run_token_path(torch, out_dir)
     launches.update({k: c["launches"] for k, c in counts.items()})
 
-    # ---- 7. results -----------------------------------------------------
+    # ---- 7. the trained proxy's artifact, read from zeroed counters -------
+    counts = run_proxy(torch, out_dir)
+    launches.update({k: c["launches"] for k, c in counts.items()})
+
+    # ---- 8. results -----------------------------------------------------
     replaces = {"m2q_matmul": "src/repro/kernels/m2q_matmul.py:80",
                 "dwconv_w4": "src/repro/kernels/dwconv_w4.py:107",
                 "relu_attn": "src/repro/kernels/relu_attn.py:74",

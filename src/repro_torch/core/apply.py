@@ -16,10 +16,16 @@ table is quantized per row (axis 0) for the gather.
 Not ported yet, and refused by name: a stacked leaf resolving to the mixed
 m2q scheme (``QExpertM2Q``) and perm-folded FFN groups -- the mixed LM
 path of a later slice.
+
+:func:`abstract_quantize_model` is the shape-only twin: from a float tree
+of ``meta`` tensors it builds the QTensor tree that :func:`quantize_model`
+would, fields on the ``meta`` device, static fields equal (the load
+template of an artifact).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -28,6 +34,7 @@ import torch
 
 from . import policy as pol
 from .qtensor import QAPoT, QM2Q, QUniform, weight_bits
+from .quant import _reduction_axes
 from .scheme_select import select_schemes
 from .tree import leaves_with_path, map_with_path
 
@@ -146,10 +153,7 @@ def _quantize_leaf(w: torch.Tensor, kind: str, decision: str,
         return QAPoT.quantize(w, act_max_abs=ams, reduce_axes=ra)
     if p.compute_scheme == "m2q":
         if w.ndim != 2:
-            raise NotImplementedError(
-                f"{key!r}: a stacked {tuple(w.shape)} leaf resolves to the "
-                "mixed m2q scheme, whose leaf (QExpertM2Q, per-layer Eq. 6 "
-                "splits) is not ported yet")
+            raise _stacked_m2q(key, tuple(w.shape))
         asn = select_schemes(w, ratio=p.apot_ratio)
         return QM2Q.quantize(w, asn.apot_idx, asn.uniform_idx,
                              act_max_abs=ams)
@@ -167,6 +171,45 @@ def _stacked_stats(act_stats: Dict[str, float], key: str, shape: tuple):
         (shape[0],) + (1,) * (len(shape) - 1))
 
 
+def _refuse_folded_groups(params, ffn_groups, shape_ctx: pol.ShapeCtx,
+                          p: pol.M2QPolicy, overrides) -> None:
+    """Perm-folded FFN groups are not ported: raise where one would
+    fold."""
+    if not ffn_groups or p.compute_scheme != "m2q":
+        return
+    flat = {k: tuple(leaf.shape) for k, leaf in leaves_with_path(params)
+            if isinstance(leaf, torch.Tensor)}
+    groups = resolve_fold_groups(flat, ffn_groups, shape_ctx, p, overrides)
+    if groups:
+        raise NotImplementedError(
+            f"FFN groups {groups} resolve to perm-folded mixed "
+            "quantization (stacked QM2Q/QExpertM2Q with the down "
+            "projection's rows permuted), which is not ported yet")
+
+
+def _classify(key: str, shape: tuple, rules, shape_ctx: pol.ShapeCtx,
+              p: pol.M2QPolicy, overrides):
+    """(kind, decision, effective policy, conv, stacked) of a leaf that
+    quantization rewrites, or None for one it passes through; raises by
+    name on a leaf kind that is not ported."""
+    kind = match_kind(rules, key)
+    ndim = len(shape)
+    if kind is None or kind == pol.KIND_SKIP or ndim < 2:
+        return None
+    conv = ndim == 4 and kind in (pol.KIND_DENSE, pol.KIND_DWCONV)
+    stacked = kind in (pol.KIND_DENSE, pol.KIND_HEAD) and ndim == 3
+    if not (conv or stacked or ndim == 2) or kind == pol.KIND_EXPERT:
+        raise NotImplementedError(
+            f"{key!r}: {kind} leaves of shape {shape} are not ported yet")
+    # classify on the per-unit shape (strip the stacked layer axis)
+    decision, p_leaf = resolve_decision(key, kind,
+                                        shape[1:] if stacked else shape,
+                                        shape_ctx, p, overrides)
+    if decision == pol.DECISION_SKIP:
+        return None
+    return kind, decision, p_leaf, conv, stacked
+
+
 def quantize_model(params, rules: Sequence[Rule], shape_ctx: pol.ShapeCtx,
                    m2q_policy: Optional[pol.M2QPolicy] = None,
                    act_stats: Optional[Dict[str, float]] = None,
@@ -180,36 +223,15 @@ def quantize_model(params, rules: Sequence[Rule], shape_ctx: pol.ShapeCtx,
     act_stats = act_stats or {}
     report: List[LayerReport] = []
 
-    if ffn_groups and p.compute_scheme == "m2q":
-        flat = {k: tuple(leaf.shape) for k, leaf in leaves_with_path(params)
-                if isinstance(leaf, torch.Tensor)}
-        groups = resolve_fold_groups(flat, ffn_groups, shape_ctx, p,
-                                     overrides)
-        if groups:
-            raise NotImplementedError(
-                f"FFN groups {groups} resolve to perm-folded mixed "
-                "quantization (stacked QM2Q/QExpertM2Q with the down "
-                "projection's rows permuted), which is not ported yet")
+    _refuse_folded_groups(params, ffn_groups, shape_ctx, p, overrides)
 
     def visit(key, leaf):
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        kind = match_kind(rules, key)
-        if kind is None or kind == pol.KIND_SKIP or leaf.ndim < 2:
+        c = _classify(key, tuple(leaf.shape), rules, shape_ctx, p, overrides)
+        if c is None:
             return leaf
-        conv = leaf.ndim == 4 and kind in (pol.KIND_DENSE, pol.KIND_DWCONV)
-        stacked = kind in (pol.KIND_DENSE, pol.KIND_HEAD) and leaf.ndim == 3
-        if not (conv or stacked or leaf.ndim == 2) \
-                or kind == pol.KIND_EXPERT:
-            raise NotImplementedError(
-                f"{key!r}: {kind} leaves of shape {tuple(leaf.shape)} are "
-                "not ported yet")
-        # classify on the per-unit shape (strip the stacked layer axis)
-        dec_shape = tuple(leaf.shape[1:]) if stacked else tuple(leaf.shape)
-        decision, p_leaf = resolve_decision(key, kind, dec_shape, shape_ctx,
-                                            p, overrides)
-        if decision == pol.DECISION_SKIP:
-            return leaf
+        kind, decision, p_leaf, conv, _ = c
         # activation stats: the plain key, or per-layer '@i' keys
         ams = act_stats.get(key)
         if ams is None and leaf.ndim >= 3 and not conv:
@@ -231,3 +253,115 @@ def quantize_model(params, rules: Sequence[Rule], shape_ctx: pol.ShapeCtx,
         return qt
 
     return map_with_path(visit, params), report
+
+
+def _stacked_m2q(key: str, shape: tuple):
+    return NotImplementedError(
+        f"{key!r}: a stacked {shape} leaf resolves to the mixed m2q scheme, "
+        "whose leaf (QExpertM2Q, per-layer Eq. 6 splits) is not ported yet")
+
+
+def abstract_quantize_model(params_abs, rules: Sequence[Rule],
+                            shape_ctx: pol.ShapeCtx,
+                            m2q_policy: Optional[pol.M2QPolicy] = None,
+                            with_act_scales: bool = True,
+                            ffn_groups: Optional[Sequence[tuple]] = None,
+                            overrides: Optional[Sequence[Override]] = None,
+                            m2q_splits: Optional[Dict[str, Tuple[int, int]]]
+                            = None):
+    """Shape-only twin of :func:`quantize_model` (of JAX's
+    ``abstract_quantize_model`` for the leaves the port builds): from a
+    float tree whose leaves carry shapes (``meta`` tensors), the QTensor
+    tree with ``meta`` fields -- no data, no allocation -- whose classes,
+    shapes, dtypes and static fields (``bits``, ``axis``, ``shape``,
+    ``n_uniform``, ``n_apot``) equal the concrete leaves'.  Decisions
+    depend only on shapes, so the two agree by construction; what the
+    concrete path refuses by name, this refuses too.
+
+    ``with_act_scales``: calibrated leaves carry an activation scale (a
+    scalar, or ``(L, 1, 1)`` on a stacked leaf).  ``m2q_splits``: path ->
+    (n_uniform, n_apot), e.g. from saved LayerReports; required where the
+    concrete Eq. 6 split is data-dependent (``apot_ratio=None``)."""
+    p = m2q_policy or pol.M2QPolicy()
+    _refuse_folded_groups(params_abs, ffn_groups, shape_ctx, p, overrides)
+
+    def meta(shape, dtype=torch.float32):
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+    def scales(shape, axis, reduce_axes):
+        red = _reduction_axes(len(shape), axis, reduce_axes)
+        return tuple(1 if i in red else d for i, d in enumerate(shape))
+
+    def act_scale(shape, act, stacked):
+        if not act:
+            return None
+        return meta((shape[0],) + (1,) * (len(shape) - 1) if stacked else ())
+
+    def q_uniform(shape, bits, axis, reduce_axes=None, act=False,
+                  stacked=False):
+        ks = scales(shape, axis, reduce_axes)
+        payload = list(shape)
+        if bits == 4:
+            payload[-1] //= 2
+        return QUniform(meta(payload, torch.int8 if bits == 8
+                             else torch.uint8), meta(ks), meta(ks),
+                        act_scale(shape, act, stacked), bits,
+                        axis % len(shape), tuple(shape))
+
+    def q_apot(shape, reduce_axes=None, act=False, stacked=False):
+        ks = scales(shape, -1, reduce_axes)
+        return QAPoT(meta(shape, torch.uint8), meta(ks),
+                     act_scale(shape, act, stacked), tuple(shape))
+
+    def q_m2q(key, shape, act):
+        """A 2-D (or flattened conv) mixed leaf; the split from
+        ``m2q_splits`` where given, else the policy ratio's floor rule
+        (``select_schemes``)."""
+        n = shape[-1]
+        if m2q_splits and key in m2q_splits:
+            nu, na = (int(v) for v in m2q_splits[key])
+            if nu + na != n:
+                raise ValueError(f"m2q_splits[{key!r}] = ({nu}, {na}) does "
+                                 f"not sum to the filter count {n}")
+        elif p.apot_ratio is None:
+            raise ValueError(
+                f"apot_ratio=None (Eq. 6 argmin) gives a data-dependent "
+                f"uniform/APoT split for {key!r} that the shape-only twin "
+                "cannot know; pass m2q_splits={path: (n_uniform, n_apot)} "
+                "(e.g. from a QuantizedModel artifact's saved LayerReports) "
+                "or use a fixed apot_ratio")
+        else:
+            na = int(n * p.apot_ratio)
+            nu = n - na
+        ks = (1, n)
+        return QM2Q(meta(shape, torch.int8), meta(ks), meta(ks), meta(ks),
+                    act_scale(shape, act, False), tuple(shape), nu, na)
+
+    def visit(key, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        shape = tuple(leaf.shape)
+        c = _classify(key, shape, rules, shape_ctx, p, overrides)
+        if c is None:
+            return leaf
+        kind, decision, p_leaf, conv, stacked = c
+        act = with_act_scales and p_leaf.quantize_activations
+        w_shape = (math.prod(shape[:-1]), shape[-1]) if conv else shape
+        ra = (1,) if stacked else None
+        if decision == pol.DECISION_LOWBIT:
+            axis = 0 if kind == pol.KIND_EMBEDDING else -1
+            qt = q_uniform(w_shape, p_leaf.memory_bits, axis, ra)
+        elif p_leaf.compute_scheme == "uniform8":
+            qt = q_uniform(w_shape, 8, -1, ra, act=act, stacked=stacked)
+        elif p_leaf.compute_scheme == "apot":
+            qt = q_apot(w_shape, ra, act=act, stacked=stacked)
+        elif p_leaf.compute_scheme == "m2q":
+            if stacked:
+                raise _stacked_m2q(key, shape)
+            qt = q_m2q(key, w_shape, act)
+        else:
+            raise ValueError(f"unknown compute scheme "
+                             f"{p_leaf.compute_scheme}")
+        return dataclasses.replace(qt, shape=shape) if conv else qt
+
+    return map_with_path(visit, params_abs)

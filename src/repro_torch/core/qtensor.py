@@ -181,6 +181,14 @@ class QM2Q:
 
 QLeaf = (QUniform, QAPoT, QM2Q)
 
+# each leaf's array fields in the order the JAX leaf's pytree flattens
+# them (its children; the other fields are its static aux data): a
+# checkpoint keys child i of the leaf at ``path`` as ``path/i`` and writes
+# nothing for a None child
+CHILDREN = {QUniform: ("payload", "scale", "zero_point", "act_scale"),
+            QAPoT: ("codes", "scale", "act_scale"),
+            QM2Q: ("payload", "u_scale", "u_zp", "a_scale", "act_scale")}
+
 
 def slice_layer(leaf, i: int):
     """Layer ``i`` of a stacked leaf, as ``lax.scan`` slices the JAX

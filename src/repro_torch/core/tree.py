@@ -5,7 +5,7 @@ flattens them (dict keys sorted), so ``QUANT_RULES``, calibration stores
 and layer reports match across the two packages."""
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, Tuple
+from typing import Any, Callable, Iterable, Iterator, Tuple
 
 import torch
 
@@ -31,6 +31,25 @@ def leaves_with_path(tree, _path: Tuple = ()) -> Iterator[Tuple[str, Any]]:
             yield from leaves_with_path(v, _path + (str(i),))
     else:
         yield "/".join(_path), tree
+
+
+def unflatten(template, leaves: Iterable):
+    """The tree of ``template``'s structure whose leaves, in flattening
+    order, are ``leaves`` (twin of ``jax.tree_util.tree_unflatten``); the
+    count must match."""
+    it = iter(leaves)
+    sentinel = object()
+
+    def take(path, _):
+        leaf = next(it, sentinel)
+        if leaf is sentinel:
+            raise ValueError(f"too few leaves: none left for {path!r}")
+        return leaf
+
+    out = map_with_path(take, template)
+    if next(it, sentinel) is not sentinel:
+        raise ValueError("more leaves than the template holds")
+    return out
 
 
 def device_of(tree):

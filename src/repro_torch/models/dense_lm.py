@@ -58,14 +58,19 @@ QUANT_RULES = [
 def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     """Float parameters from a torch generator seeded with ``seed``: the
     JAX package's tree, shapes and laws (lecun-normal matrices per layer,
-    truncated-normal embedding, zero biases, unit norms), other numbers."""
+    truncated-normal embedding, zero biases, unit norms), other numbers.
+    On ``device="meta"`` every leaf is shape-only (the port's
+    ``jax.eval_shape`` of init)."""
     if cfg.family != "dense_lm":
         raise NotImplementedError(f"{cfg.family!r}: only dense_lm is ported")
     device = torch.device(device)
-    g = torch.Generator(device=device).manual_seed(seed)
+    g = nn.generator(seed, device)
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
 
     def stacked(shape):
+        if device.type == "meta":  # shape only, as in nn.lecun_normal
+            return torch.empty((L,) + shape, dtype=torch.float32,
+                               device=device)
         return torch.stack([nn.lecun_normal(shape, g, device)
                             for _ in range(L)])
 

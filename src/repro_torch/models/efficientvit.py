@@ -72,9 +72,11 @@ def _init_msa(g, device, c):
 
 def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     """Float parameters from a torch generator seeded with ``seed`` (same
-    tree and same lecun_normal law as the JAX package, other numbers)."""
+    tree and same lecun_normal law as the JAX package, other numbers).
+    On ``device="meta"`` every leaf is shape-only (the port's
+    ``jax.eval_shape`` of init)."""
     device = torch.device(device)
-    g = torch.Generator(device=device).manual_seed(seed)
+    g = nn.generator(seed, device)
     widths, depths = cfg.widths, cfg.depths
     params = {
         "stem": {"w": nn.lecun_normal((3, 3, 3, widths[0]), g, device),

@@ -2,11 +2,11 @@
 from .attention import (apply_rope, decode_attention, decode_attention_int8,
                         flash_attention, quantize_kv_rows,
                         relu_linear_attention, rope_freqs)
-from .layers import (conv2d, dense, dwconv2d, embed, lecun_normal, rms_norm,
-                     silu, swiglu, trunc_normal)
+from .layers import (conv2d, dense, dwconv2d, embed, generator, lecun_normal,
+                     rms_norm, silu, swiglu, trunc_normal)
 
-__all__ = ["conv2d", "dense", "dwconv2d", "embed", "lecun_normal",
-           "rms_norm", "silu", "swiglu", "trunc_normal",
+__all__ = ["conv2d", "dense", "dwconv2d", "embed", "generator",
+           "lecun_normal", "rms_norm", "silu", "swiglu", "trunc_normal",
            "relu_linear_attention", "apply_rope", "rope_freqs",
            "flash_attention", "decode_attention", "decode_attention_int8",
            "quantize_kv_rows"]

@@ -18,11 +18,26 @@ from ..kernels import ops
 from ..kernels.dwconv_w4 import same_padding
 
 
+def _meta(device) -> bool:
+    return device is not None and torch.device(device).type == "meta"
+
+
+def generator(seed: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded with ``seed``; None on the meta
+    device, where torch has none and the draws below make shape-only
+    tensors (the port's ``jax.eval_shape`` of an init)."""
+    if _meta(device):
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def trunc_normal(shape, generator: torch.Generator, device=None,
                  std: float = 0.02) -> torch.Tensor:
     """``std`` times a standard normal truncated to [-2, 2] (the JAX
     package's law, drawn by inverting the normal CDF on uniforms from
     ``generator``; other numbers than jax.random's)."""
+    if _meta(device):  # shape only: a meta draw costs seconds of set-up
+        return torch.empty(shape, dtype=torch.float32, device=device)
     lo, hi = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0, \
         (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
     u = torch.rand(shape, generator=generator, device=device,
@@ -35,6 +50,8 @@ def lecun_normal(shape, generator: torch.Generator,
                  device=None) -> torch.Tensor:
     """N(0, 1/fan_in) with fan_in = prod(shape[:-1]), the JAX package's
     law (the numbers differ: torch and jax.random are different streams)."""
+    if _meta(device):  # shape only, as in trunc_normal
+        return torch.empty(shape, dtype=torch.float32, device=device)
     fan_in = math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)

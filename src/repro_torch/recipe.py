@@ -16,7 +16,15 @@ mixed-precision quantization.  Presets: ``m2q-w8a8`` (the paper's flow),
 :class:`QuantRecipe` is built from its fields (the opt-in int8 stem appends
 ``efficientvit.STEM_RULE`` / ``STEM_OVERRIDE``; a weights-only APoT recipe is
 ``M2QPolicy(compute_scheme="apot", quantize_activations=False)``).
-``save``/``load`` come with a later slice.
+
+    qm.save("ckpts/b1-m2q")                  # persist: never re-quantizes
+    qm2 = QuantizedModel.load("ckpts/b1-m2q")   # on the card; device="cpu"
+
+The artifact is the JAX package's format (``ckpt.checkpoint``: npz +
+manifest, the same leaf keys and provenance), so either package loads the
+other's.  ``load`` rebuilds the tree's structure from the shape-only twin
+:func:`abstract_quantize` -- data-dependent Eq. 6 splits come from the
+saved reports -- and never touches float weights.
 """
 from __future__ import annotations
 
@@ -26,12 +34,14 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .ckpt import checkpoint as ckpt
 from .core import policy as pol
-from .core.apply import LayerReport, Override, Rule, quantize_model
+from .core.apply import (LayerReport, Override, Rule, abstract_quantize_model,
+                         quantize_model)
 from .core.calibrate import rule_matcher, run_calibration, wrap_for_calibration
 from .core.policy import M2QPolicy, PathOverride, ShapeCtx
 from .core.tree import device_of
-from .models import get_model
+from .models import FAMILIES, get_model
 from .models.config import ArchConfig
 
 
@@ -72,11 +82,23 @@ class QuantRecipe:
     def replace(self, **kw) -> "QuantRecipe":
         return dataclasses.replace(self, **kw)
 
-    def validate(self) -> None:
+    def validate(self, abstract: bool = False) -> None:
+        """Fail fast on what cannot be done.  ``abstract``: the caller
+        wants the shape-only twin, which cannot know the data-dependent
+        split of ``apot_ratio=None`` (the Eq. 6 argmin) without per-layer
+        split hints."""
         if self.policy.compute_scheme not in ("m2q", "uniform8", "apot"):
             raise ValueError(
                 f"recipe {self.name!r}: unknown compute_scheme "
                 f"{self.policy.compute_scheme!r}")
+        if abstract and self.policy.compute_scheme == "m2q" \
+                and self.policy.apot_ratio is None:
+            raise ValueError(
+                f"recipe {self.name!r}: apot_ratio=None (Eq. 6 argmin) has "
+                "a data-dependent split and cannot produce an abstract "
+                "twin; use a fixed apot_ratio, or quantize concretely and "
+                "rebuild the tree from the artifact's saved LayerReports "
+                "(QuantizedModel.abstract_params does this)")
 
     def resolve(self, cfg: ArchConfig) -> "ResolvedRecipe":
         """Bind the recipe to one architecture: the model's rules and FFN
@@ -238,6 +260,58 @@ class QuantizedModel:
         from .serving.engine import Engine
         return Engine(self.cfg, self.params, **engine_kw)
 
+    def m2q_splits(self) -> Dict[str, Tuple[int, int]]:
+        """path -> (n_uniform, n_apot) from the reports: what lets the
+        abstract twin repeat data-dependent Eq. 6 splits exactly."""
+        return {r.path: (r.n_uniform, r.n_apot) for r in self.report
+                if r.n_uniform or r.n_apot}
+
+    def abstract_params(self):
+        """The shape-only twin of ``params`` (``meta`` fields; the load
+        template): activation scales where calibration recorded stats, the
+        reports' m2q splits."""
+        with_act = bool(self.act_stats) and \
+            self.recipe.policy.quantize_activations
+        return abstract_quantize(self.cfg, recipe=self.recipe,
+                                 with_act_scales=with_act,
+                                 m2q_splits=self.m2q_splits())
+
+    def save(self, path, step: int = 0):
+        """Atomic checkpoint of the QTensor tree with the JSON provenance
+        (the JAX package's ``extra`` keys); returns the step directory."""
+        extra = {
+            "kind": "quantized_model",
+            "cfg": _cfg_to_json(self.cfg),
+            "recipe": _recipe_to_json(self.recipe),
+            "report": [_report_to_json(r) for r in self.report],
+            "act_stats": {k: float(v) for k, v in self.act_stats.items()},
+            "provenance": self.provenance,
+        }
+        return ckpt.save(path, step, self.params, extra=extra)
+
+    @classmethod
+    def load(cls, path, step: Optional[int] = None,
+             device="cuda") -> "QuantizedModel":
+        """The artifact at ``path`` (the latest step unless ``step``),
+        written by either package, on ``device``, without re-quantizing:
+        the abstract twin gives the structure, the checkpoint the bytes
+        (each leaf's SHA256, shape and dtype checked)."""
+        if step is None:
+            step = ckpt.latest_step(path)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint under {path!r}")
+        probe = ckpt.read_extra(path, step)
+        if probe.get("kind") != "quantized_model":
+            raise ValueError(f"{path!r} is not a QuantizedModel checkpoint")
+        out = cls(cfg=_cfg_from_json(probe["cfg"]),
+                  recipe=_recipe_from_json(probe["recipe"]), params=None,
+                  report=[_report_from_json(r) for r in probe["report"]],
+                  act_stats=dict(probe["act_stats"]),
+                  provenance=dict(probe.get("provenance", {})))
+        out.params, _ = ckpt.restore(path, step, out.abstract_params(),
+                                     device=device)
+        return out
+
 
 def _model_forward(cfg: ArchConfig, model, params, x, attn: Optional[str]):
     if cfg.family == "efficientvit":
@@ -291,3 +365,129 @@ def quantize(arch_or_cfg, params, recipe: Union[str, QuantRecipe] = "m2q-w8a8",
         report=report, act_stats=dict(act_stats),
         provenance={"calib_batches": n_calib, "calib_sites": len(act_stats),
                     "tokens_per_step": toks})
+
+
+def abstract_quantize(arch_or_cfg, params_abs=None,
+                      recipe: Union[str, QuantRecipe] = "m2q-w8a8",
+                      tokens_per_step: Optional[int] = None,
+                      with_act_scales: bool = True,
+                      m2q_splits: Optional[Dict[str, Tuple[int, int]]] = None):
+    """Shape-only twin of :func:`quantize` (artifact load templates): the
+    QTensor tree for ``arch_or_cfg`` under ``recipe`` with ``meta``
+    fields.  ``params_abs`` defaults to the float tree on the meta device
+    (``init(cfg, device="meta")``, the twin of ``jax.eval_shape`` of init:
+    nothing is allocated); ``m2q_splits`` (path -> (n_uniform, n_apot),
+    e.g. from saved LayerReports) makes data-dependent Eq. 6 splits
+    representable -- without them ``apot_ratio=None`` is rejected."""
+    cfg = resolve_cfg(arch_or_cfg)
+    rec = as_recipe(recipe)
+    if tokens_per_step is not None:
+        rec = rec.replace(tokens_per_step=tokens_per_step)
+    rec.validate(abstract=m2q_splits is None)
+    resolved = rec.resolve(cfg)
+    if params_abs is None:
+        params_abs = get_model(cfg).init(cfg, device="meta")
+    return abstract_quantize_model(
+        params_abs, resolved.rules, resolved.shape_ctx, resolved.policy,
+        with_act_scales=with_act_scales,
+        ffn_groups=resolved.ffn_groups or None,
+        overrides=resolved.overrides, m2q_splits=m2q_splits)
+
+
+# ---------------------------------------------------------------------------
+# JSON (de)serialisation of the provenance payload (the JAX package's)
+# ---------------------------------------------------------------------------
+
+# The JAX package's ArchConfig fields the port's lacks, with their JAX
+# defaults.  FUNCTION_FIELDS change what the model computes: a value other
+# than the default names a model the port cannot run, and loading it
+# raises.  EXECUTION_FIELDS only steer how JAX executes (scans, remat,
+# sharding) and are dropped.
+FUNCTION_FIELDS = {
+    "norm": "rms", "moe_experts": 0, "moe_top_k": 0, "moe_d_ff": 0,
+    "moe_shared_expert": False, "moe_capacity_factor": 1.25,
+    "block_pattern": (), "lru_width": 0, "conv1d_width": 4,
+    "rwkv_head_dim": 64, "n_enc_layers": 0, "n_audio_ctx": 1500,
+    "n_patches": 0, "attn_bf16_mm": False,
+}
+EXECUTION_FIELDS = {"causal_skip": False, "act_sharding": "",
+                    "remat_policy": "full"}
+
+
+class UnsupportedConfigError(ValueError):
+    """An artifact's config names a model the port does not run."""
+
+
+def _cfg_to_json(cfg: ArchConfig) -> dict:
+    """The JAX package's ``dataclasses.asdict`` of the config: the port's
+    fields, then the JAX-only ones at their defaults."""
+    d = dataclasses.asdict(cfg)
+    for k, v in {**FUNCTION_FIELDS, **EXECUTION_FIELDS}.items():
+        d[k] = list(v) if isinstance(v, tuple) else v
+    return d
+
+
+def _cfg_from_json(d: dict) -> ArchConfig:
+    """Inverse of :func:`_cfg_to_json` for either package's payload; raises
+    :class:`UnsupportedConfigError` on a family the port lacks, a
+    function-changing JAX field away from its default, or a field neither
+    package knows."""
+    fields = {f.name for f in dataclasses.fields(ArchConfig)}
+    kw = {}
+    for k, v in d.items():
+        v = tuple(v) if isinstance(v, list) else v
+        if k in fields:
+            kw[k] = v
+        elif k in FUNCTION_FIELDS:
+            if v != FUNCTION_FIELDS[k]:
+                raise UnsupportedConfigError(
+                    f"config {d.get('name')!r}: {k}={v!r} changes the model "
+                    f"the port would run (it has only {k}="
+                    f"{FUNCTION_FIELDS[k]!r})")
+        elif k not in EXECUTION_FIELDS:
+            raise UnsupportedConfigError(
+                f"config {d.get('name')!r}: unknown field {k!r}")
+    if kw.get("family") not in FAMILIES:
+        raise UnsupportedConfigError(
+            f"config {d.get('name')!r}: family {kw.get('family')!r} is not "
+            f"ported (ported: {sorted(FAMILIES)})")
+    return ArchConfig(**kw)
+
+
+def _recipe_to_json(rec: QuantRecipe) -> dict:
+    return {
+        "name": rec.name,
+        "policy": dataclasses.asdict(rec.policy),
+        "rules": None if rec.rules is None else [list(r) for r in rec.rules],
+        "ffn_groups": None if rec.ffn_groups is None
+        else [list(g) for g in rec.ffn_groups],
+        "overrides": [[rx, dataclasses.asdict(ov)]
+                      for rx, ov in rec.overrides],
+        "calib": dataclasses.asdict(rec.calib),
+        "tokens_per_step": rec.tokens_per_step,
+    }
+
+
+def _recipe_from_json(d: dict) -> QuantRecipe:
+    return QuantRecipe(
+        name=d["name"], policy=M2QPolicy(**d["policy"]),
+        rules=None if d["rules"] is None
+        else tuple(tuple(r) for r in d["rules"]),
+        ffn_groups=None if d["ffn_groups"] is None
+        else tuple(tuple(g) for g in d["ffn_groups"]),
+        overrides=tuple((rx, PathOverride(**ov))
+                        for rx, ov in d["overrides"]),
+        calib=CalibSpec(**d["calib"]),
+        tokens_per_step=d["tokens_per_step"])
+
+
+def _report_to_json(r: LayerReport) -> dict:
+    d = dataclasses.asdict(r)
+    d["shape"] = list(d["shape"])
+    return d
+
+
+def _report_from_json(d: dict) -> LayerReport:
+    d = dict(d)
+    d["shape"] = tuple(d["shape"])
+    return LayerReport(**d)

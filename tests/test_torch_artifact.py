@@ -1,0 +1,362 @@
+"""``QuantizedModel.save`` / ``load`` and the shape-only twin
+``abstract_quantize`` of the port, against the JAX package's.
+
+* Artifacts cross in both directions: the reduced EfficientViT-B1 under
+  ``m2q-w8a8`` (the JAX side from ``torch_parity.RecipeCase``, whose JAX
+  QTensors are rebuilt from numpy, so ``repro.recipe.quantize`` never
+  runs) and the reduced qwen under ``w4-weights-only``.  Each package
+  loads the other's artifact leaf for leaf bit-identical, with equal
+  recipe, report, act_stats, provenance and cfg, and a re-save gives the
+  same manifest.
+* The other four recipe paths round-trip in the port alone, forward
+  included.
+* The abstract twin equals the concrete tree at the reduced sizes and
+  JAX's ``abstract_quantize`` at full width (B1 R224, qwen1.5-0.5b), on
+  ``meta`` tensors; ``apot_ratio=None`` needs the saved splits.
+* The trained proxy: its weights, the committed JAX-written artifact in
+  both packages, and the port's top-1 on the CPU against
+  ``expected.json``."""
+import dataclasses
+import inspect
+import json
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import recipe as jr
+from repro.configs.registry import REDUCED as JREDUCED
+from repro.kernels import ops as jops
+from repro.models import dense_lm as jlm
+from repro_torch import recipe as tr
+from repro_torch.configs.registry import REDUCED
+from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.core.policy import M2QPolicy
+from repro_torch.core.qtensor import QLeaf
+from repro_torch.core.tree import leaves_with_path
+from repro_torch.data import proxy
+from repro_torch.models import dense_lm, efficientvit
+from torch_parity import (jax_forward, jax_to_numpy, numpy_to_jax,
+                          recipe_case, recipe_pair)
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402  (the card's proxy gate)
+
+VISION = list(chip_smoke.PATHS)
+
+
+def _off():
+    return jops.dispatch(dense=False, conv=False, attn=False)
+
+
+def _same_numpy(a, b):
+    """Equal numpy crossing trees: leaf classes, static fields, array
+    dtypes and bits."""
+    la, lb = dict(leaves_with_path(a)), dict(leaves_with_path(b))
+    assert sorted(la) == sorted(lb)
+    for key, x in la.items():
+        y = lb[key]
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype and x.shape == y.shape, key
+            np.testing.assert_array_equal(x, y, err_msg=key)
+        else:
+            assert x == y, key
+
+
+def _payload(qm, package):
+    """(cfg, recipe, report, act_stats, provenance) in the JSON form."""
+    m = jr if package == "jax" else tr
+    return (json.loads(json.dumps(m._cfg_to_json(qm.cfg))),
+            m._recipe_to_json(qm.recipe),
+            [m._report_to_json(r) for r in qm.report],
+            {k: float(v) for k, v in qm.act_stats.items()},
+            dict(qm.provenance))
+
+
+def _manifest(step_dir):
+    return json.loads((Path(step_dir) / "manifest.json").read_text())
+
+
+# ---------------------------------------------------------------------------
+# artifacts across packages
+# ---------------------------------------------------------------------------
+
+
+def _b1_pair():
+    """(JAX QuantizedModel, the port's) of the reduced B1 under m2q-w8a8,
+    each quantized by its own package from the same weights and
+    calibration batches."""
+    from repro.configs.efficientvit_b1 import REDUCED as JCFG
+    case = recipe_case("m2q-w8a8")
+    toks = case.port.recipe.tokens_per_step
+    jqm = jr.QuantizedModel(
+        cfg=JCFG, recipe=case.jax_recipe.replace(tokens_per_step=toks),
+        params=numpy_to_jax(case.jax_qparams), report=case.jax_report,
+        act_stats={k: float(v) for k, v in case.jax_stats.items()},
+        provenance={"calib_batches": len(case.batches),
+                    "calib_sites": len(case.jax_stats),
+                    "tokens_per_step": toks})
+    return jqm, case.port
+
+
+def _qwen_pair():
+    """The same for the reduced qwen under w4-weights-only."""
+    jcfg = JREDUCED["qwen1.5-0.5b"]
+    params = jax.jit(lambda k: jlm.init(jcfg, k))(jax.random.PRNGKey(0))
+    with _off():
+        jqm = jr.quantize(jcfg, params, "w4-weights-only")
+    tqm = tr.quantize(REDUCED["qwen1.5-0.5b"],
+                      params_from_numpy(jax_to_numpy(params), "cpu"),
+                      "w4-weights-only")
+    return jqm, tqm
+
+
+PAIRS = {"b1-m2q-w8a8": _b1_pair, "qwen-w4-weights-only": _qwen_pair}
+
+
+@pytest.fixture(scope="module", params=list(PAIRS))
+def pair(request):
+    return PAIRS[request.param]()
+
+
+def test_a_jax_saved_artifact_loads_in_the_port(pair, tmp_path):
+    """Leaf for leaf equal to ``params_from_numpy`` of JAX's tree, with
+    the same provenance; re-saved by the port, the manifest (leaf list
+    and ``extra``) is JAX's."""
+    jqm, _ = pair
+    jdir = jqm.save(tmp_path / "jax")
+    qm = tr.QuantizedModel.load(tmp_path / "jax", device="cpu")
+    want = params_from_numpy(jax_to_numpy(jqm.params), "cpu")
+    _same_numpy(params_to_numpy(qm.params), params_to_numpy(want))
+    assert _payload(qm, "port") == _payload(jqm, "jax")
+    pdir = qm.save(tmp_path / "port")
+    assert _manifest(pdir) == _manifest(jdir)
+
+
+def test_a_port_saved_artifact_loads_in_the_jax_package(pair, tmp_path):
+    _, tqm = pair
+    pdir = tqm.save(tmp_path / "port")
+    jqm = jr.QuantizedModel.load(str(tmp_path / "port"))
+    _same_numpy(jax_to_numpy(jqm.params), params_to_numpy(tqm.params))
+    assert _payload(jqm, "jax") == _payload(tqm, "port")
+    jdir = jqm.save(tmp_path / "jax")
+    assert _manifest(jdir) == _manifest(pdir)
+
+
+@pytest.mark.parametrize("name", VISION)
+def test_every_recipe_path_round_trips_in_the_port(name, tmp_path):
+    """Quantize the reduced B1 under each recipe path, save, load: every
+    leaf, the provenance and the forward equal at zero tolerance."""
+    cfg = REDUCED["efficientvit-b1-r224"]
+    rng = np.random.default_rng(4)
+    batches = [rng.normal(0, 1, (2, 32, 32, 3)).astype(np.float32)]
+    qm = tr.quantize(cfg, efficientvit.init(cfg, seed=1, device="cpu"),
+                     chip_smoke.path_recipe(name), calib_batches=batches,
+                     attn="f32")
+    qm.save(tmp_path)
+    back = tr.QuantizedModel.load(tmp_path, device="cpu")
+    _same_numpy(params_to_numpy(back.params), params_to_numpy(qm.params))
+    assert _payload(back, "port") == _payload(qm, "port")
+    assert back.cfg == qm.cfg and back.recipe == qm.recipe
+    images = rng.normal(0, 1, (3, 32, 32, 3)).astype(np.float32)
+    for attn in ("f32", "int8"):
+        assert torch.equal(back.forward(images, attn=attn),
+                           qm.forward(images, attn=attn))
+
+
+def test_load_defaults_to_the_card_and_refuses_what_is_no_artifact(tmp_path):
+    assert inspect.signature(
+        tr.QuantizedModel.load).parameters["device"].default == "cuda"
+    with pytest.raises(FileNotFoundError):
+        tr.QuantizedModel.load(tmp_path, device="cpu")
+    from repro_torch.ckpt import checkpoint as ckpt
+    ckpt.save(tmp_path, 0, {"w": torch.zeros(2)}, extra={"kind": "other"})
+    with pytest.raises(ValueError, match="not a QuantizedModel"):
+        tr.QuantizedModel.load(tmp_path, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the shape-only twin
+# ---------------------------------------------------------------------------
+
+
+def _abstract_fields(leaf):
+    """(class, static fields, {field: (shape, numpy dtype name) or None})
+    of a QTensor leaf of either package; (``"float"``, shape, dtype) of a
+    float leaf."""
+    if not dataclasses.is_dataclass(leaf):
+        return "float", tuple(leaf.shape), _dtype(leaf.dtype)
+    arrays, static = {}, {}
+    for f in dataclasses.fields(leaf):
+        v = getattr(leaf, f.name)
+        if v is None or hasattr(v, "dtype"):
+            arrays[f.name] = None if v is None else (tuple(v.shape),
+                                                     _dtype(v.dtype))
+        else:
+            static[f.name] = v
+    return type(leaf).__name__, static, arrays
+
+
+def _dtype(dtype) -> str:
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    return np.dtype(dtype).name
+
+
+def _abstract_tree(tree):
+    return {k: _abstract_fields(v) for k, v in leaves_with_path(tree)}
+
+
+def _all_meta(tree):
+    for _, leaf in leaves_with_path(tree):
+        for f in (dataclasses.fields(leaf) if isinstance(leaf, QLeaf)
+                  else ()):
+            v = getattr(leaf, f.name)
+            if isinstance(v, torch.Tensor):
+                assert v.device.type == "meta"
+        if isinstance(leaf, torch.Tensor):
+            assert leaf.device.type == "meta"
+
+
+@pytest.mark.parametrize("name", VISION + ["qwen-w4-weights-only"])
+def test_abstract_twin_equals_the_concrete_tree(name):
+    if name.startswith("qwen"):
+        cfg, rec, batches = REDUCED["qwen1.5-0.5b"], "w4-weights-only", None
+        params = dense_lm.init(cfg, seed=0, device="cpu")
+    else:
+        cfg, rec = REDUCED["efficientvit-b1-r224"], chip_smoke.path_recipe(
+            name)
+        batches = [np.random.default_rng(0).normal(0, 1, (2, 32, 32, 3))
+                   .astype(np.float32)]
+        params = efficientvit.init(cfg, seed=0, device="cpu")
+    qm = tr.quantize(cfg, params, rec, calib_batches=batches, attn="f32")
+    abstract = qm.abstract_params()
+    _all_meta(abstract)
+    assert _abstract_tree(abstract) == _abstract_tree(qm.params)
+    assert _abstract_tree(tr.abstract_quantize(
+        cfg, recipe=qm.recipe, with_act_scales=bool(qm.act_stats))) == \
+        _abstract_tree(qm.params)
+
+
+# qwen at full width: every leaf is low-bit at the decode deployment
+# shape, so the recipes differ in the bits only
+FULL_WIDTH = [("efficientvit-b1-r224", n) for n in VISION] + [
+    ("qwen1.5-0.5b", n) for n in ("m2q-w8a8", "uniform8", "w4-weights-only")]
+
+
+@pytest.mark.parametrize("arch,name", FULL_WIDTH)
+def test_abstract_twin_equals_jax_at_full_width(arch, name):
+    """At the published widths, against JAX's ``abstract_quantize``
+    (``jax.eval_shape`` of init): every leaf's class, static fields,
+    shapes and dtypes; nothing allocated (``meta`` tensors throughout,
+    the float init included)."""
+    jrec, trec = recipe_pair(name)
+    ours = tr.abstract_quantize(arch, recipe=trec)
+    theirs = jr.abstract_quantize(arch, recipe=jrec)
+    _all_meta(ours)
+    got = _abstract_tree(ours)
+    assert got == _abstract_tree(theirs)
+    assert {v[0] for v in got.values()} - {"float"}
+
+
+def test_apot_ratio_none_needs_the_saved_splits(tmp_path):
+    """The Eq. 6 argmin split is data-dependent: the twin refuses it
+    without splits, and an artifact round-trips with the reports'."""
+    cfg = REDUCED["efficientvit-b1-r224"]
+    rec = tr.QuantRecipe(name="m2q-argmin", policy=M2QPolicy(
+        apot_ratio=None))
+    batches = [np.random.default_rng(0).normal(0, 1, (2, 32, 32, 3))
+               .astype(np.float32)]
+    qm = tr.quantize(cfg, efficientvit.init(cfg, seed=2, device="cpu"), rec,
+                     calib_batches=batches, attn="f32")
+    assert any(r.n_apot != (r.n_apot + r.n_uniform) // 2 for r in qm.report
+               if r.n_apot or r.n_uniform)
+    with pytest.raises(ValueError, match="data-dependent"):
+        tr.abstract_quantize(cfg, recipe=qm.recipe)
+    with pytest.raises(ValueError, match="data-dependent"):
+        rec.validate(abstract=True)
+    qm.save(tmp_path)
+    back = tr.QuantizedModel.load(tmp_path, device="cpu")
+    _same_numpy(params_to_numpy(back.params), params_to_numpy(qm.params))
+
+
+def test_abstract_twin_refuses_what_the_concrete_path_refuses():
+    """The narrow qwen under m2q-w8a8 folds its FFN groups (not ported):
+    both paths raise the named NotImplementedError."""
+    cfg = REDUCED["qwen1.5-0.5b"]
+    with pytest.raises(NotImplementedError, match="perm-folded"):
+        tr.quantize(cfg, dense_lm.init(cfg, device="cpu"), "m2q-w8a8")
+    with pytest.raises(NotImplementedError, match="perm-folded"):
+        tr.abstract_quantize(cfg, recipe="m2q-w8a8")
+
+
+# ---------------------------------------------------------------------------
+# the trained proxy
+# ---------------------------------------------------------------------------
+
+
+def test_load_proxy_equals_the_jax_packages_trained_proxy():
+    from benchmarks.proxy_model import train_proxy
+    want = params_from_numpy(jax_to_numpy(train_proxy()), "cpu")
+    _same_numpy(params_to_numpy(proxy.load_proxy("cpu")),
+                params_to_numpy(want))
+
+
+def test_the_committed_artifact_loads_in_both_packages():
+    jqm = jr.QuantizedModel.load(str(proxy.ARTIFACT))
+    qm = tr.QuantizedModel.load(proxy.ARTIFACT, device="cpu")
+    _same_numpy(params_to_numpy(qm.params), jax_to_numpy(jqm.params))
+    assert _payload(qm, "port") == _payload(jqm, "jax")
+    assert qm.cfg == proxy.CFG and qm.recipe.name == "m2q-w8a8"
+
+
+def test_port_top1_on_the_committed_artifact_matches_jax():
+    """The port's forward (plain versions, f32 attention) of the JAX
+    artifact against ``expected.json``: JAX's dispatch-off logits and
+    predictions, which the card is gated against by
+    ``chip_smoke.proxy_vs_jax``.
+
+    Measured here: the float proxy's 256 predictions equal JAX's; of the
+    quantized proxy's, 251 images' logits are bit-identical to JAX's and
+    5 differ, by up to 0.067 of a max |logit| of 8.18: float summation
+    order moves an activation across an int8 rounding step upstream.  No
+    prediction differs; two images have a JAX top-2 margin below five
+    times that difference (0.076, 0.32), so ``PROXY_MISMATCHES`` is 2,
+    and top-1 may move by at most 2/256."""
+    from repro.configs.efficientvit_b1 import REDUCED as JCFG
+    expected = json.loads((proxy.ARTIFACT / "expected.json").read_text())
+    labels = np.array(expected["labels"])
+    preds, y = proxy.predict(proxy.load_proxy("cpu"), attn="f32")
+    assert np.array_equal(y, labels)
+    assert np.array_equal(preds, expected["float"]["predictions"])
+    qm = tr.QuantizedModel.load(proxy.ARTIFACT, device="cpu")
+    got, _ = proxy.logits(qm.params, attn="f32")
+    preds = got.argmax(-1)
+    assert abs(float(np.mean(preds == labels))
+               - expected["quantized"]["accuracy"]) <= \
+        chip_smoke.PROXY_MISMATCHES / len(labels)
+
+    # the recorded logits are JAX's dispatch-off forward of the artifact
+    want = np.array(expected["quantized"]["logits"], np.float32)
+    assert np.array_equal(want.argmax(-1),
+                          expected["quantized"]["predictions"])
+    ds = proxy._data()
+    images = np.concatenate([ds.batch(expected["seed0"] + b, proxy.BATCH)[0]
+                             for b in range(8)])
+    jqm = jr.QuantizedModel.load(str(proxy.ARTIFACT))
+    np.testing.assert_allclose(jax_forward(JCFG, jqm.params, images), want,
+                               rtol=0, atol=1e-4 * np.abs(want).max())
+    res, failures = chip_smoke.proxy_vs_jax(got, want)
+    assert failures == []
+    # the gate tells another function apart though every argmax may hold:
+    # int8 attention moves every image's logits
+    other, _ = proxy.logits(qm.params, attn="int8")
+    assert chip_smoke.proxy_vs_jax(other, want)[0]["images_off"] == 256
+    assert chip_smoke.proxy_vs_jax(other, want)[1]
+    top2 = np.sort(want, -1)[:, -2:]
+    near = int(((top2[:, 1] - top2[:, 0])
+                < 5 * res["logits_max_abs_diff"]).sum())
+    assert near <= chip_smoke.PROXY_MISMATCHES

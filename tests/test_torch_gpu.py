@@ -1137,3 +1137,89 @@ def test_token_engine_graphs_equal_eager(cuda, kv, width):
     assert all(c["plain_calls"] == 0 for c in want_counts.values())
     for got, counts, n in graphed:
         assert got == want and counts == want_counts and n == steps
+
+
+# ---------------------------------------------------------------------------
+# Artifacts (QuantizedModel.save / load) on the card: a loaded model is
+# the saved one -- its forward, graph-served logits and tokens and launch
+# counts equal the original's at zero tolerance.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("path", list(chip_smoke.PATHS))
+def test_loaded_artifact_serves_as_the_original(cuda, path, tmp_path):
+    from repro_torch import recipe
+    from repro_torch.configs.efficientvit_b1 import REDUCED
+    from repro_torch.models import efficientvit
+    qm = recipe.quantize(REDUCED, efficientvit.init(REDUCED, seed=0,
+                                                    device=cuda),
+                         chip_smoke.path_recipe(path))
+    qm.save(tmp_path)
+    back = recipe.QuantizedModel.load(tmp_path)   # the card by default
+    assert back.device.type == "cuda"
+    chip_smoke.check_same_model(torch, path, qm, back)
+    rng = np.random.default_rng(6)
+    images = rng.normal(0, 1, (5, 32, 32, 3)).astype(np.float32)
+    runs = []
+    for model in (qm, back):
+        kernels.reset_counts()
+        y = model.forward(images)
+        counts = kernels.counts()
+        eng = model.serve(max_batch=8, graphs=True)
+        runs.append((y, counts, eng.classify(images), eng.classify(images)))
+    (y, counts, g1, g2), (y_b, counts_b, g1_b, g2_b) = runs
+    assert sum(c["launches"] for c in counts.values()) > 0
+    assert counts_b == counts
+    _equal(y_b, y)
+    for a, b in ((g1, g1_b), (g2, g2_b), (g1, g2_b)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_loaded_token_artifact_serves_the_same_tokens(cuda, tmp_path):
+    from repro_torch import recipe
+    from repro_torch.configs.registry import REDUCED
+    from repro_torch.models import dense_lm
+    cfg = REDUCED["qwen1.5-0.5b"].replace(kv_cache_dtype="int8")
+    qm = recipe.quantize(cfg, dense_lm.init(cfg, seed=0, device=cuda),
+                         "w4-weights-only")
+    qm.save(tmp_path)
+    back = recipe.QuantizedModel.load(tmp_path)
+    chip_smoke.check_same_model(torch, "token", qm, back)
+    reqs = _token_requests(cfg)
+    runs = []
+    for model in (qm, back):
+        eng = model.serve(max_batch=4, max_len=64, seed=0, graphs=True)
+        kernels.reset_counts()
+        hs = [eng.submit(p, max_new_tokens=n, temperature=t)
+              for p, n, t in reqs]
+        eng.run()
+        runs.append(([h.handle.result() for h in hs], kernels.counts()))
+    assert runs[1] == runs[0]
+    assert runs[0][1]["decode_attn_int8"]["launches"] > 0
+
+
+def test_committed_proxy_artifact_on_the_card(cuda):
+    """The JAX-written artifact of the trained proxy: f32-attention logits
+    against the JAX package's within ``chip_smoke.proxy_vs_jax``'s
+    bounds, and the forward through the kernels (int8 and f32 attention)
+    equal to the same forward's plain versions."""
+    import json
+    from repro_torch import recipe
+    from repro_torch.data import proxy
+    expected = json.loads((proxy.ARTIFACT / "expected.json").read_text())
+    qm = recipe.QuantizedModel.load(proxy.ARTIFACT)
+    got, labels = proxy.logits(qm.params, attn="f32")
+    assert labels.tolist() == expected["labels"]
+    want = np.array(expected["quantized"]["logits"], np.float32)
+    assert chip_smoke.proxy_vs_jax(got, want)[1] == []
+    kernels.reset_counts()
+    got8, _ = proxy.logits(qm.params, n_batches=1, attn="int8")
+    counts = kernels.counts()
+    assert counts["m2q_matmul"]["launches"] > 0
+    assert counts["relu_attn"]["launches"] > 0
+    assert all(c["plain_calls"] == 0 for c in counts.values())
+    with ops.reference_path():
+        ref8, _ = proxy.logits(qm.params, n_batches=1, attn="int8")
+        ref, _ = proxy.logits(qm.params, attn="f32")
+    np.testing.assert_array_equal(got8, ref8)
+    np.testing.assert_array_equal(got, ref)

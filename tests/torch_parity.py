@@ -51,6 +51,27 @@ def jax_to_numpy(tree):
     return np.asarray(tree)
 
 
+def numpy_to_jax(tree):
+    """The numpy crossing format -> JAX QTensor leaves (numpy fields),
+    the inverse of :func:`jax_to_numpy`."""
+    if isinstance(tree, dict) and "qtensor" in tree:
+        d, shape = tree, tuple(tree["shape"])
+        if d["qtensor"] == "QM2Q":
+            return jq.QM2Q(d["payload"], d["u_scale"], d["u_zp"],
+                           d["a_scale"], d["act_scale"], shape=shape,
+                           n_uniform=d["n_uniform"], n_apot=d["n_apot"])
+        if d["qtensor"] == "QUniform":
+            return jq.QUniform(d["payload"], d["scale"], d["zero_point"],
+                               d["act_scale"], bits=d["bits"],
+                               axis=d["axis"], shape=shape)
+        return jq.QAPoT(d["codes"], d["scale"], d["act_scale"], shape=shape)
+    if isinstance(tree, dict):
+        return {k: numpy_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [numpy_to_jax(v) for v in tree]
+    return tree
+
+
 def jax_forward(cfg, params, images):
     """JAX's dispatch-off forward (XLA QTensor paths, f32 attention)."""
     with jops.dispatch(dense=False, conv=False, attn=False):
@@ -159,14 +180,14 @@ class RecipeCase:
 
         self.name = name
         self.kernels = RECIPE_KERNELS[name]
-        jrec, self.recipe = recipe_pair(name)
+        self.jax_recipe, self.recipe = recipe_pair(name)
         rng = np.random.default_rng(0)
         self.batches = [rng.normal(0, 1, (2, 32, 32, 3)).astype(np.float32)
                         for _ in range(2)]
         self.images = rng.normal(0, 1, (4, 32, 32, 3)).astype(np.float32)
         params = jax.jit(lambda k: jev.init(JCFG, k))(jax.random.PRNGKey(0))
         qparams, self.jax_report, self.jax_stats = jax_quantize(
-            JCFG, params, jrec, self.batches)
+            JCFG, params, self.jax_recipe, self.batches)
         self.jax_qparams = jax_to_numpy(qparams)
         self.jax_qlogits = jax_forward(JCFG, qparams, self.images)
         self.port = tr.quantize(
