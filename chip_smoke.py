@@ -19,12 +19,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
    B=8 T=256 Hkv=16 G=1 D=64 with ragged lengths, plus a G=4 D=128 shape,
    a windowed case and the decode shape at B=1, 2 and 4, each row with
    its launch plan; ``int4_matmul`` also at the lm_head's M=8 K=1024
-   N=151936), with kernel / plain / library device times (CUDA graphs
+   N=151936; ``m2q_matmul`` also at the mixed qwen's shapes: one decode
+   step at batch 8 -- (8, 1024, 1024) x 96, (8, 2816, 1024) x 24 and
+   the lm_head (8, 1024, 151936) -- and one prefill group of 8 prompts of
+   128 tokens), with kernel / plain / library device times (CUDA graphs
    timed by CUDA events) and the card's least time for the same work
-   (int8_matmul and int4_matmul also per path: their shapes of different
-   paths never run in one forward; every row but decode_attn_int8's
-   also records the launch shape).  int8, dwconv and relu_attn (bf16
-   out, timed, and f32 out), m2q (f32 out) and relu_attn_scales (against
+   (m2q_matmul, int8_matmul and int4_matmul also per path: their shapes
+   of different paths never run in one forward; every row but
+   decode_attn_int8's also records the launch shape).  int8, dwconv and
+   relu_attn (bf16 out, timed, and f32 out), m2q (f32 out) and relu_attn_scales (against
    the plain scale chain it replaces, timed as its plain version) must
    equal their plain versions bit for bit; the f32-dot kernels (int4,
    APoT) must sit within the f32 summation bound; decode_attn_int8
@@ -74,11 +77,19 @@ Phases, each fatal on failure (nonzero exit, no result line):
    served token's gap to the top, which must stay within the logits'
    bound; times the batch-8 decode step (eager, in a CUDA graph -- a
    step that cannot be captured fails the run -- and plain), traces one
-   with torch.profiler and reports the served tokens/s both ways and,
-   over one more graphed pass, its time in prefill and in decode steps;
+   with torch.profiler, times the per-step dequantizes of the layer
+   weights no kernel takes (``plain_dequant_ms_per_step``) and reports
+   the served tokens/s both ways and, over one more graphed pass, its
+   time in prefill and in decode steps;
    the artifact round trip as in phase 4 (~0.3 GB of 4-bit payload), a
    new engine's graph-served tokens of the 16 requests at seed 0 and its
-   launch counts equal to the original's first graphed pass;
+   launch counts equal to the original's first graphed pass; then
+   ``token-m2q``, the same run of the mixed LM: ``m2q-w8a8`` at 64 tokens
+   a step, so wq, wk, wv, wo and w2 are QExpertM2Q leaves of 24 layers,
+   w1/w3 perm-folded QM2Q leaves without an activation scale and the
+   lm_head a calibrated QM2Q; 121 m2q_matmul (5 x 24 + 1) and 24
+   decode_attn_int8 launches per decode step, 121 m2q_matmul per prefill
+   group, no int4_matmul (~0.54 GB artifact);
 7. the trained proxy -- the reduced B1 the JAX package trained on the
    synthetic vision task: its committed JAX-written ``m2q-w8a8`` artifact
    (``results/artifacts/proxy_efficientvit_m2q``) loaded on the card
@@ -372,33 +383,44 @@ def _randn(torch, rng, shape, std=1.0, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
-def check_m2q(torch, rng, calls) -> Tally:
-    """m2q_matmul at every distinct (M, K, N), bit-exact; each row records
-    the launch shape the wrapper chose (tile, K splits, blocks).
-    Yardstick: one bf16 torch.matmul on the dequantized weight."""
+def check_m2q(torch, rng, calls_by_path) -> Tally:
+    """m2q_matmul at every distinct (M, K, N) of each path in
+    ``calls_by_path`` (the B1 forward's mixed layers; the mixed qwen's
+    decode step and prefill group), summed per path, bf16 x, bit-exact;
+    each row records the launch shape the wrapper chose (tile, K splits,
+    blocks).  Yardstick: one bf16 torch.matmul on the dequantized
+    weight.  The entry's top-level ``ms``, ``plain_ms``, ``bound_ms`` and
+    ``library_ms`` sum every path given (one B1 forward, one decode step
+    and one prefill group); the B1 forward's own sums, the figure the
+    entry gave before the LM paths joined it, are
+    ``per_path["m2q-w8a8"]``."""
     from repro_torch.core.qtensor import QM2Q
     from repro_torch.core.scheme_select import select_schemes
     from repro_torch.kernels import m2q_matmul as k
     tally = Tally("m2q_matmul")
-    for (M, K, N), n in Counter([c[1:] for c in calls]).items():
-        x = _randn(torch, rng, (M, K), dtype=torch.bfloat16)
-        w = _randn(torch, rng, (K, N), std=K ** -0.5)
-        asn = select_schemes(w)
-        qt = QM2Q.quantize(w, asn.apot_idx, asn.uniform_idx,
-                           act_max_abs=float(x.abs().max()))
-        args = (x, qt.act_scale, qt.payload, qt.u_scale.reshape(-1),
-                qt.u_zp.reshape(-1), qt.a_scale.reshape(-1))
-        w_deq = qt.dequant(torch.bfloat16)
-        # each column is computed by its own engine: int8 MACs on the
-        # uniform half, bf16-exact MACs on the APoT half
-        ops_ms = 2.0 * M * K * (qt.n_uniform / INT8_OPS_PER_S
-                                + qt.n_apot / BF16_FLOPS_PER_S) * 1e3
-        tally.measure(dict(M=M, K=K, N=N), n, lambda: k.m2q_matmul(*args),
-                      lambda: k.m2q_matmul_plain(*args),
-                      lambda: torch.matmul(x, w_deq),
-                      M * K * 2 + K * N + 3 * N * 4 + 4 + M * N * 4, ops_ms,
-                      err_bound=0.0)
-        tally.rows[-1]["launch"] = k.launch_plan(M, K, N)
+    for path, calls in calls_by_path.items():
+        for (M, K, N), n in Counter([c[1:] for c in calls]).items():
+            x = _randn(torch, rng, (M, K), dtype=torch.bfloat16)
+            w = _randn(torch, rng, (K, N), std=K ** -0.5)
+            asn = select_schemes(w)
+            qt = QM2Q.quantize(w, asn.apot_idx, asn.uniform_idx,
+                               act_max_abs=float(x.abs().max()))
+            del w
+            args = (x, qt.act_scale, qt.payload, qt.u_scale.reshape(-1),
+                    qt.u_zp.reshape(-1), qt.a_scale.reshape(-1))
+            w_deq = qt.dequant(torch.bfloat16)
+            # each column is computed by its own engine: int8 MACs on the
+            # uniform half, bf16-exact MACs on the APoT half
+            ops_ms = 2.0 * M * K * (qt.n_uniform / INT8_OPS_PER_S
+                                    + qt.n_apot / BF16_FLOPS_PER_S) * 1e3
+            tally.measure(dict(M=M, K=K, N=N), n,
+                          lambda: k.m2q_matmul(*args),
+                          lambda: k.m2q_matmul_plain(*args),
+                          lambda: torch.matmul(x, w_deq),
+                          M * K * 2 + K * N + 3 * N * 4 + 4 + M * N * 4,
+                          ops_ms, err_bound=0.0, path=path)
+            tally.rows[-1]["launch"] = k.launch_plan(M, K, N)
+            del qt, args, w_deq
     return tally
 
 
@@ -1024,10 +1046,42 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
     return counts
 
 
-# the token path: qwen1.5-0.5b at full width, int8 KV cache
+# the token paths: qwen1.5-0.5b at full width, int8 KV cache
 TOKEN_BATCH = 8
 TOKEN_MAX_LEN = 256
 N_REQUESTS = 16
+# one prefill group of the m2q_matmul checks: 8 prompts of 128 tokens
+PREFILL_LEN = 128
+# the stacked layer matmuls a calibrated mixed qwen runs per layer
+LM_MIXED = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/w2")
+LM_FOLDED = ("mlp/w1", "mlp/w3")
+
+
+def token_recipe(name: str):
+    """``token``: m2q-w8a8 at the decode deployment shape (2 tokens a step
+    from the calibration batch: every leaf 4-bit); ``token-m2q``: at 64
+    tokens a step, the prefill side of the same server (the mixed LM)."""
+    from repro_torch import recipe
+    rec = recipe.PRESETS["m2q-w8a8"]
+    return rec.replace(tokens_per_step=64) if name == "token-m2q" else rec
+
+
+def token_m2q_calls(cfg, batch: int, prefill_len: int):
+    """m2q_matmul's calls (path, M, K, N) in one decode step and in one
+    prefill group of ``prefill_len``-token prompts of the mixed qwen: the
+    five stacked matmuls of every layer, then the lm_head (on the last
+    position of each prompt)."""
+    def layers(M):
+        shapes = {"attn/wq": (cfg.d_model, cfg.q_dim),
+                  "attn/wk": (cfg.d_model, cfg.kv_dim),
+                  "attn/wv": (cfg.d_model, cfg.kv_dim),
+                  "attn/wo": (cfg.q_dim, cfg.d_model),
+                  "mlp/w2": (cfg.d_ff, cfg.d_model)}
+        return [(f"layers/{p}@{i}", M, *shapes[p])
+                for i in range(cfg.n_layers) for p in LM_MIXED]
+    head = ("lm_head", batch, cfg.d_model, cfg.padded_vocab)
+    return {"token-m2q decode step": layers(batch) + [head],
+            "token-m2q prefill group": layers(batch * prefill_len) + [head]}
 
 
 def token_requests(cfg):
@@ -1088,39 +1142,98 @@ def token_margins(logits, served) -> dict:
             "largest_gap": max((r["served_gap"] for r in rows), default=0.0)}
 
 
-def run_token_path(torch, out_dir):
-    """Quantize qwen1.5-0.5b at full width (int8 KV cache) under
-    m2q-w8a8 on the card, serve 16 requests through the token Engine
-    eagerly and from its CUDA graphs, and check leaves, launch counters,
-    token counts, graph-vs-eager tokens and teacher-forced logits against
-    reference_path(); time the decode step and trace one."""
+def check_token_leaves(qm, name: str) -> None:
+    """``token``: every quantized leaf a 4-bit QUniform (axis 0 embed, 1
+    lm_head, 2 the stacked layers).  ``token-m2q``: wq, wk, wv, wo and w2
+    QExpertM2Q leaves of L layers with (L, 1, 1) activation scales, w1
+    and w3 perm-folded 3-D QM2Q leaves without one, a calibrated 2-D QM2Q
+    lm_head and a 4-bit axis-0 QUniform embed."""
+    from repro_torch.core.qtensor import QExpertM2Q, QM2Q, QUniform
+    L = qm.cfg.n_layers
+    if len(qm.report) != 9:
+        fail(f"{name} path: {len(qm.report)} quantized leaves, expected 9")
+    for r in qm.report:
+        leaf = _get(qm.params, r.path)
+        got = f"{type(leaf).__name__} payload " \
+              f"{tuple(getattr(leaf, 'payload', leaf).shape)}"
+        if name == "token" or r.path == "embed":
+            want_axis = {"embed": 0, "lm_head": 1}.get(r.path, 2)
+            ok = (isinstance(leaf, QUniform) and leaf.bits == 4
+                  and leaf.axis == want_axis and leaf.act_scale is None
+                  and (want_axis != 2 or leaf.payload.shape[0] == L))
+            want = f"a 4-bit QUniform with axis {want_axis}"
+        elif r.path == "lm_head":
+            ok = (type(leaf) is QM2Q and leaf.payload.ndim == 2
+                  and leaf.act_scale is not None)
+            want = "a 2-D QM2Q with an activation scale"
+        elif r.path.split("/", 1)[1] in LM_FOLDED:
+            ok = (type(leaf) is QM2Q and leaf.payload.ndim == 3
+                  and leaf.payload.shape[0] == L and leaf.act_scale is None
+                  and r.decision == "mixed(perm-folded)")
+            want = f"a perm-folded QM2Q of {L} layers, no activation scale"
+        else:
+            ok = (isinstance(leaf, QExpertM2Q) and leaf.payload.ndim == 3
+                  and leaf.payload.shape[0] == L
+                  and leaf.act_scale is not None
+                  and tuple(leaf.act_scale.shape) == (L, 1, 1))
+            want = f"a QExpertM2Q of {L} layers, (L, 1, 1) activation scale"
+        if not ok:
+            fail(f"{name} path: {r.path} is {got}, expected {want}")
+
+
+def token_launches(cfg, name: str, steps: int, groups: int) -> dict:
+    """The kernel launches of ``steps`` decode steps and ``groups``
+    prefill groups: decode_attn_int8 once per layer and step; the lm_head
+    on int4_matmul (``token``), or every stacked layer matmul and the
+    lm_head on m2q_matmul (``token-m2q``), in each step and group."""
+    want = {"decode_attn_int8": cfg.n_layers * steps}
+    if name == "token":
+        want["int4_matmul"] = steps + groups
+    else:
+        want["m2q_matmul"] = (len(LM_MIXED) * cfg.n_layers + 1) \
+            * (steps + groups)
+    return want
+
+
+def plain_dequant_ms(torch, qm) -> dict:
+    """Device ms one decode step spends dequantizing the stacked layer
+    weights that no kernel takes (their ``x @ dequant(W)`` in bf16): per
+    such leaf, its layer-0 slice's ``dequant(bfloat16)`` timed in a CUDA
+    graph, times the layer count."""
+    from repro_torch.core.qtensor import slice_layer
+    from repro_torch.kernels import ops
+    out = {}
+    for r in qm.report:
+        if not r.path.startswith("layers/"):
+            continue
+        layer = slice_layer(_get(qm.params, r.path), 0)
+        if not ops.kernel_supported(layer):
+            out[r.path] = qm.cfg.n_layers * graph_ms(
+                lambda: layer.dequant(torch.bfloat16), iters=5)
+    return out
+
+
+def run_token_path(torch, out_dir, name: str):
+    """Quantize qwen1.5-0.5b at full width (int8 KV cache) under the
+    ``name`` recipe (:func:`token_recipe`) on the card, serve 16 requests
+    through the token Engine eagerly and from its CUDA graphs, and check
+    leaves, launch counters, token counts, graph-vs-eager tokens and
+    teacher-forced logits against reference_path(); time the decode step
+    and trace one."""
     import numpy as np
     from repro_torch import kernels, recipe
     from repro_torch.configs.registry import ARCHS
-    from repro_torch.core.qtensor import QUniform
     from repro_torch.kernels import ops
     from repro_torch.models import dense_lm
 
     cfg = ARCHS["qwen1.5-0.5b"].replace(kv_cache_dtype="int8")
     t0 = time.perf_counter()
     params = dense_lm.init(cfg, seed=0, device="cuda")
-    qm = recipe.quantize(cfg, params, "m2q-w8a8")
+    qm = recipe.quantize(cfg, params, token_recipe(name))
     del params
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
-    L = cfg.n_layers
-    for r in qm.report:
-        leaf = _get(qm.params, r.path)
-        want_axis = {"embed": 0, "lm_head": 1}.get(r.path, 2)
-        if not (isinstance(leaf, QUniform) and leaf.bits == 4
-                and leaf.axis == want_axis and leaf.act_scale is None):
-            fail(f"token path: {r.path} is {leaf_kind(leaf)} axis "
-                 f"{getattr(leaf, 'axis', None)}, expected a 4-bit QUniform "
-                 f"with axis {want_axis}")
-        if want_axis == 2 and leaf.payload.shape[0] != L:
-            fail(f"token path: {r.path} payload {tuple(leaf.payload.shape)}")
-    if len(qm.report) != 9:
-        fail(f"token path: {len(qm.report)} quantized leaves, expected 9")
+    check_token_leaves(qm, name)
 
     # each mode serves the 16 requests twice from seed 0 (the graph
     # mode's first pass captures its two decode steps); the second pass
@@ -1152,28 +1265,27 @@ def run_token_path(torch, out_dir):
             for (p, n, _), toks in zip(reqs, outs):
                 if len(toks) != n \
                         or not all(0 <= t < cfg.vocab_size for t in toks):
-                    fail(f"token path: a request asked for {n} tokens and "
-                         f"got {len(toks)} (or ids outside the vocab)")
-            want = {"decode_attn_int8": L * steps,
-                    "int4_matmul": steps + groups}
+                    fail(f"{name} path: a request asked for {n} tokens "
+                         f"and got {len(toks)} (or ids outside the vocab)")
+            want = token_launches(cfg, name, steps, groups)
             for kname, c in counts.items():
                 if c["launches"] != want.get(kname, 0) \
                         or c["plain_calls"] != 0:
-                    fail(f"token path {mode} {rep}: {kname} {c} over {steps}"
+                    fail(f"{name} path {mode} {rep}: {kname} {c} over {steps}"
                          f" decode steps and {groups} prefill groups, "
                          f"expected {want.get(kname, 0)} launches and 0 "
                          "plain calls")
             if graphs and rep == "warm":
                 capture_s = engine.step_graphs.capture_s
                 if len(engine.step_graphs) != 2:
-                    fail(f"token path: {len(engine.step_graphs)} decode "
+                    fail(f"{name} path: {len(engine.step_graphs)} decode "
                          "graphs captured, expected a greedy and a drawing "
                          "one")
     for rep in ("warm", "timed"):
         for i, (a, b) in enumerate(zip(served["eager", rep],
                                        served["graph", rep])):
             if a != b:
-                fail(f"token path {rep}: request {i}'s graph-served tokens "
+                fail(f"{name} path {rep}: request {i}'s graph-served tokens "
                      f"differ from the eager engine's: {b} vs {a}")
     outs = served["eager", "warm"]
     generated = sum(len(t) for t in outs)
@@ -1204,10 +1316,10 @@ def run_token_path(torch, out_dir):
     split["pass_s"] = time.perf_counter() - t1
     del engine._prefill_group, engine._decode
 
-    # the artifact (~0.3 GB of 4-bit payload): save, load on the card,
+    # the artifact (~0.3 GB of 4-bit payload; ~0.54 GB mixed): save, load,
     # serve the 16 requests from a new engine's decode-step graphs at
     # seed 0; tokens and launches equal the original's first graph pass
-    loaded, artifact = round_trip(torch, qm, "token")
+    loaded, artifact = round_trip(torch, qm, name)
     engine2 = loaded.serve(max_batch=TOKEN_BATCH, max_len=TOKEN_MAX_LEN,
                            seed=0, graphs=True)
     kernels.reset_counts()
@@ -1215,11 +1327,11 @@ def run_token_path(torch, out_dir):
                for p, n, t in reqs]
     engine2.run()
     if kernels.counts() != pass_counts["graph warm"]:
-        fail(f"token path: the loaded model's launches {kernels.counts()} "
+        fail(f"{name} path: the loaded model's launches {kernels.counts()} "
              f"differ from the original's {pass_counts['graph warm']}")
     for i, h in enumerate(handles):
         if h.handle.result() != served["graph", "warm"][i]:
-            fail(f"token path: request {i}'s tokens from the loaded model "
+            fail(f"{name} path: request {i}'s tokens from the loaded model "
                  "differ from the original's")
     del loaded, engine2
 
@@ -1245,13 +1357,13 @@ def run_token_path(torch, out_dir):
     # 5.19 max |logit| measured on an H100 at 700 W); a served token may
     # sit below the teacher-forced argmax by no more than that bound
     if not diff <= 5e-2 * top:
-        fail(f"token path: teacher-forced logits differ from the plain "
+        fail(f"{name} path: teacher-forced logits differ from the plain "
              f"versions' by {diff} (max |logit| {top})")
     within_bound = bool(margins["largest_gap"] <= 5e-2 * top)
-    print("token path served-vs-teacher-forced mismatches:", json.dumps(dict(
+    print(f"{name} path served-vs-teacher-forced mismatches:", json.dumps(dict(
         margins, bound=5e-2 * top, within_bound=within_bound)), flush=True)
     if not within_bound:
-        fail(f"token path: a served token sits {margins['largest_gap']} "
+        fail(f"{name} path: a served token sits {margins['largest_gap']} "
              f"below the teacher-forced argmax, over the bound "
              f"{5e-2 * top}")
 
@@ -1265,7 +1377,9 @@ def run_token_path(torch, out_dir):
     def step():
         return dense_lm.decode_step(cfg, qm.params, cache, tok)
 
-    res = dict(path="qwen1.5-0.5b int8-kv m2q-w8a8", quantize_s=t_quant,
+    res = dict(path=f"qwen1.5-0.5b int8-kv m2q-w8a8, "
+                    f"{qm.recipe.tokens_per_step} tokens/step",
+               quantize_s=t_quant,
                serve_s={m: seconds[m, "timed"] for m in ("eager", "graph")},
                requests=len(reqs), tokens=generated,
                tokens_per_s={m: generated / seconds[m, "timed"]
@@ -1291,15 +1405,16 @@ def run_token_path(torch, out_dir):
         try:
             res["decode_step_graph_ms"] = graph_ms(step, iters=3)
         except Exception as e:  # noqa: BLE001 -- a failed phase fails the run
-            fail(f"token path: the decode step did not run in a CUDA graph: "
+            fail(f"{name} path: the decode step did not run in a CUDA graph: "
                  f"{e!r}"[:400])
-        trace = device_profile(step, top=5)
+        trace = device_profile(step, top=8)
+        res["plain_dequant_ms_per_step"] = plain_dequant_ms(torch, qm)
     if trace:
         trace["busy_share"] = trace["busy_ms"] / res["decode_step_ms"]
     res["decode_step_trace"] = trace
-    (out_dir / "chip_smoke_path_token.json").write_text(
+    (out_dir / f"chip_smoke_path_{name}.json").write_text(
         json.dumps(res, indent=1))
-    print("path token:", json.dumps(res), flush=True)
+    print(f"path {name}:", json.dumps(res), flush=True)
     del qm, engine, cache
     torch.cuda.empty_cache()
     return counts
@@ -1491,7 +1606,9 @@ def main() -> None:
     qwen = ARCHS["qwen1.5-0.5b"]
     lm_head_call = ("lm_head", TOKEN_BATCH, qwen.d_model, qwen.padded_vocab)
     rng = np.random.default_rng(0)
-    tallies = [check_m2q(torch, rng, m2q_calls),
+    tallies = [check_m2q(torch, rng, {
+                   "m2q-w8a8": m2q_calls,
+                   **token_m2q_calls(qwen, TOKEN_BATCH, PREFILL_LEN)}),
                check_dwconv(torch, rng, dw_calls),
                check_attn(torch, rng, attn_calls),
                check_scales(torch, rng, attn_calls),
@@ -1522,9 +1639,10 @@ def main() -> None:
                           full=name in ("m2q-w8a8", "uniform8"))
         launches.update({k: c["launches"] for k, c in counts.items()})
 
-    # ---- 6. the token path, read from zeroed counters ---------------------
-    counts = run_token_path(torch, out_dir)
-    launches.update({k: c["launches"] for k, c in counts.items()})
+    # ---- 6. the token paths, each read from zeroed counters --------------
+    for name in ("token", "token-m2q"):
+        counts = run_token_path(torch, out_dir, name)
+        launches.update({k: c["launches"] for k, c in counts.items()})
 
     # ---- 7. the trained proxy's artifact, read from zeroed counters -------
     counts = run_proxy(torch, out_dir)

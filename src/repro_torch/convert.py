@@ -5,7 +5,11 @@ a JAX object.  A float leaf is a numpy array.  A quantized leaf is a dict
 with its class under ``"qtensor"`` and its fields by the JAX leaf's names:
 
 * ``{"qtensor": "QM2Q", "payload", "u_scale", "u_zp", "a_scale",
-  "act_scale", "shape", "n_uniform", "n_apot"}``
+  "act_scale", "shape", "n_uniform", "n_apot"}`` -- a 2-D or flattened
+  conv weight (payload (K, N), scales (1, N)) or a stacked perm-folded
+  FFN member (payload (L, K, N), scales (L, 1, N), act_scale (L, 1, 1) if
+  any); ``"QExpertM2Q"`` has the same fields, stacked (L, K, N) only
+  (an (L, E, K, N) expert leaf raises: MoE is not ported)
 * ``{"qtensor": "QUniform", "payload", "scale", "zero_point",
   "act_scale", "bits", "axis", "shape"}`` -- a 2-D or flattened conv
   weight (``axis`` 1, payload (K, N), scales (1, N)), a stacked per-layer
@@ -28,7 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .core.qtensor import QAPoT, QM2Q, QUniform
+from .core.qtensor import QAPoT, QExpertM2Q, QM2Q, QUniform
 
 
 def _array(d: dict, key: str, dtype, shape, what: str) -> np.ndarray:
@@ -75,23 +79,34 @@ def _shape(d: dict, what: str) -> tuple:
     return tuple(int(s) for s in shape)
 
 
-def _qm2q(d: dict, path: str, device) -> QM2Q:
-    what = f"{path} (QM2Q)"
-    shape = _shape(d, what)
-    n = shape[-1]
-    k = math.prod(shape[:-1])
-    n_uniform, n_apot = int(d["n_uniform"]), int(d["n_apot"])
-    if n_uniform + n_apot != n:
-        raise ValueError(f"{what}: n_uniform + n_apot = {n_uniform + n_apot}"
-                         f" != {n} filters")
-    payload = _array(d, "payload", np.int8, (k, n), what)
-    scales = [_array(d, name, np.float32, (1, n), what)
-              for name in ("u_scale", "u_zp", "a_scale")]
-    act = _act(d, what)
-    return QM2Q(_tensor(payload, device),
-                *(_tensor(s, device) for s in scales),
-                None if act is None else _tensor(act, device), shape,
-                n_uniform, n_apot)
+def _merged(cls):
+    """The builder of a merged-layout leaf (QM2Q or QExpertM2Q)."""
+    def build(d: dict, path: str, device):
+        what = f"{path} ({cls.__name__})"
+        shape = _shape(d, what)
+        n = shape[-1]
+        n_uniform, n_apot = int(d["n_uniform"]), int(d["n_apot"])
+        if n_uniform + n_apot != n:
+            raise ValueError(f"{what}: n_uniform + n_apot = "
+                             f"{n_uniform + n_apot} != {n} filters")
+        if len(shape) == 3:   # stacked (L, K, N) layers
+            pshape, sshape, act_shape = shape, (shape[0], 1, n), \
+                (shape[0], 1, 1)
+        elif cls is QExpertM2Q:
+            raise ValueError(f"{what}: a {len(shape)}-D leaf is not a "
+                             "stacked (L, K, N) weight (expert leaves are "
+                             "not ported)")
+        else:                 # 2-D dense, or a conv filter flattened to 2-D
+            pshape, sshape, act_shape = (math.prod(shape[:-1]), n), (1, n), ()
+        payload = _array(d, "payload", np.int8, pshape, what)
+        scales = [_array(d, name, np.float32, sshape, what)
+                  for name in ("u_scale", "u_zp", "a_scale")]
+        act = _act(d, what, act_shape)
+        return cls(_tensor(payload, device),
+                   *(_tensor(s, device) for s in scales),
+                   None if act is None else _tensor(act, device), shape,
+                   n_uniform, n_apot)
+    return build
 
 
 def _quniform(d: dict, path: str, device) -> QUniform:
@@ -137,7 +152,8 @@ def _qapot(d: dict, path: str, device) -> QAPoT:
                  None if act is None else _tensor(act, device), shape)
 
 
-_BUILDERS = {"QM2Q": _qm2q, "QUniform": _quniform, "QAPoT": _qapot}
+_BUILDERS = {"QM2Q": _merged(QM2Q), "QExpertM2Q": _merged(QExpertM2Q),
+             "QUniform": _quniform, "QAPoT": _qapot}
 
 
 def params_from_numpy(tree, device="cuda", _path: str = ""):
@@ -169,8 +185,8 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 def params_to_numpy(tree):
     """The inverse of :func:`params_from_numpy`."""
-    if isinstance(tree, QM2Q):
-        return {"qtensor": "QM2Q", "payload": _np(tree.payload),
+    if isinstance(tree, (QM2Q, QExpertM2Q)):
+        return {"qtensor": type(tree).__name__, "payload": _np(tree.payload),
                 "u_scale": _np(tree.u_scale), "u_zp": _np(tree.u_zp),
                 "a_scale": _np(tree.a_scale),
                 "act_scale": None if tree.act_scale is None

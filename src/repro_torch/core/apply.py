@@ -11,11 +11,11 @@ as the ``(kh*kw*cin, cout)`` flattening, so filter-wise scales land on
 Cout; the leaf's ``shape`` keeps the original filter.  A stacked (L, K, N)
 dense leaf is classified on its per-layer (K, N) shape and quantized with
 per-layer, per-filter statistics (``reduce_axes=(1,)``); an embedding
-table is quantized per row (axis 0) for the gather.
-
-Not ported yet, and refused by name: a stacked leaf resolving to the mixed
-m2q scheme (``QExpertM2Q``) and perm-folded FFN groups -- the mixed LM
-path of a later slice.
+table is quantized per row (axis 0) for the gather.  A stacked leaf that
+resolves to the mixed m2q scheme becomes a :class:`QExpertM2Q` with a
+per-layer Eq. 6 split; an FFN group whose members all resolve to it is
+perm-folded (:func:`_joint_group_quantize`).  Expert leaves (MoE) are not
+ported and raise by name.
 
 :func:`abstract_quantize_model` is the shape-only twin: from a float tree
 of ``meta`` tensors it builds the QTensor tree that :func:`quantize_model`
@@ -33,8 +33,8 @@ import numpy as np
 import torch
 
 from . import policy as pol
-from .qtensor import QAPoT, QM2Q, QUniform, weight_bits
-from .quant import _reduction_axes
+from .qtensor import QAPoT, QExpertM2Q, QM2Q, QUniform, weight_bits
+from .quant import _reduction_axes, act_scale_from_stats
 from .scheme_select import select_schemes
 from .tree import leaves_with_path, map_with_path
 
@@ -134,10 +134,20 @@ class LayerReport:
     mse: float = 0.0
 
 
+def _batched_m2q(w: torch.Tensor, ratio) -> QExpertM2Q:
+    """Per-slice Eq. 6 selection over the leading (layer) axis; ratio None
+    becomes the fixed 1:1 split, which keeps the two halves stackable."""
+    asn = [select_schemes(w[i], ratio=0.5 if ratio is None else ratio)
+           for i in range(w.shape[0])]
+    return QExpertM2Q.quantize(w, np.stack([a.apot_idx for a in asn]),
+                               np.stack([a.uniform_idx for a in asn]))
+
+
 def _quantize_leaf(w: torch.Tensor, kind: str, decision: str,
-                   p: pol.M2QPolicy, act_max_abs, key: str):
+                   p: pol.M2QPolicy, act_max_abs):
     """w is a (K, N) dense weight, a flattened (kh*kw*cin, cout) filter, a
-    (V, D) embedding or a stacked (L, K, N) per-layer weight."""
+    (V, D) embedding or a stacked (L, K, N) per-layer weight (its act
+    stats (L, 1, 1))."""
     ams = act_max_abs if p.quantize_activations else None
     batched = kind in (pol.KIND_DENSE, pol.KIND_HEAD) and w.ndim >= 3
     ra = (w.ndim - 2,) if batched else None
@@ -152,8 +162,12 @@ def _quantize_leaf(w: torch.Tensor, kind: str, decision: str,
     if p.compute_scheme == "apot":
         return QAPoT.quantize(w, act_max_abs=ams, reduce_axes=ra)
     if p.compute_scheme == "m2q":
-        if w.ndim != 2:
-            raise _stacked_m2q(key, tuple(w.shape))
+        if w.ndim == 3:
+            qt = _batched_m2q(w, p.apot_ratio)
+            if ams is not None:
+                qt.act_scale = act_scale_from_stats(
+                    torch.as_tensor(ams, device=w.device))
+            return qt
         asn = select_schemes(w, ratio=p.apot_ratio)
         return QM2Q.quantize(w, asn.apot_idx, asn.uniform_idx,
                              act_max_abs=ams)
@@ -171,20 +185,72 @@ def _stacked_stats(act_stats: Dict[str, float], key: str, shape: tuple):
         (shape[0],) + (1,) * (len(shape) - 1))
 
 
-def _refuse_folded_groups(params, ffn_groups, shape_ctx: pol.ShapeCtx,
-                          p: pol.M2QPolicy, overrides) -> None:
-    """Perm-folded FFN groups are not ported: raise where one would
-    fold."""
-    if not ffn_groups or p.compute_scheme != "m2q":
-        return
-    flat = {k: tuple(leaf.shape) for k, leaf in leaves_with_path(params)
-            if isinstance(leaf, torch.Tensor)}
-    groups = resolve_fold_groups(flat, ffn_groups, shape_ctx, p, overrides)
-    if groups:
-        raise NotImplementedError(
-            f"FFN groups {groups} resolve to perm-folded mixed "
-            "quantization (stacked QM2Q/QExpertM2Q with the down "
-            "projection's rows permuted), which is not ported yet")
+def _joint_group_quantize(w_up, w_gate, w_down, ratio):
+    """Perm-folded mixed-scheme quantization of an FFN filter group.
+
+    An FFN hidden channel's filter spans ``w_up[:, f]`` (+ ``w_gate[:,
+    f]``) and ``w_down[f, :]``: its scheme is selected jointly over up and
+    gate, both are stored in [uniform | apot] column order with no
+    activation scale, and ``w_down``'s rows are permuted offline to match,
+    so no runtime inverse permutation remains.  Weights may be stacked
+    (L, K, N); ratio None becomes 1:1.  Returns (up, gate|None, the
+    permuted float w_down)."""
+    stacked = w_up.ndim == 3
+    ups, gates, downs = [], [], []
+    for i in range(w_up.shape[0]) if stacked else [None]:
+        u = w_up[i] if stacked else w_up
+        g = None if w_gate is None else (w_gate[i] if stacked else w_gate)
+        d = w_down[i] if stacked else w_down
+        asn = select_schemes(u if g is None else torch.cat([u, g], dim=0),
+                             ratio=0.5 if ratio is None else ratio)
+        perm = torch.from_numpy(np.concatenate([asn.uniform_idx,
+                                                asn.apot_idx])).long()
+        ups.append(QM2Q.quantize(u, asn.apot_idx, asn.uniform_idx,
+                                 fold_perm=True))
+        if g is not None:
+            gates.append(QM2Q.quantize(g, asn.apot_idx, asn.uniform_idx,
+                                       fold_perm=True))
+        downs.append(d[perm.to(d.device)])
+    if not stacked:
+        return ups[0], (gates[0] if gates else None), downs[0]
+
+    def stack(qts, shape):
+        return dataclasses.replace(qts[0], shape=tuple(shape), **{
+            name: torch.stack([getattr(q, name) for q in qts])
+            for name in ("payload", "u_scale", "u_zp", "a_scale")})
+
+    return (stack(ups, w_up.shape),
+            stack(gates, w_gate.shape) if gates else None,
+            torch.stack(downs))
+
+
+def _fold_group_keys(params, ffn_groups, shape_ctx: pol.ShapeCtx,
+                     p: pol.M2QPolicy, overrides):
+    """:func:`resolve_fold_groups` on the shapes of ``params``' tensor
+    leaves (real or ``meta``)."""
+    return resolve_fold_groups(
+        {k: tuple(leaf.shape) for k, leaf in leaves_with_path(params)
+         if isinstance(leaf, torch.Tensor)},
+        ffn_groups, shape_ctx, p, overrides)
+
+
+def _fold_groups(params, ffn_groups, shape_ctx: pol.ShapeCtx,
+                 p: pol.M2QPolicy, overrides):
+    """The pre-pass over the FFN groups that fold: ({up/gate key: folded
+    QM2Q}, {down key: its permuted float weight})."""
+    pre, permuted_down = {}, {}
+    flat = dict(leaves_with_path(params))
+    for ku, kg, kd in _fold_group_keys(params, ffn_groups, shape_ctx, p,
+                                       overrides):
+        q_up, q_gate, w_down = _joint_group_quantize(
+            flat[ku].to(torch.float32),
+            None if kg is None else flat[kg].to(torch.float32),
+            flat[kd].to(torch.float32), p.apot_ratio)
+        pre[ku] = q_up
+        if kg is not None:
+            pre[kg] = q_gate
+        permuted_down[kd] = w_down  # re-enters the normal visit
+    return pre, permuted_down
 
 
 def _classify(key: str, shape: tuple, rules, shape_ctx: pol.ShapeCtx,
@@ -218,16 +284,24 @@ def quantize_model(params, rules: Sequence[Rule], shape_ctx: pol.ShapeCtx,
     """Apply M2Q to ``params``; non-matching leaves pass through.
     Returns (qparams, per-layer reports in tree order).  ``ffn_groups``:
     (up, gate|None, down) path-regex triples for perm-folded FFN
-    quantization; a group that would fold raises NotImplementedError."""
+    quantization (:func:`_joint_group_quantize`)."""
     p = m2q_policy or pol.M2QPolicy()
     act_stats = act_stats or {}
     report: List[LayerReport] = []
-
-    _refuse_folded_groups(params, ffn_groups, shape_ctx, p, overrides)
+    pre, permuted_down = _fold_groups(params, ffn_groups, shape_ctx, p,
+                                      overrides)
 
     def visit(key, leaf):
         if not isinstance(leaf, torch.Tensor):
             return leaf
+        if key in pre:
+            qt = pre[key]
+            report.append(LayerReport(
+                path=key, kind=pol.KIND_DENSE, decision="mixed(perm-folded)",
+                shape=tuple(leaf.shape), bits=weight_bits(qt),
+                n_apot=qt.n_apot, n_uniform=qt.n_uniform))
+            return qt
+        leaf = permuted_down.get(key, leaf)
         c = _classify(key, tuple(leaf.shape), rules, shape_ctx, p, overrides)
         if c is None:
             return leaf
@@ -239,12 +313,12 @@ def quantize_model(params, rules: Sequence[Rule], shape_ctx: pol.ShapeCtx,
         w = leaf.to(torch.float32)
         if conv:
             w = w.reshape(-1, w.shape[-1])
-        qt = _quantize_leaf(w, kind, decision, p_leaf, ams, key)
+        qt = _quantize_leaf(w, kind, decision, p_leaf, ams)
         if conv:
             qt = dataclasses.replace(qt, shape=tuple(leaf.shape))
         rep = LayerReport(path=key, kind=kind, decision=decision,
                           shape=tuple(leaf.shape), bits=weight_bits(qt))
-        if isinstance(qt, QM2Q):
+        if isinstance(qt, (QM2Q, QExpertM2Q)):
             rep.n_apot, rep.n_uniform = qt.n_apot, qt.n_uniform
         w_hat = qt.dequant()
         rep.mse = float(torch.mean(
@@ -253,12 +327,6 @@ def quantize_model(params, rules: Sequence[Rule], shape_ctx: pol.ShapeCtx,
         return qt
 
     return map_with_path(visit, params), report
-
-
-def _stacked_m2q(key: str, shape: tuple):
-    return NotImplementedError(
-        f"{key!r}: a stacked {shape} leaf resolves to the mixed m2q scheme, "
-        "whose leaf (QExpertM2Q, per-layer Eq. 6 splits) is not ported yet")
 
 
 def abstract_quantize_model(params_abs, rules: Sequence[Rule],
@@ -275,15 +343,20 @@ def abstract_quantize_model(params_abs, rules: Sequence[Rule],
     tree with ``meta`` fields -- no data, no allocation -- whose classes,
     shapes, dtypes and static fields (``bits``, ``axis``, ``shape``,
     ``n_uniform``, ``n_apot``) equal the concrete leaves'.  Decisions
-    depend only on shapes, so the two agree by construction; what the
+    depend only on shapes, so the two agree by construction (the fold
+    groups come from the same :func:`_fold_group_keys`); what the
     concrete path refuses by name, this refuses too.
 
     ``with_act_scales``: calibrated leaves carry an activation scale (a
-    scalar, or ``(L, 1, 1)`` on a stacked leaf).  ``m2q_splits``: path ->
-    (n_uniform, n_apot), e.g. from saved LayerReports; required where the
-    concrete Eq. 6 split is data-dependent (``apot_ratio=None``)."""
+    scalar, or ``(L, 1, 1)`` on a stacked leaf; a perm-folded member has
+    none).  ``m2q_splits``: path -> (n_uniform, n_apot), e.g. from saved
+    LayerReports; required where the concrete Eq. 6 split is
+    data-dependent (``apot_ratio=None`` on a 2-D or conv leaf: stacked and
+    folded leaves split 1:1 then)."""
     p = m2q_policy or pol.M2QPolicy()
-    _refuse_folded_groups(params_abs, ffn_groups, shape_ctx, p, overrides)
+    fold_keys = {k for ku, kg, _ in _fold_group_keys(
+        params_abs, ffn_groups, shape_ctx, p, overrides)
+        for k in (ku, kg) if k is not None}
 
     def meta(shape, dtype=torch.float32):
         return torch.empty(tuple(shape), dtype=dtype, device="meta")
@@ -313,17 +386,19 @@ def abstract_quantize_model(params_abs, rules: Sequence[Rule],
         return QAPoT(meta(shape, torch.uint8), meta(ks),
                      act_scale(shape, act, stacked), tuple(shape))
 
-    def q_m2q(key, shape, act):
-        """A 2-D (or flattened conv) mixed leaf; the split from
+    def q_m2q(key, shape, reduce_axes=None, act=False, stacked=False,
+              cls=QM2Q):
+        """A mixed leaf in the merged layout; the split from
         ``m2q_splits`` where given, else the policy ratio's floor rule
-        (``select_schemes``)."""
+        (``select_schemes``), None meaning 1:1 but on a 2-D leaf."""
         n = shape[-1]
         if m2q_splits and key in m2q_splits:
             nu, na = (int(v) for v in m2q_splits[key])
             if nu + na != n:
                 raise ValueError(f"m2q_splits[{key!r}] = ({nu}, {na}) does "
                                  f"not sum to the filter count {n}")
-        elif p.apot_ratio is None:
+        elif p.apot_ratio is None and len(shape) == 2 \
+                and key not in fold_keys:
             raise ValueError(
                 f"apot_ratio=None (Eq. 6 argmin) gives a data-dependent "
                 f"uniform/APoT split for {key!r} that the shape-only twin "
@@ -331,11 +406,11 @@ def abstract_quantize_model(params_abs, rules: Sequence[Rule],
                 "(e.g. from a QuantizedModel artifact's saved LayerReports) "
                 "or use a fixed apot_ratio")
         else:
-            na = int(n * p.apot_ratio)
+            na = int(n * (0.5 if p.apot_ratio is None else p.apot_ratio))
             nu = n - na
-        ks = (1, n)
-        return QM2Q(meta(shape, torch.int8), meta(ks), meta(ks), meta(ks),
-                    act_scale(shape, act, False), tuple(shape), nu, na)
+        ks = scales(shape, -1, reduce_axes)
+        return cls(meta(shape, torch.int8), meta(ks), meta(ks), meta(ks),
+                   act_scale(shape, act, stacked), tuple(shape), nu, na)
 
     def visit(key, leaf):
         if not isinstance(leaf, torch.Tensor):
@@ -348,7 +423,9 @@ def abstract_quantize_model(params_abs, rules: Sequence[Rule],
         act = with_act_scales and p_leaf.quantize_activations
         w_shape = (math.prod(shape[:-1]), shape[-1]) if conv else shape
         ra = (1,) if stacked else None
-        if decision == pol.DECISION_LOWBIT:
+        if key in fold_keys:  # [uniform | apot] columns, no act scale
+            qt = q_m2q(key, shape, ra)
+        elif decision == pol.DECISION_LOWBIT:
             axis = 0 if kind == pol.KIND_EMBEDDING else -1
             qt = q_uniform(w_shape, p_leaf.memory_bits, axis, ra)
         elif p_leaf.compute_scheme == "uniform8":
@@ -356,9 +433,8 @@ def abstract_quantize_model(params_abs, rules: Sequence[Rule],
         elif p_leaf.compute_scheme == "apot":
             qt = q_apot(w_shape, ra, act=act, stacked=stacked)
         elif p_leaf.compute_scheme == "m2q":
-            if stacked:
-                raise _stacked_m2q(key, shape)
-            qt = q_m2q(key, w_shape, act)
+            qt = q_m2q(key, w_shape, ra, act, stacked,
+                       QExpertM2Q if stacked else QM2Q)
         else:
             raise ValueError(f"unknown compute scheme "
                              f"{p_leaf.compute_scheme}")

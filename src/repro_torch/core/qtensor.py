@@ -7,7 +7,10 @@
 * :class:`QAPoT` -- one APoT code byte per weight.
 * :class:`QM2Q` -- a mixed-scheme layer in the merged layout: one byte per
   weight in ORIGINAL filter order (uniform byte or APoT code per column)
-  with zero-masked per-column scales.
+  with zero-masked per-column scales; perm-folded FFN members keep
+  [uniform | apot] order instead.
+* :class:`QExpertM2Q` -- the same layout over a stacked (L, K, N) weight,
+  with per-slice Eq. 6 splits.
 
 Each leaf keeps the JAX leaf's fields under the same names; ``shape`` is
 the original float weight's (HWIO for a conv filter whose payload was
@@ -117,49 +120,42 @@ class QAPoT:
         return y * self.scale.reshape(-1).to(x.dtype)
 
 
-def _merge_halves(up, uscale, uzp, codes, ascale, inv_perm):
-    """[uniform | apot] columns -> one int8 array in original filter order
-    with zero-masked scales (the offline inverse permutation)."""
-    zeros_u = torch.zeros((1, codes.shape[-1]), dtype=torch.float32,
-                          device=up.device)
-    zeros_a = torch.zeros((1, up.shape[-1]), dtype=torch.float32,
-                          device=up.device)
-    payload = torch.cat([up, codes.view(torch.int8)], dim=-1)
-    u_scale = torch.cat([uscale, zeros_u], dim=-1)
-    u_zp = torch.cat([uzp, zeros_u], dim=-1)
-    a_scale = torch.cat([zeros_a, ascale], dim=-1)
-    return (payload[:, inv_perm].contiguous(), u_scale[:, inv_perm],
-            u_zp[:, inv_perm], a_scale[:, inv_perm])
+def _merge_halves(up, uscale, uzp, codes, ascale, inv_perm=None):
+    """[uniform | apot] columns -> one int8 array with zero-masked scales.
+
+    ``inv_perm`` restores original filter order once, offline: (N,) for a
+    (K, N) payload, or per slice (B, N) for a batched (B, K, N) one.  None
+    keeps the [uniform | apot] order (a perm-folded FFN member)."""
+    zeros_u = torch.zeros(codes.shape[:-2] + (1, codes.shape[-1]),
+                          dtype=torch.float32, device=up.device)
+    zeros_a = torch.zeros(up.shape[:-2] + (1, up.shape[-1]),
+                          dtype=torch.float32, device=up.device)
+    merged = (torch.cat([up, codes.view(torch.int8)], dim=-1),
+              torch.cat([uscale, zeros_u], dim=-1),
+              torch.cat([uzp, zeros_u], dim=-1),
+              torch.cat([zeros_a, ascale], dim=-1))
+    if inv_perm is None:
+        return merged
+    if inv_perm.ndim == 1:
+        return tuple(t[..., inv_perm].contiguous() for t in merged)
+    ip = inv_perm[..., None, :]
+    return tuple(torch.gather(t, -1, ip.expand(t.shape)) for t in merged)
 
 
 @dataclasses.dataclass
-class QM2Q:
-    payload: torch.Tensor               # (K, N) int8 merged bytes
-    u_scale: torch.Tensor               # (1, N) f32, 0 on APoT columns
-    u_zp: torch.Tensor                  # (1, N) f32, 0 on APoT columns
-    a_scale: torch.Tensor               # (1, N) f32, 0 on uniform columns
+class _Merged:
+    """The merged layout's fields and its dequant / plain matmul, shared
+    by :class:`QM2Q` and :class:`QExpertM2Q` (JAX's ``_merged_dequant`` /
+    ``_merged_matmul``)."""
+
+    payload: torch.Tensor               # (..., K, N) int8 merged bytes
+    u_scale: torch.Tensor               # (..., 1, N) f32, 0 on APoT columns
+    u_zp: torch.Tensor                  # (..., 1, N) f32, 0 on APoT columns
+    a_scale: torch.Tensor               # (..., 1, N) f32, 0 on uniform cols
     act_scale: Optional[torch.Tensor]
     shape: tuple
     n_uniform: int
     n_apot: int
-
-    @classmethod
-    def quantize(cls, w: torch.Tensor, apot_idx, uniform_idx,
-                 act_max_abs=None) -> "QM2Q":
-        w2 = w.reshape(-1, w.shape[-1])
-        ui = torch.as_tensor(uniform_idx, dtype=torch.long, device=w.device)
-        ai = torch.as_tensor(apot_idx, dtype=torch.long, device=w.device)
-        u = uniform_quantize(w2[:, ui], bits=8, axis=-1)
-        t = apot_quantize(w2[:, ai], axis=-1)
-        inv_perm = torch.argsort(torch.cat([ui, ai]))
-        payload, u_scale, u_zp, a_scale = _merge_halves(
-            (u.q - I8_OFFSET).to(torch.int8), u.scale,
-            u.zero_point - I8_OFFSET, packing.apot_encode(t), t.scale,
-            inv_perm)
-        act = _act_scale(act_max_abs)
-        return cls(payload, u_scale, u_zp, a_scale,
-                   None if act is None else act.to(w.device), tuple(w.shape),
-                   int(ui.numel()), int(ai.numel()))
 
     def dequant(self, dtype=torch.float32) -> torch.Tensor:
         qi = self.payload.to(torch.float32)
@@ -169,34 +165,92 @@ class QM2Q:
         return (wu + wa).to(dtype)
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
-        """The plain merged matmul (twin of ``QM2Q.matmul``); x (..., K)."""
+        """The plain merged matmul of a 2-D payload (a layer slice of a
+        stacked leaf included); x (..., K)."""
         if self.act_scale is None:
             return x @ self.dequant(x.dtype)
         from ..kernels.m2q_matmul import m2q_matmul_plain
-        y = m2q_matmul_plain(x.reshape(-1, x.shape[-1]), self.act_scale,
-                             self.payload, self.u_scale.reshape(-1),
+        y = m2q_matmul_plain(x.reshape(-1, x.shape[-1]),
+                             self.act_scale.reshape(()), self.payload,
+                             self.u_scale.reshape(-1),
                              self.u_zp.reshape(-1), self.a_scale.reshape(-1))
         return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
 
 
-QLeaf = (QUniform, QAPoT, QM2Q)
+def _merged_fields(w, ui, ai, reduce_axes, inv_perm):
+    """Quantize the uniform columns ``w[..., ui]`` (8-bit) and the APoT
+    columns ``w[..., ai]`` and merge them (:func:`_merge_halves`)."""
+    wu = w[:, ui] if ui.ndim == 1 else torch.gather(
+        w, -1, ui[:, None, :].expand(-1, w.shape[1], -1))
+    wa = w[:, ai] if ai.ndim == 1 else torch.gather(
+        w, -1, ai[:, None, :].expand(-1, w.shape[1], -1))
+    u = uniform_quantize(wu, bits=8, axis=-1, reduce_axes=reduce_axes)
+    t = apot_quantize(wa, axis=-1, reduce_axes=reduce_axes)
+    return _merge_halves((u.q - I8_OFFSET).to(torch.int8), u.scale,
+                         u.zero_point - I8_OFFSET, packing.apot_encode(t),
+                         t.scale, inv_perm)
+
+
+@dataclasses.dataclass
+class QM2Q(_Merged):
+    """A mixed-scheme (K, N) layer: one byte per weight, columns in
+    original filter order -- or, perm-folded, in [uniform | apot] order
+    with the consumer's rows permuted to match (stacked (L, K, N) then)."""
+
+    @classmethod
+    def quantize(cls, w: torch.Tensor, apot_idx, uniform_idx,
+                 act_max_abs=None, fold_perm: bool = False) -> "QM2Q":
+        w2 = w.reshape(-1, w.shape[-1])
+        ui = torch.as_tensor(uniform_idx, dtype=torch.long, device=w.device)
+        ai = torch.as_tensor(apot_idx, dtype=torch.long, device=w.device)
+        inv_perm = None if fold_perm else torch.argsort(torch.cat([ui, ai]))
+        act = _act_scale(act_max_abs)
+        return cls(*_merged_fields(w2, ui, ai, None, inv_perm),
+                   None if act is None else act.to(w.device), tuple(w.shape),
+                   int(ui.numel()), int(ai.numel()))
+
+
+@dataclasses.dataclass
+class QExpertM2Q(_Merged):
+    """Merged mixed-scheme quantization of a stacked (L, K, N) weight:
+    per-(slice, filter) scales and a per-slice Eq. 6 split of equal counts
+    (``n_uniform`` / ``n_apot`` per slice).  A layer slice has a 2-D
+    payload and a (1, 1) activation scale, and runs ``m2q_matmul``."""
+
+    @classmethod
+    def quantize(cls, w: torch.Tensor, apot_idx, uniform_idx,
+                 act_max_abs=None) -> "QExpertM2Q":
+        """apot_idx / uniform_idx: (L, Na) / (L, Nu) per-slice filters."""
+        ui = torch.as_tensor(uniform_idx, dtype=torch.long, device=w.device)
+        ai = torch.as_tensor(apot_idx, dtype=torch.long, device=w.device)
+        inv_perm = torch.argsort(torch.cat([ui, ai], dim=-1), dim=-1)
+        act = _act_scale(act_max_abs)
+        return cls(*_merged_fields(w, ui, ai, (1,), inv_perm),
+                   None if act is None else act.to(w.device), tuple(w.shape),
+                   int(ui.shape[-1]), int(ai.shape[-1]))
+
+
+QLeaf = (QUniform, QAPoT, QM2Q, QExpertM2Q)
 
 # each leaf's array fields in the order the JAX leaf's pytree flattens
 # them (its children; the other fields are its static aux data): a
 # checkpoint keys child i of the leaf at ``path`` as ``path/i`` and writes
 # nothing for a None child
+_MERGED = ("payload", "u_scale", "u_zp", "a_scale", "act_scale")
 CHILDREN = {QUniform: ("payload", "scale", "zero_point", "act_scale"),
             QAPoT: ("codes", "scale", "act_scale"),
-            QM2Q: ("payload", "u_scale", "u_zp", "a_scale", "act_scale")}
+            QM2Q: _MERGED, QExpertM2Q: _MERGED}
 
 
 def slice_layer(leaf, i: int):
     """Layer ``i`` of a stacked leaf, as ``lax.scan`` slices the JAX
     pytree: every tensor field loses its leading layer axis, while the
-    static fields -- ``axis``, ``shape``, ``bits`` -- stay as they are.  A
-    sliced stacked QUniform therefore keeps ``axis == 2``, which
-    ``kernels.ops.kernel_supported`` refuses exactly as JAX's does, and
-    its matmul takes the plain ``x @ dequant(x.dtype)``."""
+    static fields -- ``axis``, ``shape``, ``bits``, ``n_uniform``,
+    ``n_apot`` -- stay as they are.  A sliced stacked QUniform therefore
+    keeps ``axis == 2``, which ``kernels.ops.kernel_supported`` refuses
+    exactly as JAX's does, and its matmul takes the plain ``x @
+    dequant(x.dtype)``; a sliced QExpertM2Q has a 2-D payload and a (1, 1)
+    activation scale, which it accepts."""
     if isinstance(leaf, torch.Tensor):
         return leaf[i]
     if isinstance(leaf, QLeaf):
@@ -215,6 +269,6 @@ def weight_bits(qt) -> float:
     """Average STORED bits per weight (only 4-bit payloads are packed)."""
     if isinstance(qt, QUniform):
         return 4.0 if qt.bits == 4 else 8.0
-    if isinstance(qt, (QAPoT, QM2Q)):
+    if isinstance(qt, (QAPoT, QM2Q, QExpertM2Q)):
         return 8.0
     raise TypeError(type(qt))

@@ -152,6 +152,11 @@ class APoTQ:
     axis: int
 
 
+# weights per step of apot_quantize's nearest-codebook search: each step
+# holds two (chunk, 36) f32 intermediates, ~1.2 GB at this size
+APOT_CHUNK = 1 << 22
+
+
 def apot_quantize(w: torch.Tensor, axis: int = -1, emax: int = APOT_EMAX,
                   eps: float = 1e-8, reduce_axes=None) -> APoTQ:
     """Nearest-codebook APoT quantization.
@@ -159,13 +164,22 @@ def apot_quantize(w: torch.Tensor, axis: int = -1, emax: int = APOT_EMAX,
     The index-to-exponent lookup is the reference's exactly: the codebook
     holds no zero entry, index 0 (the smallest magnitude) is flagged zero,
     and index i > 0 takes the exponents of entry i - 1.  Keeping it so is
-    what makes the code bytes equal the JAX package's."""
+    what makes the code bytes equal the JAX package's.
+
+    The per-filter scale comes from the whole tensor; the search then
+    runs over ``APOT_CHUNK`` weights at a time (in memory order), so its
+    intermediates stay bounded on a (1024, 151936) lm_head.  Every step
+    is elementwise, so the codes do not depend on ``APOT_CHUNK``."""
     lo, hi = _minmax(w, axis, reduce_axes)
     scale = torch.clamp(hi - lo, min=eps)
-    a = div(torch.abs(w), scale)
+    a = div(torch.abs(w), scale).reshape(-1)
     mags, ce1, ce2 = _apot_code_pairs(emax)
     mags_t = torch.from_numpy(mags).to(w.device)
-    idx = torch.argmin(torch.abs(a[..., None] - mags_t), dim=-1)
+    idx = torch.empty(a.shape, dtype=torch.int64, device=w.device)
+    for s in range(0, a.numel(), APOT_CHUNK):
+        idx[s:s + APOT_CHUNK] = torch.argmin(
+            torch.abs(a[s:s + APOT_CHUNK, None] - mags_t), dim=-1)
+    idx = idx.reshape(w.shape)
     is_zero = idx == 0
     e1 = torch.from_numpy(np.concatenate([[emax], ce1]).astype(np.int8))
     e2 = torch.from_numpy(np.concatenate([[emax], ce2]).astype(np.int8))

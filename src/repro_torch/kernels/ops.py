@@ -3,10 +3,11 @@
 ``relu_attn_op`` / ``decode_attn_int8_op`` part of ``repro.kernels.ops``).
 
 :func:`qtensor_matmul` routes exactly the leaves the JAX package's
-``kernel_supported`` accepts to a kernel: calibrated ``QM2Q`` ->
-``m2q_matmul``; 2-D ``QUniform`` (axis 1) at 8 bits with an activation
-scale -> ``int8_matmul``, at 4 bits -> ``int4_matmul``; 2-D ``QAPoT``
-without an activation scale -> ``apot_matmul``.  Every other leaf takes its
+``kernel_supported`` accepts to a kernel: calibrated 2-D ``QM2Q`` and
+layer-sliced ``QExpertM2Q`` -> ``m2q_matmul``; 2-D ``QUniform`` (axis 1)
+at 8 bits with an activation scale -> ``int8_matmul``, at 4 bits ->
+``int4_matmul``; 2-D ``QAPoT`` without an activation scale ->
+``apot_matmul``.  Every other leaf takes its
 plain QTensor ``matmul``, as JAX's ``qmatmul`` does.  Each kernel wrapper
 launches the CUDA kernel for CUDA tensors and runs the plain version for
 CPU tensors.  Nothing falls back: a kernel that fails to build or launch
@@ -23,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from ..core.qtensor import QAPoT, QM2Q, QUniform
+from ..core.qtensor import QAPoT, QExpertM2Q, QM2Q, QUniform
 from . import apot_matmul as _apot
 from . import decode_attn_int8 as _dec
 from . import dwconv_w4 as _dw
@@ -64,7 +65,7 @@ def kernel_supported(qt) -> bool:
     ``kernel_supported``): a 2-D weight whose activation handling the
     kernel shares -- calibrated int paths quantize activations,
     weights-only paths do not."""
-    if isinstance(qt, QM2Q):
+    if isinstance(qt, (QM2Q, QExpertM2Q)):
         return qt.payload.ndim == 2 and qt.act_scale is not None
     if isinstance(qt, QUniform):
         if qt.payload.ndim != 2 or qt.axis != 1:
@@ -80,10 +81,12 @@ def _kernel_matmul(x2: torch.Tensor, qt) -> torch.Tensor:
     :func:`reference_path`) -> (M, N): x2's dtype from ``int8_matmul``,
     which stores it itself, f32 from the others."""
     ref = _REFERENCE.get()
-    if isinstance(qt, QM2Q):
+    if isinstance(qt, (QM2Q, QExpertM2Q)):
+        # a layer slice's (1, 1) activation scale goes in as one element
         fn = _m2q.m2q_matmul_plain if ref else _m2q.m2q_matmul
-        return fn(x2, qt.act_scale, qt.payload, qt.u_scale.reshape(-1),
-                  qt.u_zp.reshape(-1), qt.a_scale.reshape(-1))
+        return fn(x2, qt.act_scale.reshape(()), qt.payload,
+                  qt.u_scale.reshape(-1), qt.u_zp.reshape(-1),
+                  qt.a_scale.reshape(-1))
     if isinstance(qt, QAPoT):
         fn = _apot.apot_matmul_plain if ref else _apot.apot_matmul
         return fn(x2, qt.codes, qt.scale.reshape(-1))

@@ -16,7 +16,6 @@
 * The trained proxy: its weights, the committed JAX-written artifact in
   both packages, and the port's top-1 on the CPU against
   ``expected.json``."""
-import dataclasses
 import inspect
 import json
 import sys
@@ -35,12 +34,11 @@ from repro_torch import recipe as tr
 from repro_torch.configs.registry import REDUCED
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core.policy import M2QPolicy
-from repro_torch.core.qtensor import QLeaf
-from repro_torch.core.tree import leaves_with_path
 from repro_torch.data import proxy
 from repro_torch.models import dense_lm, efficientvit
-from torch_parity import (jax_forward, jax_to_numpy, numpy_to_jax,
-                          recipe_case, recipe_pair)
+from torch_parity import (abstract_tree, all_meta, artifact_payload,
+                          jax_forward, jax_to_numpy, manifest, numpy_to_jax,
+                          recipe_case, recipe_pair, same_numpy)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402  (the card's proxy gate)
@@ -50,34 +48,6 @@ VISION = list(chip_smoke.PATHS)
 
 def _off():
     return jops.dispatch(dense=False, conv=False, attn=False)
-
-
-def _same_numpy(a, b):
-    """Equal numpy crossing trees: leaf classes, static fields, array
-    dtypes and bits."""
-    la, lb = dict(leaves_with_path(a)), dict(leaves_with_path(b))
-    assert sorted(la) == sorted(lb)
-    for key, x in la.items():
-        y = lb[key]
-        if isinstance(x, np.ndarray):
-            assert x.dtype == y.dtype and x.shape == y.shape, key
-            np.testing.assert_array_equal(x, y, err_msg=key)
-        else:
-            assert x == y, key
-
-
-def _payload(qm, package):
-    """(cfg, recipe, report, act_stats, provenance) in the JSON form."""
-    m = jr if package == "jax" else tr
-    return (json.loads(json.dumps(m._cfg_to_json(qm.cfg))),
-            m._recipe_to_json(qm.recipe),
-            [m._report_to_json(r) for r in qm.report],
-            {k: float(v) for k, v in qm.act_stats.items()},
-            dict(qm.provenance))
-
-
-def _manifest(step_dir):
-    return json.loads((Path(step_dir) / "manifest.json").read_text())
 
 
 # ---------------------------------------------------------------------------
@@ -130,20 +100,20 @@ def test_a_jax_saved_artifact_loads_in_the_port(pair, tmp_path):
     jdir = jqm.save(tmp_path / "jax")
     qm = tr.QuantizedModel.load(tmp_path / "jax", device="cpu")
     want = params_from_numpy(jax_to_numpy(jqm.params), "cpu")
-    _same_numpy(params_to_numpy(qm.params), params_to_numpy(want))
-    assert _payload(qm, "port") == _payload(jqm, "jax")
+    same_numpy(params_to_numpy(qm.params), params_to_numpy(want))
+    assert artifact_payload(qm, "port") == artifact_payload(jqm, "jax")
     pdir = qm.save(tmp_path / "port")
-    assert _manifest(pdir) == _manifest(jdir)
+    assert manifest(pdir) == manifest(jdir)
 
 
 def test_a_port_saved_artifact_loads_in_the_jax_package(pair, tmp_path):
     _, tqm = pair
     pdir = tqm.save(tmp_path / "port")
     jqm = jr.QuantizedModel.load(str(tmp_path / "port"))
-    _same_numpy(jax_to_numpy(jqm.params), params_to_numpy(tqm.params))
-    assert _payload(jqm, "jax") == _payload(tqm, "port")
+    same_numpy(jax_to_numpy(jqm.params), params_to_numpy(tqm.params))
+    assert artifact_payload(jqm, "jax") == artifact_payload(tqm, "port")
     jdir = jqm.save(tmp_path / "jax")
-    assert _manifest(jdir) == _manifest(pdir)
+    assert manifest(jdir) == manifest(pdir)
 
 
 @pytest.mark.parametrize("name", VISION)
@@ -158,8 +128,8 @@ def test_every_recipe_path_round_trips_in_the_port(name, tmp_path):
                      attn="f32")
     qm.save(tmp_path)
     back = tr.QuantizedModel.load(tmp_path, device="cpu")
-    _same_numpy(params_to_numpy(back.params), params_to_numpy(qm.params))
-    assert _payload(back, "port") == _payload(qm, "port")
+    same_numpy(params_to_numpy(back.params), params_to_numpy(qm.params))
+    assert artifact_payload(back, "port") == artifact_payload(qm, "port")
     assert back.cfg == qm.cfg and back.recipe == qm.recipe
     images = rng.normal(0, 1, (3, 32, 32, 3)).astype(np.float32)
     for attn in ("f32", "int8"):
@@ -183,44 +153,6 @@ def test_load_defaults_to_the_card_and_refuses_what_is_no_artifact(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def _abstract_fields(leaf):
-    """(class, static fields, {field: (shape, numpy dtype name) or None})
-    of a QTensor leaf of either package; (``"float"``, shape, dtype) of a
-    float leaf."""
-    if not dataclasses.is_dataclass(leaf):
-        return "float", tuple(leaf.shape), _dtype(leaf.dtype)
-    arrays, static = {}, {}
-    for f in dataclasses.fields(leaf):
-        v = getattr(leaf, f.name)
-        if v is None or hasattr(v, "dtype"):
-            arrays[f.name] = None if v is None else (tuple(v.shape),
-                                                     _dtype(v.dtype))
-        else:
-            static[f.name] = v
-    return type(leaf).__name__, static, arrays
-
-
-def _dtype(dtype) -> str:
-    if isinstance(dtype, torch.dtype):
-        return str(dtype).replace("torch.", "")
-    return np.dtype(dtype).name
-
-
-def _abstract_tree(tree):
-    return {k: _abstract_fields(v) for k, v in leaves_with_path(tree)}
-
-
-def _all_meta(tree):
-    for _, leaf in leaves_with_path(tree):
-        for f in (dataclasses.fields(leaf) if isinstance(leaf, QLeaf)
-                  else ()):
-            v = getattr(leaf, f.name)
-            if isinstance(v, torch.Tensor):
-                assert v.device.type == "meta"
-        if isinstance(leaf, torch.Tensor):
-            assert leaf.device.type == "meta"
-
-
 @pytest.mark.parametrize("name", VISION + ["qwen-w4-weights-only"])
 def test_abstract_twin_equals_the_concrete_tree(name):
     if name.startswith("qwen"):
@@ -234,11 +166,11 @@ def test_abstract_twin_equals_the_concrete_tree(name):
         params = efficientvit.init(cfg, seed=0, device="cpu")
     qm = tr.quantize(cfg, params, rec, calib_batches=batches, attn="f32")
     abstract = qm.abstract_params()
-    _all_meta(abstract)
-    assert _abstract_tree(abstract) == _abstract_tree(qm.params)
-    assert _abstract_tree(tr.abstract_quantize(
+    all_meta(abstract)
+    assert abstract_tree(abstract) == abstract_tree(qm.params)
+    assert abstract_tree(tr.abstract_quantize(
         cfg, recipe=qm.recipe, with_act_scales=bool(qm.act_stats))) == \
-        _abstract_tree(qm.params)
+        abstract_tree(qm.params)
 
 
 # qwen at full width: every leaf is low-bit at the decode deployment
@@ -256,9 +188,9 @@ def test_abstract_twin_equals_jax_at_full_width(arch, name):
     jrec, trec = recipe_pair(name)
     ours = tr.abstract_quantize(arch, recipe=trec)
     theirs = jr.abstract_quantize(arch, recipe=jrec)
-    _all_meta(ours)
-    got = _abstract_tree(ours)
-    assert got == _abstract_tree(theirs)
+    all_meta(ours)
+    got = abstract_tree(ours)
+    assert got == abstract_tree(theirs)
     assert {v[0] for v in got.values()} - {"float"}
 
 
@@ -280,17 +212,22 @@ def test_apot_ratio_none_needs_the_saved_splits(tmp_path):
         rec.validate(abstract=True)
     qm.save(tmp_path)
     back = tr.QuantizedModel.load(tmp_path, device="cpu")
-    _same_numpy(params_to_numpy(back.params), params_to_numpy(qm.params))
+    same_numpy(params_to_numpy(back.params), params_to_numpy(qm.params))
 
 
-def test_abstract_twin_refuses_what_the_concrete_path_refuses():
-    """The narrow qwen under m2q-w8a8 folds its FFN groups (not ported):
-    both paths raise the named NotImplementedError."""
-    cfg = REDUCED["qwen1.5-0.5b"]
-    with pytest.raises(NotImplementedError, match="perm-folded"):
-        tr.quantize(cfg, dense_lm.init(cfg, device="cpu"), "m2q-w8a8")
-    with pytest.raises(NotImplementedError, match="perm-folded"):
-        tr.abstract_quantize(cfg, recipe="m2q-w8a8")
+def test_expert_leaves_raise_by_name_in_both_paths():
+    """MoE expert weights (``nn/moe.py``, not ported): a stacked (L, E, K,
+    N) expert leaf raises the named NotImplementedError in
+    ``quantize_model`` and in its shape-only twin alike."""
+    from repro_torch.core import apply
+    from repro_torch.core.policy import ShapeCtx
+    ctx = ShapeCtx(tokens_per_step=64)
+    for device, fn in (("cpu", apply.quantize_model),
+                       ("meta", apply.abstract_quantize_model)):
+        tree = {"layers": {"moe": {"experts": {
+            "w1": torch.zeros((2, 4, 64, 32), device=device)}}}}
+        with pytest.raises(NotImplementedError, match="experts/w1"):
+            fn(tree, dense_lm.QUANT_RULES, ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -301,15 +238,15 @@ def test_abstract_twin_refuses_what_the_concrete_path_refuses():
 def test_load_proxy_equals_the_jax_packages_trained_proxy():
     from benchmarks.proxy_model import train_proxy
     want = params_from_numpy(jax_to_numpy(train_proxy()), "cpu")
-    _same_numpy(params_to_numpy(proxy.load_proxy("cpu")),
+    same_numpy(params_to_numpy(proxy.load_proxy("cpu")),
                 params_to_numpy(want))
 
 
 def test_the_committed_artifact_loads_in_both_packages():
     jqm = jr.QuantizedModel.load(str(proxy.ARTIFACT))
     qm = tr.QuantizedModel.load(proxy.ARTIFACT, device="cpu")
-    _same_numpy(params_to_numpy(qm.params), jax_to_numpy(jqm.params))
-    assert _payload(qm, "port") == _payload(jqm, "jax")
+    same_numpy(params_to_numpy(qm.params), jax_to_numpy(jqm.params))
+    assert artifact_payload(qm, "port") == artifact_payload(jqm, "jax")
     assert qm.cfg == proxy.CFG and qm.recipe.name == "m2q-w8a8"
 
 

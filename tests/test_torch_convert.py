@@ -86,7 +86,7 @@ def test_mismatched_qtensor_fields_raise(np_qtree, path, field, bad):
 
 
 @pytest.mark.parametrize("leaf", [
-    {"qtensor": "QExpertM2Q"},
+    {"qtensor": "QPoT"},
     {"qtensor": "QAPoT"},
     "not-a-tensor",
     np.zeros((2, 2), np.int32),
@@ -133,6 +133,53 @@ def test_qapot_leaf_round_trips(act):
 def test_mismatched_qapot_fields_raise(field, bad):
     tree = params_to_numpy(_qapot_tree(True))
     leaf = tree["stem"]["w"]
+    leaf[field] = bad(leaf[field])
+    with pytest.raises((TypeError, ValueError)):
+        params_from_numpy(tree, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# the mixed LM tree: stacked QExpertM2Q layers, perm-folded 3-D QM2Q FFN
+# members, a 2-D QM2Q head
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def np_lm_tree():
+    from repro_torch.configs.registry import REDUCED as LM
+    from repro_torch.models import dense_lm
+    cfg = LM["qwen1.5-0.5b"]
+    qm = quantize(cfg, dense_lm.init(cfg, seed=0, device="cpu"), "m2q-w8a8")
+    return params_to_numpy(qm.params)
+
+
+def test_mixed_lm_tree_round_trips(np_lm_tree):
+    from repro_torch.core.qtensor import QExpertM2Q
+    back = params_from_numpy(np_lm_tree, "cpu")
+    _assert_same(np_lm_tree, params_to_numpy(back))
+    wq, w1 = back["layers"]["attn"]["wq"], back["layers"]["mlp"]["w1"]
+    assert isinstance(wq, QExpertM2Q) and wq.payload.ndim == 3
+    assert wq.u_scale.shape == (2, 1, 64) and wq.act_scale.shape == (2, 1, 1)
+    assert type(w1) is QM2Q and w1.payload.ndim == 3 and w1.act_scale is None
+    assert np_lm_tree["layers"]["attn"]["wq"]["qtensor"] == "QExpertM2Q"
+
+
+@pytest.mark.parametrize("path,field,bad", [
+    ("layers/attn/wq", "payload", lambda a: a.reshape(-1, a.shape[-1])),
+    ("layers/attn/wq", "payload", lambda a: a.view(np.uint8)),
+    ("layers/attn/wq", "u_scale", lambda a: a[0]),
+    ("layers/attn/wq", "a_scale", lambda a: a.astype(np.float64)),
+    ("layers/attn/wq", "act_scale", lambda a: a.reshape(-1)),
+    ("layers/attn/wq", "n_uniform", lambda a: a - 1),
+    ("layers/attn/wq", "shape", lambda a: [2] + list(a)),
+    ("layers/mlp/w1", "u_zp", lambda a: a[:, :, :-1]),
+    ("layers/mlp/w1", "act_scale", lambda a: np.float32(1.0)),
+])
+def test_mismatched_mixed_lm_fields_raise(np_lm_tree, path, field, bad):
+    """Including a 4-D (L, E, K, N) QExpertM2Q: expert leaves are not
+    ported."""
+    tree = copy.deepcopy(np_lm_tree)
+    leaf = _leaf(tree, path)
     leaf[field] = bad(leaf[field])
     with pytest.raises((TypeError, ValueError)):
         params_from_numpy(tree, "cpu")

@@ -3,9 +3,12 @@
 validation, ragged admission with power-of-two prefill padding, requests
 finishing at prefill, a slot idled past ``max_len``, greedy tokens equal
 to a model-level greedy loop, seeded temperature sampling, a NaN-poisoned
-slot failing alone, deadlines and cancellation; and the recipe resolution
-of the narrow config against the JAX package's."""
+slot failing alone, deadlines and cancellation; the recipe resolution
+of the narrow config against the JAX package's, and the same engine
+serving the mixed leaves ``m2q-w8a8`` gives the narrow config."""
 import functools
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +24,9 @@ from repro_torch.serving.engine import Engine
 from repro_torch.serving.errors import NumericalError, QueueFullError
 from repro_torch.serving.scheduler import (CANCELLED, DONE, FAILED,
                                            TIMED_OUT, OverloadPolicy)
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402  (the token paths' checks)
 
 CFG = REDUCED["qwen1.5-0.5b"]
 KV = ["int8", "bf16"]
@@ -330,13 +336,47 @@ def test_narrow_config_resolves_as_jax():
     assert len(recipe.taxonomy_overrides(dense_lm.QUANT_RULES)) == 4
 
 
-def test_m2q_on_a_narrow_lm_raises_the_named_refusal():
+@pytest.mark.parametrize("kv", KV)
+def test_m2q_on_a_narrow_lm_serves_the_mixed_leaves(kv):
     """The taxonomy overrides send the narrow LM's layers to the mixed m2q
-    scheme: perm-folded FFN groups first, then (without groups) stacked
-    QExpertM2Q leaves -- the next slice, refused by name."""
-    params = dense_lm.init(CFG, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="perm-folded"):
-        recipe.quantize(CFG, params, "m2q-w8a8")
-    with pytest.raises(NotImplementedError, match="QExpertM2Q"):
-        recipe.quantize(CFG, params,
-                        recipe.PRESETS["m2q-w8a8"].replace(ffn_groups=()))
+    scheme: stacked QExpertM2Q leaves (wq, wk, wv, wo, w2) with per-layer
+    activation scales, perm-folded QM2Q w1/w3 with none, a calibrated 2-D
+    QM2Q lm_head.  The engine's greedy tokens equal the model-level loop's,
+    and every calibrated layer matmul and the lm_head take ``m2q_matmul``
+    (5 L + 1 plain calls per prefill group and per decode step)."""
+    from repro_torch.core.qtensor import QExpertM2Q, QM2Q
+    from repro_torch.core.tree import leaves_with_path
+    cfg = CFG.replace(kv_cache_dtype=kv)
+    qm = recipe.quantize(cfg, dense_lm.init(cfg, seed=0, device="cpu"),
+                         "m2q-w8a8")
+    leaves = dict(leaves_with_path(qm.params))
+    for name in ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/w2"):
+        leaf = leaves[f"layers/{name}"]
+        assert isinstance(leaf, QExpertM2Q) and leaf.payload.ndim == 3
+        assert leaf.act_scale.shape == (CFG.n_layers, 1, 1)
+    for name in ("w1", "w3"):
+        leaf = leaves[f"layers/mlp/{name}"]
+        assert type(leaf) is QM2Q and leaf.act_scale is None
+        assert leaf.payload.shape == (CFG.n_layers, CFG.d_model, CFG.d_ff)
+    assert type(leaves["lm_head"]) is QM2Q
+    assert leaves["lm_head"].act_scale is not None
+    prompts = [p[:n] for p, n in zip(_prompts(3), (3, 9, 5))]
+    max_new = [6, 4, 1]
+    eng = qm.serve(max_batch=4, max_len=32)
+    kernels.reset_counts()
+    reqs = [eng.submit(p, max_new_tokens=m) for p, m in zip(prompts, max_new)]
+    stats = eng.run()
+    counts = kernels.counts()
+    got = [r.handle.result() for r in reqs]
+    assert got == _greedy_loop(qm, prompts, max_new, 4, 32)
+    assert counts["m2q_matmul"]["plain_calls"] == \
+        (5 * CFG.n_layers + 1) * (stats.prefill_batches + stats.steps)
+    assert all(c["launches"] == 0 for c in counts.values())
+    # what chip_smoke.py's token-m2q path (int8 cache) checks on the card
+    chip_smoke.check_token_leaves(qm, "token-m2q")
+    want = chip_smoke.token_launches(cfg, "token-m2q", stats.steps,
+                                     stats.prefill_batches)
+    if kv != "int8":
+        del want["decode_attn_int8"]
+    assert {k: c["plain_calls"] for k, c in counts.items()
+            if c["plain_calls"]} == want

@@ -1223,3 +1223,117 @@ def test_committed_proxy_artifact_on_the_card(cuda):
         ref, _ = proxy.logits(qm.params, attn="f32")
     np.testing.assert_array_equal(got8, ref8)
     np.testing.assert_array_equal(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# The mixed LM (m2q-w8a8 at 64 tokens a step on qwen1.5-0.5b): m2q_matmul
+# at its decode-step, lm_head and prefill-group shapes, the stacked
+# QExpertM2Q layers through the kernel, the token Engine from graphs and
+# its artifact.
+# ---------------------------------------------------------------------------
+
+LM_M2Q_SHAPES = sorted({c[1:] for calls in chip_smoke.token_m2q_calls(
+    ARCHS["qwen1.5-0.5b"], chip_smoke.TOKEN_BATCH,
+    chip_smoke.PREFILL_LEN).values() for c in calls})
+
+
+@pytest.mark.parametrize("M,K,N", LM_M2Q_SHAPES)
+def test_m2q_kernel_equals_plain_at_the_mixed_lm_shapes(cuda, M, K, N):
+    x = _randn((M, K), M + N, cuda, dtype=torch.bfloat16)
+    w = _randn((K, N), K, cuda, std=K ** -0.5)
+    asn = select_schemes(w)
+    qt = QM2Q.quantize(w, asn.apot_idx, asn.uniform_idx,
+                       act_max_abs=float(x.abs().max()))
+    args = (x, qt.act_scale, qt.payload, qt.u_scale.reshape(-1),
+            qt.u_zp.reshape(-1), qt.a_scale.reshape(-1))
+    _equal(m2q_matmul.m2q_matmul(*args), m2q_matmul.m2q_matmul_plain(*args))
+
+
+def test_a_layer_slice_of_a_qexpertm2q_launches_m2q_matmul(cuda):
+    """A stacked (L, K, N) QExpertM2Q: each layer slice (2-D payload, a
+    (1, 1) activation scale) launches the kernel once, equal to its plain
+    matmul; the unsliced leaf and a perm-folded QM2Q (no activation
+    scale) launch nothing."""
+    from repro_torch.core.qtensor import QExpertM2Q, slice_layer
+    L, K, N = 3, 256, 96
+    w = _randn((L, K, N), 7, cuda, std=K ** -0.5)
+    x = _randn((5, K), 8, cuda, dtype=torch.bfloat16)
+    asn = [select_schemes(w[i]) for i in range(L)]
+    qt = QExpertM2Q.quantize(w, np.stack([a.apot_idx for a in asn]),
+                             np.stack([a.uniform_idx for a in asn]))
+    qt.act_scale = torch.tensor([1.0, 2.0, 3.0], device=cuda).reshape(
+        L, 1, 1) * float(x.abs().max()) / 127
+    assert not ops.kernel_supported(qt)
+    for i in range(L):
+        layer = slice_layer(qt, i)
+        kernels.reset_counts()
+        y = ops.qtensor_matmul(x, layer)
+        assert kernels.counts()["m2q_matmul"] == {"launches": 1,
+                                                  "plain_calls": 0}
+        with ops.reference_path():
+            _equal(y, ops.qtensor_matmul(x, layer))
+    folded = QM2Q.quantize(w[0], asn[0].apot_idx, asn[0].uniform_idx,
+                           fold_perm=True)
+    kernels.reset_counts()
+    ops.qtensor_matmul(x, folded)
+    assert all(c["launches"] == 0 for c in kernels.counts().values())
+
+
+def _mixed_lm(width, device):
+    """qwen1.5-0.5b under m2q-w8a8 with the int8 cache: the reduced config
+    (mixed through the taxonomy overrides) or full width at 64 tokens a
+    step."""
+    from repro_torch import recipe
+    from repro_torch.configs.registry import REDUCED
+    from repro_torch.models import dense_lm
+    base = (REDUCED if width == "reduced" else ARCHS)["qwen1.5-0.5b"]
+    cfg = base.replace(kv_cache_dtype="int8")
+    toks = 64 if width == "full" else None
+    return recipe.quantize(cfg, dense_lm.init(cfg, seed=0, device=device),
+                           recipe.PRESETS["m2q-w8a8"].replace(
+                               tokens_per_step=toks))
+
+
+@pytest.mark.parametrize("width", ["reduced", "full"])
+def test_mixed_token_engine_graphs_equal_eager(cuda, width):
+    """The eager engine and two graphed ones serve the same tokens with
+    the same launch counts: every stacked layer matmul and the lm_head on
+    m2q_matmul in each decode step and prefill group."""
+    qm = _mixed_lm(width, cuda)
+    chip_smoke.check_token_leaves(qm, "token-m2q")
+    reqs = _token_requests(qm.cfg)
+    runs = []
+    for graphs in (False, True, True):
+        eng = qm.serve(max_batch=4, max_len=64, seed=0, graphs=graphs)
+        kernels.reset_counts()
+        hs = [eng.submit(p, max_new_tokens=n, temperature=t)
+              for p, n, t in reqs]
+        eng.run()
+        runs.append(([h.handle.result() for h in hs], kernels.counts(),
+                     eng.stats.steps, eng.stats.prefill_batches))
+    (want, want_counts, steps, groups), *graphed = runs
+    assert {k: c["launches"] for k, c in want_counts.items()
+            if c["launches"]} == chip_smoke.token_launches(
+                qm.cfg, "token-m2q", steps, groups)
+    assert all(c["plain_calls"] == 0 for c in want_counts.values())
+    for got, counts, n, g in graphed:
+        assert got == want and counts == want_counts and n == steps
+
+
+def test_loaded_mixed_lm_artifact_serves_the_same_tokens(cuda, tmp_path):
+    from repro_torch import recipe
+    qm = _mixed_lm("reduced", cuda)
+    qm.save(tmp_path)
+    back = recipe.QuantizedModel.load(tmp_path)
+    chip_smoke.check_same_model(torch, "token-m2q", qm, back)
+    reqs = _token_requests(qm.cfg)
+    runs = []
+    for model in (qm, back):
+        eng = model.serve(max_batch=4, max_len=64, seed=0, graphs=True)
+        kernels.reset_counts()
+        hs = [eng.submit(p, max_new_tokens=n, temperature=t)
+              for p, n, t in reqs]
+        eng.run()
+        runs.append(([h.handle.result() for h in hs], kernels.counts()))
+    assert runs[1] == runs[0]
+    assert runs[0][1]["m2q_matmul"]["launches"] > 0

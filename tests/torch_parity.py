@@ -4,8 +4,10 @@ resolved recipe with its eager per-leaf work spread over threads, and
 JAX's dispatch-off forward."""
 import dataclasses
 import functools
+import json
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -25,8 +27,9 @@ def jax_to_numpy(tree):
     def opt(a):
         return None if a is None else np.asarray(a)
 
-    if isinstance(tree, jq.QM2Q):
-        return {"qtensor": "QM2Q", "payload": np.asarray(tree.payload),
+    if isinstance(tree, (jq.QM2Q, jq.QExpertM2Q)):
+        return {"qtensor": type(tree).__name__,
+                "payload": np.asarray(tree.payload),
                 "u_scale": np.asarray(tree.u_scale),
                 "u_zp": np.asarray(tree.u_zp),
                 "a_scale": np.asarray(tree.a_scale),
@@ -56,10 +59,11 @@ def numpy_to_jax(tree):
     the inverse of :func:`jax_to_numpy`."""
     if isinstance(tree, dict) and "qtensor" in tree:
         d, shape = tree, tuple(tree["shape"])
-        if d["qtensor"] == "QM2Q":
-            return jq.QM2Q(d["payload"], d["u_scale"], d["u_zp"],
-                           d["a_scale"], d["act_scale"], shape=shape,
-                           n_uniform=d["n_uniform"], n_apot=d["n_apot"])
+        if d["qtensor"] in ("QM2Q", "QExpertM2Q"):
+            return getattr(jq, d["qtensor"])(
+                d["payload"], d["u_scale"], d["u_zp"], d["a_scale"],
+                d["act_scale"], shape=shape, n_uniform=d["n_uniform"],
+                n_apot=d["n_apot"])
         if d["qtensor"] == "QUniform":
             return jq.QUniform(d["payload"], d["scale"], d["zero_point"],
                                d["act_scale"], bits=d["bits"],
@@ -273,3 +277,84 @@ def test_carried_forward_matches_jax(case):
     np.testing.assert_allclose(y, want, rtol=0,
                                atol=tol * np.abs(want).max())
     np.testing.assert_array_equal(y.argmax(-1), want.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# trees and artifacts compared across packages
+# ---------------------------------------------------------------------------
+
+
+def same_numpy(a, b):
+    """Equal numpy crossing trees: leaf classes, static fields, array
+    dtypes and bits."""
+    from repro_torch.core.tree import leaves_with_path
+    la, lb = dict(leaves_with_path(a)), dict(leaves_with_path(b))
+    assert sorted(la) == sorted(lb)
+    for key, x in la.items():
+        y = lb[key]
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype and x.shape == y.shape, key
+            np.testing.assert_array_equal(x, y, err_msg=key)
+        else:
+            assert x == y, key
+
+
+def artifact_payload(qm, package):
+    """(cfg, recipe, report, act_stats, provenance) of a QuantizedModel of
+    ``package`` (``"jax"`` or ``"port"``) in the JSON form."""
+    from repro import recipe as jr
+    from repro_torch import recipe as tr
+    m = jr if package == "jax" else tr
+    return (json.loads(json.dumps(m._cfg_to_json(qm.cfg))),
+            m._recipe_to_json(qm.recipe),
+            [m._report_to_json(r) for r in qm.report],
+            {k: float(v) for k, v in qm.act_stats.items()},
+            dict(qm.provenance))
+
+
+def manifest(step_dir):
+    return json.loads((Path(step_dir) / "manifest.json").read_text())
+
+
+def _dtype(dtype) -> str:
+    import torch
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    return np.dtype(dtype).name
+
+
+def abstract_fields(leaf):
+    """(class, static fields, {field: (shape, numpy dtype name) or None})
+    of a QTensor leaf of either package; (``"float"``, shape, dtype) of a
+    float leaf."""
+    if not dataclasses.is_dataclass(leaf):
+        return "float", tuple(leaf.shape), _dtype(leaf.dtype)
+    arrays, static = {}, {}
+    for f in dataclasses.fields(leaf):
+        v = getattr(leaf, f.name)
+        if v is None or hasattr(v, "dtype"):
+            arrays[f.name] = None if v is None else (tuple(v.shape),
+                                                     _dtype(v.dtype))
+        else:
+            static[f.name] = v
+    return type(leaf).__name__, static, arrays
+
+
+def abstract_tree(tree):
+    from repro_torch.core.tree import leaves_with_path
+    return {k: abstract_fields(v) for k, v in leaves_with_path(tree)}
+
+
+def all_meta(tree):
+    """Assert every tensor of a port tree is on the ``meta`` device."""
+    import torch
+    from repro_torch.core.qtensor import QLeaf
+    from repro_torch.core.tree import leaves_with_path
+    for _, leaf in leaves_with_path(tree):
+        for f in (dataclasses.fields(leaf) if isinstance(leaf, QLeaf)
+                  else ()):
+            v = getattr(leaf, f.name)
+            if isinstance(v, torch.Tensor):
+                assert v.device.type == "meta"
+        if isinstance(leaf, torch.Tensor):
+            assert leaf.device.type == "meta"
