@@ -102,6 +102,35 @@ Phases, each fatal on failure (nonzero exit, no result line):
    own quantization of the float proxy on the card (its top-1, and the
    payload bytes that differ from the JAX artifact's).
 
+8. the serving runtime -- (a) ``repro_torch.launch.serve.main`` in-process
+   at full width (qwen1.5-0.5b, int8 KV, ``--max-batch 8 --max-len
+   256``, 8 requests of 16 new tokens): its ``requests=`` / ``decoded=``
+   / ``tok/s=`` lines, and its launches equal to what its leaves route
+   (decode_attn_int8 24 per decode step, int4_matmul one per step and
+   group, 0 plain calls); (b) phase 6's ``token`` artifact (kept on disk
+   for this phase, as phase 4's ``m2q-w8a8`` one is) loaded on the card
+   and driven through one scripted manual run, once from the engine's
+   CUDA graphs and once eagerly, each at seed 0 with
+   ``debug_numerics=True`` and ``raise@prefill:2,nan@decode:5``: 8
+   preemptible batch-class requests (two streamed, one at temperature
+   0.8), then 2 interactive ones; both runs must fail the same uids
+   with the same classes (``InjectedFault`` for the prefill group,
+   ``NumericalError`` for the one poisoned slot), deliver the same
+   tokens at zero tolerance, preempt at least once with the evicted
+   stream kept, stream what they return, reconcile, and launch
+   decode_attn_int8 24 times a step; the decode step in a CUDA graph
+   with the cache scan off and on; (c) a ``ServingDaemon`` over a new
+   graphed engine of that artifact serving ``launch.daemon.
+   serve_traffic``'s 16 requests from a foreign thread, the first
+   interactive one streamed: streamed == result, reconciled, the daemon
+   stopped, launches as routed; time to first token, token gaps,
+   per-class p50/p99 and tokens/s printed; (d) a daemon over phase 4's
+   ``m2q-w8a8`` artifact serving 12 images submitted from a foreign
+   thread in the interactive and batch classes: every handle DONE,
+   reconciled, 42 / 20 / 14 / 14 launches per forward (logits are not
+   gated here: daemon batches form by timing, and relu_attn's scales
+   span the batch).  The artifacts are removed at the end.
+
 It then prints the card's name and power limit again, one JSON line with
 every kernel's numbers and, last, the ``{"ok": true, "device": ...}``
 line.
@@ -810,6 +839,8 @@ def leaf_kind(leaf) -> str:
 
 
 ARTIFACTS = ROOT / "build" / "chip_smoke_artifacts"
+# the artifacts phase 8 serves again; main() removes them at the end
+KEPT_ARTIFACTS = ("m2q-w8a8", "token")
 
 
 def _bits(torch, t):
@@ -854,7 +885,8 @@ def check_same_model(torch, what, a, b) -> None:
 def round_trip(torch, qm, what: str):
     """``qm.save`` and ``QuantizedModel.load(..., device="cuda")``, timed;
     fails unless the loaded model is ``qm``'s.  Returns (the loaded
-    model, {artifact_bytes, save_s, load_s})."""
+    model, {artifact_bytes, save_s, load_s}).  The artifact is removed,
+    but for the paths in ``KEPT_ARTIFACTS``."""
     import shutil
     from repro_torch import recipe
     path = ARTIFACTS / what
@@ -871,7 +903,8 @@ def round_trip(torch, qm, what: str):
         size = sum(f.stat().st_size for f in step_dir.iterdir())
         check_same_model(torch, what, qm, loaded)
     finally:
-        shutil.rmtree(path, ignore_errors=True)
+        if what not in KEPT_ARTIFACTS:
+            shutil.rmtree(path, ignore_errors=True)
     return loaded, {"artifact_bytes": size, "save_s": t1 - t0,
                     "load_s": t2 - t1}
 
@@ -1565,6 +1598,343 @@ def run_proxy(torch, out_dir):
     return counts
 
 
+# ---- phase 8: the serving runtime -----------------------------------------
+# (b)'s fault spec: the second prefill group raises, and the fifth decode
+# step NaN-poisons one live slot's cache rows
+RUNTIME_SPEC = "raise@prefill:2,nan@decode:5"
+RUNTIME_BATCH = 8
+
+
+def runtime_requests(cfg):
+    """(b)'s requests: 8 batch-class ones (preemptible, 16 new tokens; the
+    first two streamed, the last at temperature 0.8), then 2 interactive
+    ones (8 new tokens)."""
+    import numpy as np
+    from repro_torch.serving.slo import BATCH, INTERACTIVE
+    rng = np.random.default_rng(4)
+
+    def prompt(lo, hi):
+        return rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi)),
+                            dtype=np.int32)
+    batch = [dict(prompt=prompt(8, 33), max_new_tokens=16,
+                  temperature=0.8 if i == 7 else 0.0,
+                  priority=BATCH.priority, preemptible=True, stream=i < 2)
+             for i in range(8)]
+    inter = [dict(prompt=prompt(4, 17), max_new_tokens=8,
+                  priority=INTERACTIVE.priority, stream=False)
+             for _ in range(2)]
+    return batch, inter
+
+
+def drive_runtime_script(engine) -> dict:
+    """(b)'s manual drive of a token engine with ``max_batch`` 8 built with
+    ``faults=RUNTIME_SPEC``: the batch requests fill the slots in one
+    prefill group and decode 3 steps; both interactive requests arrive, so
+    the next step evicts one batch slot (the first of equals: a streamer),
+    the first interactive request's group raises (prefill 2), the second
+    takes the slot, and decode step 5 poisons slot 0.  Returns what two
+    runs must agree on, with the kernels' counts over the drive."""
+    from repro_torch import kernels
+    batch, inter = runtime_requests(engine.cfg)
+    kernels.reset_counts()
+    s0 = engine.stats.steps, engine.stats.prefill_batches
+    reqs, streams = [], {}
+
+    def submit(kw):
+        kw = dict(kw)
+        seen = [] if kw.pop("stream") else None
+        r = engine.submit(**kw, on_token=None if seen is None
+                          else seen.append)
+        if seen is not None:
+            streams[r.uid] = seen
+        reqs.append(r)
+
+    for kw in batch:
+        submit(kw)
+    for _ in range(3):
+        engine.step()
+    before = {uid: list(s) for uid, s in streams.items()}
+    for kw in inter:
+        submit(kw)
+    engine.run()
+    s = engine.stats
+    return dict(
+        outcomes=[(r.uid, r.handle.state,
+                   type(r.handle.exception()).__name__
+                   if r.handle.exception() is not None else None)
+                  for r in reqs],
+        tokens={r.uid: r.handle.result() for r in reqs
+                if r.handle.state == "DONE"},
+        streams=streams, before=before,
+        preemptions={r.uid: r.preemptions for r in reqs},
+        steps=s.steps - s0[0], groups=s.prefill_batches - s0[1],
+        counts=kernels.counts(),
+        stats=dict(s.summary(), preemptions=s.preemptions,
+                   streamed_tokens=s.streamed_tokens, resolved=s.resolved))
+
+
+def runtime_script_problems(cfg, runs: dict, device: str) -> list:
+    """What is wrong with (b)'s runs (mode -> drive_runtime_script()):
+    per run, exactly one NumericalError, a failed prefill group of
+    InjectedFault, at least one preemption with its pre-eviction stream
+    kept, every DONE stream equal to its result, every submit resolved,
+    decode_attn_int8 once per layer and step and no call of the other
+    route (``launches`` on CUDA, ``plain_calls`` on the CPU); across
+    runs, equal outcomes, DONE tokens and preemptions."""
+    out = []
+    field, other = (("launches", "plain_calls") if device == "cuda"
+                    else ("plain_calls", "launches"))
+    for mode, r in runs.items():
+        kinds = Counter(e for _, _, e in r["outcomes"])
+        if kinds["NumericalError"] != 1 or not kinds["InjectedFault"]:
+            out.append(f"{mode}: failures {dict(kinds)}, expected one "
+                       "NumericalError and a group of InjectedFault")
+        if sum(r["preemptions"].values()) < 1 \
+                or r["stats"]["preemptions"] != sum(
+                    r["preemptions"].values()):
+            out.append(f"{mode}: preemptions {r['preemptions']}, stats "
+                       f"{r['stats']['preemptions']}")
+        for uid, n in r["preemptions"].items():
+            toks = r["tokens"].get(uid)
+            if n and uid in r["before"] and (
+                    toks is None or toks[:len(r["before"][uid])]
+                    != r["before"][uid]):
+                out.append(f"{mode}: preempted request {uid} lost its "
+                           "pre-eviction tokens")
+        for uid, seen in r["streams"].items():
+            if uid in r["tokens"] and seen != r["tokens"][uid]:
+                out.append(f"{mode}: request {uid} streamed {seen}, "
+                           f"result {r['tokens'][uid]}")
+        if r["stats"]["submitted"] != r["stats"]["resolved"]:
+            out.append(f"{mode}: submitted {r['stats']['submitted']} != "
+                       f"resolved {r['stats']['resolved']}")
+        c = r["counts"]
+        if c["decode_attn_int8"][field] != cfg.n_layers * r["steps"] \
+                or any(v[other] for v in c.values()):
+            out.append(f"{mode}: counts {c} over {r['steps']} steps")
+    first = next(iter(runs.values()))
+    for mode, r in list(runs.items())[1:]:
+        for key in ("outcomes", "tokens", "preemptions"):
+            if r[key] != first[key]:
+                out.append(f"{mode}: {key} differ from the first run's")
+    return out
+
+
+def _printed(fn, *args):
+    """(fn's return value, or its SystemExit code; its standard output),
+    the output echoed as well."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            ret = fn(*args)
+    except SystemExit as e:
+        ret = e.code
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+    return ret, buf.getvalue()
+
+
+def _line(pattern, text, what):
+    import re
+    m = re.search(pattern, text)
+    if m is None:
+        fail(f"phase 8: no {what} line in {text[-400:]!r}")
+    return m
+
+
+def _check_counts(counts, want, what):
+    for kname, c in counts.items():
+        if c["launches"] != want.get(kname, 0) or c["plain_calls"]:
+            fail(f"phase 8 {what}: {kname} {c}, expected "
+                 f"{want.get(kname, 0)} launches and 0 plain calls")
+
+
+def run_runtime(torch, out_dir, card):
+    """Phase 8, the serving runtime: (a) ``launch.serve.main`` at full
+    width, (b) a scripted fault / preemption / streaming drive of the
+    token engine from phase 6's artifact, graphed and eager, (c) token
+    traffic through a ``ServingDaemon`` by ``launch.daemon.serve_traffic``,
+    (d) vision traffic through a daemon over phase 4's artifact.  Returns
+    the kernels' counts of the four parts."""
+    import argparse
+    import gc
+    import threading
+    import numpy as np
+    from repro_torch import kernels, recipe
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import daemon as launch_daemon
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serving.daemon import ServingDaemon
+    from repro_torch.serving.faults import FaultInjector
+
+    total = Counter()
+
+    def add(counts):
+        total.update({k: c["launches"] for k, c in counts.items()})
+
+    # (a) the serve CLI, in-process, at full width over the int8 cache
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    _, text = _printed(launch_serve.main, [
+        "--arch", "qwen1.5-0.5b", "--max-batch", str(RUNTIME_BATCH),
+        "--max-len", str(TOKEN_MAX_LEN), "--requests", "8",
+        "--max-new", "16", "--kv-cache-dtype", "int8"])
+    serve_s = time.perf_counter() - t0
+    counts = kernels.counts()
+    add(counts)
+    m = _line(r"requests=(\d+) decoded=(\d+) steps=(\d+) tok/s=([\d.]+)",
+              text, "requests=")
+    flushes = _line(r"flushes=(\{.*\})", text, "flushes=")
+    groups = sum(json.loads(flushes[1].replace("'", '"')).values())
+    steps = int(m[3])
+    if (int(m[1]), int(m[2])) != (8, 8 * 15) or not float(m[4]) > 0:
+        fail(f"phase 8 (a): the serve CLI printed {m[0]!r}, expected 8 "
+             "requests and 120 decoded tokens")
+    _check_counts(counts, token_launches(ARCHS["qwen1.5-0.5b"], "token",
+                                         steps, groups),
+                  f"(a) over {steps} steps and {groups} groups")
+    res = dict(serve_cli=dict(line=m[0], steps=steps, prefill_groups=groups,
+                              tokens_per_s=float(m[4]), wall_s=serve_s,
+                              launches={k: c["launches"]
+                                        for k, c in counts.items()
+                                        if c["launches"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the scripted drive, graphed and eager, on phase 6's artifact
+    tok = recipe.QuantizedModel.load(ARTIFACTS / "token", device="cuda")
+    runs = {}
+    for graphs in (True, False):
+        mode = "graph" if graphs else "eager"
+        eng = tok.serve(max_batch=RUNTIME_BATCH, max_len=TOKEN_MAX_LEN,
+                        seed=0, graphs=graphs, debug_numerics=True,
+                        faults=FaultInjector.parse(RUNTIME_SPEC))
+        runs[mode] = drive_runtime_script(eng)
+        add(runs[mode]["counts"])
+        if graphs and len(eng.step_graphs) != 2:
+            fail(f"phase 8 (b): {len(eng.step_graphs)} decode graphs, "
+                 "expected a greedy and a drawing one")
+        _check_counts(runs[mode]["counts"], token_launches(
+            tok.cfg, "token", runs[mode]["steps"], runs[mode]["groups"]),
+            f"(b) {mode}")
+        del eng
+    problems = runtime_script_problems(tok.cfg, runs, "cuda")
+    if problems:
+        fail("phase 8 (b): " + "; ".join(problems)[:1500])
+    # the decode step with the cache scan off and on, in CUDA graphs
+    step_ms = {"scan_off": [], "scan_on": []}
+    for scan in (False, True, True, False):
+        eng = tok.serve(max_batch=RUNTIME_BATCH, max_len=TOKEN_MAX_LEN,
+                        graphs=False, debug_numerics=scan)
+        eng.cache["lengths"].fill_(96)
+        eng._live.fill_(True)
+        with torch.no_grad():
+            step_ms["scan_on" if scan else "scan_off"].append(
+                graph_ms(lambda: eng._decode_step(False), iters=3))
+        del eng
+    res["script"] = dict(
+        spec=RUNTIME_SPEC, outcomes=runs["graph"]["outcomes"],
+        preemptions=runs["graph"]["preemptions"],
+        steps=runs["graph"]["steps"], groups=runs["graph"]["groups"],
+        stats={m: r["stats"] for m, r in runs.items()},
+        decode_step_graph_ms=step_ms)
+    print("phase 8 (b):", json.dumps(res["script"]), flush=True)
+
+    # (c) token traffic through the daemon: submits from a foreign thread,
+    # the first interactive request streamed; this thread leaves the card
+    # alone until the daemon has stopped (its graphs are captured on the
+    # daemon's thread)
+    eng = tok.serve(max_batch=RUNTIME_BATCH, max_len=TOKEN_MAX_LEN, seed=0)
+    gc.collect()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    args = argparse.Namespace(requests=16, max_new=16, timeout=300.0,
+                              stream=False)
+    daemon = ServingDaemon(eng).start()
+    t0 = time.perf_counter()
+    try:
+        ok, text = _printed(launch_daemon.serve_traffic, daemon, args)
+    finally:
+        daemon.shutdown(drain=False, timeout=60.0)
+    wall = time.perf_counter() - t0
+    counts = kernels.counts()
+    add(counts)
+    if ok is not True or daemon.running or daemon._thread.is_alive() \
+            or daemon.crashed is not None:
+        fail(f"phase 8 (c): serve_traffic returned {ok}, daemon running "
+             f"{daemon.running}, crashed {daemon.crashed!r}")
+    s = eng.stats
+    _check_counts(counts, token_launches(tok.cfg, "token", s.steps,
+                                         s.prefill_batches),
+                  f"(c) over {s.steps} steps")
+    stream = _line(r"stream ttft=([\d.]+)ms tokens=(\d+) gap "
+                   r"p50=([\d.]+)ms max=([\d.]+)ms gaps_ms=(\[.*\])",
+                   text, "stream")
+    generated = s.decoded_tokens + s.prefills
+    res["token_daemon"] = dict(
+        requests=s.submitted, tokens=generated, wall_s=wall,
+        tokens_per_s=generated / wall, ttft_ms=float(stream[1]),
+        gap_p50_ms=float(stream[3]), gap_max_ms=float(stream[4]),
+        gaps_ms=json.loads(stream[5]),
+        steps=s.steps, prefill_groups=s.prefill_batches,
+        preemptions=s.preemptions, graph_capture_s=eng.step_graphs.capture_s,
+        classes=daemon.stats_summary()["classes"], card=card)
+    print("phase 8 (c):", json.dumps(res["token_daemon"]), flush=True)
+    del eng, daemon, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) vision traffic through the daemon over phase 4's artifact
+    vis = recipe.QuantizedModel.load(ARTIFACTS / "m2q-w8a8", device="cuda")
+    eng = vis.serve(max_batch=BATCH)
+    rng = np.random.default_rng(6)
+    images = rng.normal(0, 1, (N_IMAGES, vis.cfg.img_res, vis.cfg.img_res,
+                               3)).astype(np.float32)
+    gc.collect()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    handles = []
+    daemon = ServingDaemon(eng).start()
+    t0 = time.perf_counter()
+    try:
+        th = threading.Thread(target=lambda: handles.extend(
+            daemon.submit(img, slo="interactive" if i % 3 == 0 else "batch")
+            for i, img in enumerate(images)))
+        th.start()
+        th.join(300.0)
+        for h in handles:
+            h.result(timeout=300.0)
+        daemon.shutdown(drain=True, timeout=300.0)
+    finally:
+        daemon.shutdown(drain=False, timeout=60.0)
+    wall = time.perf_counter() - t0
+    counts = kernels.counts()
+    add(counts)
+    s = eng.stats
+    if len(handles) != N_IMAGES or any(h.state != "DONE" for h in handles) \
+            or s.submitted != s.resolved or daemon._thread.is_alive():
+        fail(f"phase 8 (d): {len(handles)} handles, states "
+             f"{Counter(h.state for h in handles)}, submitted {s.submitted}"
+             f", resolved {s.resolved}")
+    per_fwd = {"m2q_matmul": 42, "dwconv_w4": 20, "relu_attn": 14,
+               "relu_attn_scales": 14}
+    _check_counts(counts, {k: n * s.batches for k, n in per_fwd.items()},
+                  f"(d) over {s.batches} forwards")
+    res["vision_daemon"] = dict(
+        images=N_IMAGES, wall_s=wall, images_per_s=N_IMAGES / wall,
+        forwards=s.batches, buckets=sorted(s.buckets_used),
+        graph_capture_s=eng.step_graphs.capture_s,
+        classes=daemon.stats_summary()["classes"], card=card)
+    print("phase 8 (d):", json.dumps(res["vision_daemon"]), flush=True)
+    (out_dir / "chip_smoke_runtime.json").write_text(
+        json.dumps(res, indent=1))
+    del eng, daemon, vis
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
     import torch  # the card check needs torch before anything else
 
@@ -1632,23 +2002,30 @@ def main() -> None:
                   flush=True)
     print("kernels:", ", ".join(t.name for t in tallies), flush=True)
 
-    # ---- 4./5. the recipe paths, each read from zeroed counters ---------
     launches = Counter()
-    for name in PATHS:
-        counts = run_path(torch, cfg, name, calls, out_dir,
-                          full=name in ("m2q-w8a8", "uniform8"))
+    try:  # fail() exits through here too: no artifact stays behind
+        # ---- 4./5. the recipe paths, each read from zeroed counters -----
+        for name in PATHS:
+            counts = run_path(torch, cfg, name, calls, out_dir,
+                              full=name in ("m2q-w8a8", "uniform8"))
+            launches.update({k: c["launches"] for k, c in counts.items()})
+
+        # ---- 6. the token paths, each read from zeroed counters ----------
+        for name in ("token", "token-m2q"):
+            counts = run_token_path(torch, out_dir, name)
+            launches.update({k: c["launches"] for k, c in counts.items()})
+
+        # ---- 7. the trained proxy's artifact, read from zeroed counters ---
+        counts = run_proxy(torch, out_dir)
         launches.update({k: c["launches"] for k, c in counts.items()})
 
-    # ---- 6. the token paths, each read from zeroed counters --------------
-    for name in ("token", "token-m2q"):
-        counts = run_token_path(torch, out_dir, name)
-        launches.update({k: c["launches"] for k, c in counts.items()})
+        # ---- 8. the serving runtime, each part from zeroed counters -------
+        launches.update(run_runtime(torch, out_dir, card))
+    finally:
+        import shutil
+        shutil.rmtree(ARTIFACTS, ignore_errors=True)
 
-    # ---- 7. the trained proxy's artifact, read from zeroed counters -------
-    counts = run_proxy(torch, out_dir)
-    launches.update({k: c["launches"] for k, c in counts.items()})
-
-    # ---- 8. results -----------------------------------------------------
+    # ---- 9. results -----------------------------------------------------
     replaces = {"m2q_matmul": "src/repro/kernels/m2q_matmul.py:80",
                 "dwconv_w4": "src/repro/kernels/dwconv_w4.py:107",
                 "relu_attn": "src/repro/kernels/relu_attn.py:74",

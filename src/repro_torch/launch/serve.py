@@ -1,0 +1,102 @@
+"""The serving CLI (twin of ``repro.launch.serve``): PTQ-quantize a
+model with M2Q and serve batched requests through the continuous-batching
+token engine.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --reduced --requests 8 --max-new 16 [--device cpu]
+
+The engine runs on ``--device`` (the card by default).  ``--mesh``
+(sharded execution) is not ported: it waits for the port's sharding
+(ROADMAP A9).
+
+One flag is the port's own, not in the JAX CLI: ``--kv-cache-dtype``.
+The registry's qwen1.5-0.5b keeps a bf16 cache, so without it the CLI
+could not serve the int8-KV deployment whose decode attention runs the
+``decode_attn_int8`` kernel on the card.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+
+from ..configs.registry import ARCHS, REDUCED
+from ..models import get_model
+from ..recipe import QuantizedModel, as_recipe, quantize
+from ..serving.engine import Engine
+
+MESH_NOT_PORTED = ("--mesh: sharded serving is not ported; it waits for "
+                   "the port's dist/sharding.py (ROADMAP A9)")
+
+
+def quantize_for_serving(cfg, params, batch: int = 2, calib_len: int = 32,
+                         recipe="m2q-w8a8") -> QuantizedModel:
+    """Offline PTQ via the recipe API: calibrate on random prompts, apply
+    M2Q, return the persistable artifact.  Only the prompt shape is
+    overridden; the recipe's other CalibSpec fields (batches, seed) are
+    kept."""
+    rec = as_recipe(recipe)
+    rec = rec.replace(calib=dataclasses.replace(
+        rec.calib, batch_size=batch, seq_len=calib_len))
+    return quantize(cfg, params, rec)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--max-delay-ms", type=float, default=0.0,
+                    help="admission deadline: >0 coalesces prefills until "
+                         "the batch fills or the oldest request ages out")
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxMODEL sharded execution (not ported)")
+    ap.add_argument("--no-quant", action="store_true")
+    ap.add_argument("--kv-cache-dtype", choices=("bf16", "int8"),
+                    default=None,
+                    help="the KV cache (default: the config's); port-only")
+    ap.add_argument("--device", default="cuda",
+                    help="where the model and engine live (cuda or cpu)")
+    args = ap.parse_args(argv)
+    if args.mesh:
+        raise SystemExit(MESH_NOT_PORTED)
+
+    cfg = (REDUCED if args.reduced else ARCHS)[args.arch]
+    if args.kv_cache_dtype:
+        cfg = cfg.replace(kv_cache_dtype=args.kv_cache_dtype)
+    params = get_model(cfg).init(cfg, seed=0, device=args.device)
+    engine_kw = dict(max_batch=args.max_batch, max_len=args.max_len,
+                     max_delay_ms=args.max_delay_ms)
+    if not args.no_quant:
+        qm = quantize_for_serving(cfg, params)
+        del params
+        bits = {r.path: r.bits for r in qm.report}
+        print(f"[serve] quantized {len(qm.report)} layers; "
+              f"avg bits={np.mean(list(bits.values())):.2f}")
+        eng = qm.serve(**engine_kw)
+    else:
+        eng = Engine(cfg, params, **engine_kw)
+    rng = np.random.default_rng(1)
+    for _ in range(args.requests):
+        plen = int(rng.integers(4, 17))
+        eng.submit(rng.integers(0, cfg.vocab_size, plen, dtype=np.int32),
+                   max_new_tokens=args.max_new)
+    t0 = time.time()
+    stats = eng.run()  # ends on a completion's read: the card is done
+    dt = time.time() - t0
+    print(f"[serve] arch={cfg.name} requests={stats.finished} "
+          f"decoded={stats.decoded_tokens} steps={stats.steps} "
+          f"tok/s={stats.decoded_tokens / max(dt, 1e-9):.1f}")
+    print(f"[serve] queue p50={stats.p50_ms:.2f}ms p99={stats.p99_ms:.2f}ms "
+          f"prefill-occupancy={stats.batch_occupancy:.2f} "
+          f"padded-fraction={stats.padded_fraction:.2f} "
+          f"flushes={stats.flush_reasons}")
+
+
+if __name__ == "__main__":
+    main()

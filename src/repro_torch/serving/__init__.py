@@ -1,1 +1,2 @@
-"""Serving: the shared scheduler core and the batched vision engine."""
+"""Serving: the shared scheduler core, the token and vision engines,
+fault injection, SLO classes and the wall-clock serving daemon."""

@@ -1,7 +1,6 @@
 """Continuous-batching token engine over a (quantized) LM parameter tree
-(twin of ``repro.serving.engine.Engine`` without ``FallbackGuard``,
-fault injection, ``mesh=``, preemption, priorities, streaming and the
-debug-numerics cache scan).
+(twin of ``repro.serving.engine.Engine`` without ``FallbackGuard`` and
+``mesh=``).
 
 Slot-based: a fixed decode batch of ``max_batch`` slots, each holding one
 request's KV cache rows.  Waiting requests are admitted into free slots by
@@ -36,10 +35,32 @@ There is no silent retry: a raising prefill fails its group's handles, a
 raising decode step fails the slots live in it, and the engine serves on.
 With ``kv_cache_dtype == "int8"`` every decode step runs the
 ``decode_attn_int8`` kernel once per layer on CUDA.
+
+Priorities, preemption and streaming: ``submit(..., priority=)`` admits
+higher classes first; a ``preemptible`` request's slot may be evicted
+for a strictly-higher-priority request that is due while every slot is
+busy -- it restarts from prefill over its prompt plus the tokens it has
+decoded, keeping them (``Request.out_prefix``).  ``stream=True`` (or
+``on_token=``) pushes each token through the handle as it is decoded, at
+one device-to-host read of the pending tokens per step, shared by every
+streaming slot, plus one per prefill group for the first tokens.
+
+Fault injection (:mod:`.faults`; ``faults=`` or ``REPRO_FAULT_SPEC``)
+fires at the ``prefill`` and ``decode`` sites: a ``raise`` fails the
+group or the live slots, a ``nan@decode`` NaN-poisons one live slot's
+cache rows in place (so a replayed decode graph sees them) and that
+request alone fails with :class:`~.errors.NumericalError`.  With an int8
+cache the quantizers send NaN to code 0, so the logits check alone can
+miss a poisoned slot (the logits check is always on: JAX's
+``check_numerics=`` switch is not ported); ``debug_numerics=True`` (or
+``REPRO_DEBUG_NUMERICS=1``) also scans the cache's float leaves inside
+every decode step.  ``heartbeat`` is the wall-clock time ``step()`` was
+last entered.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, List, Optional
 
@@ -49,6 +70,7 @@ import torch
 from ..core.tree import device_of
 from ..models import get_model
 from ..models.config import ArchConfig
+from . import faults as _faults
 from .batching import ServeStats, pow2_bucket
 from .errors import NumericalError, RequestTimedOut
 from .graphs import for_device, in_use
@@ -64,6 +86,12 @@ class Request:
     temperature: float = 0.0  # 0 = greedy
     out_tokens: Optional[List[int]] = None
     handle: Optional[Handle] = None  # resolves at completion
+    stream: bool = False             # push tokens through the handle
+    preemptible: bool = False        # slot may be evicted for higher prio
+    # restart-from-prefix state: tokens decoded by earlier incarnations;
+    # the result is out_prefix + the current incarnation's tokens
+    out_prefix: List[int] = dataclasses.field(default_factory=list)
+    preemptions: int = 0
 
 
 @dataclasses.dataclass
@@ -75,6 +103,8 @@ class EngineStats(ServeStats):
     prefills: int = 0
     prefill_batches: int = 0
     finished: int = 0
+    preemptions: int = 0       # slot evictions (restart-from-prefix)
+    streamed_tokens: int = 0   # tokens pushed through streaming handles
 
 
 class Engine:
@@ -83,6 +113,8 @@ class Engine:
                  max_delay_ms: float = 0.0,
                  clock: Callable[[], float] = time.monotonic,
                  overload: Optional[OverloadPolicy] = None,
+                 faults: Optional[_faults.FaultInjector] = None,
+                 debug_numerics: Optional[bool] = None,
                  graphs: bool = True):
         if max_delay_ms is None:
             raise ValueError(
@@ -101,6 +133,16 @@ class Engine:
         self.T = max_len
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.stats = EngineStats()
+        self.faults = faults if faults is not None else _faults.from_env()
+        if debug_numerics is None:
+            debug_numerics = os.environ.get(
+                "REPRO_DEBUG_NUMERICS", "").strip().lower() in (
+                    "1", "true", "on", "yes")
+        # fixed per engine, so the decode graphs stay keyed by draw only
+        self.debug_numerics = bool(debug_numerics)
+        # wall-clock time step() was last entered, whatever the
+        # scheduler's clock (the supervision layer's liveness signal)
+        self.heartbeat: Optional[float] = None
         self.scheduler = Scheduler(
             policy=FlushPolicy(max_batch=max_batch,
                                max_delay_ms=max_delay_ms),
@@ -135,13 +177,28 @@ class Engine:
 
     def submit(self, prompt, max_new_tokens: int = 16,
                temperature: float = 0.0,
-               deadline_ms: Optional[float] = None) -> Request:
+               deadline_ms: Optional[float] = None,
+               priority: int = 0,
+               stream: bool = False,
+               on_token: Optional[Callable[[int], None]] = None,
+               preemptible: bool = False) -> Request:
         """Enqueue one request; its ``.handle`` resolves (or fails) at
-        completion with the list of generated token ids.
+        completion with the list of generated token ids.  Host-only
+        (numpy and the scheduler): any thread may submit while another
+        drives the engine.
 
         ``deadline_ms``: the request times out (``TIMED_OUT``, slot freed)
         unless it completes within that many ms of submission, queued or
-        mid-decode.  Raises ``ValueError`` up front for a prompt that is
+        mid-decode.  ``priority``: higher admits first (FIFO within a
+        class).  ``preemptible``: the decode slot may be evicted for a
+        strictly-higher-priority request; the request restarts from
+        prefill over its prompt and the tokens so far, keeping them.
+        ``stream=True`` (implied by ``on_token``) pushes each decoded
+        token through the handle (``handle.tokens()`` / the callback)
+        before the completion-time numerics check: the handle's terminal
+        state says whether the stream is trustworthy.
+
+        Raises ``ValueError`` up front for a prompt that is
         not a 1-D vector of integer token ids in ``[0, vocab_size)``, an
         empty prompt, ``max_new_tokens < 1``, or a prompt plus budget
         longer than ``max_len``; ``QueueFullError`` when a bounded queue
@@ -171,8 +228,12 @@ class Engine:
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens})"
                 f" exceeds max_len ({self.T})")
         req = Request(uid=0, prompt=prompt, max_new_tokens=max_new_tokens,
-                      temperature=float(temperature), out_tokens=[])
-        req.handle = self.scheduler.submit(req, deadline_ms=deadline_ms)
+                      temperature=float(temperature), out_tokens=[],
+                      stream=bool(stream) or on_token is not None,
+                      preemptible=bool(preemptible))
+        req.handle = self.scheduler.submit(req, deadline_ms=deadline_ms,
+                                           priority=priority,
+                                           on_token=on_token)
         req.uid = req.handle.uid
         return req
 
@@ -197,6 +258,19 @@ class Engine:
         lg = logits[:, : self.cfg.vocab_size]
         return ~torch.isfinite(lg).all(dim=-1)
 
+    def _cache_nonfinite(self) -> torch.Tensor:
+        """(B,) bool: any NaN/Inf in a slot's float cache rows (batch axis
+        1).  Integer payloads are finite by construction; the float leaves
+        (a float cache, the int8 cache's row scales) carry a NaN the
+        quantizers would send to code 0."""
+        bad = torch.zeros((self.B,), dtype=torch.bool, device=self.device)
+        for leaf in self.cache.values():
+            if leaf.ndim < 2 or not leaf.is_floating_point():
+                continue
+            rows = torch.isfinite(leaf).movedim(1, 0).reshape(self.B, -1)
+            bad |= ~rows.all(dim=1)
+        return bad
+
     def _write_slots(self, slots: List[int], group_cache: dict) -> None:
         """Copy an (n, ...) prefill cache into the engine cache's slots
         (the batch axis is 1 for the stacked (L, B, ...) rows)."""
@@ -216,7 +290,9 @@ class Engine:
         while True:
             free = [i for i, r in enumerate(self.slots) if r is None]
             if not free:
-                return
+                if not self._maybe_preempt():
+                    return
+                continue  # the evicted slot is free for the due head
             reason = self.scheduler.due()
             if reason is None:
                 return
@@ -229,6 +305,59 @@ class Engine:
             except Exception as e:  # noqa: BLE001 -- per-batch containment
                 for h in group:
                     h.set_exception(e)
+
+    def _maybe_preempt(self) -> bool:
+        """With every slot busy: evict ONE preemptible decode of lower
+        priority than a due request at the head of the queue.  Victim:
+        lowest priority, then most tokens emitted (the continuation with
+        the least decoding left).  Returns True if a slot was freed."""
+        if self.scheduler.due() is None:
+            return False
+        head = self.scheduler.peek(1)
+        if not head:
+            return False
+        want = head[0].priority
+        victims = []
+        for slot, req in enumerate(self.slots):
+            if (req is None or not req.preemptible or req.handle is None
+                    or req.handle.done()
+                    or req.handle.priority >= want):
+                continue
+            victims.append((req.handle.priority, -self._emitted[slot], slot))
+        if not victims:
+            return False
+        self._preempt_slot(min(victims)[2])
+        return True
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Evict one decode, restart-from-prefix: the tokens decoded so
+        far join the prompt (``max_new_tokens`` shrinks by as many, so
+        the ``max_len`` check still holds) and the same handle goes back
+        to the end of its priority class.  One device-to-host read (the
+        sticky flag and the token row).  A victim whose flag has tripped
+        fails instead: restarting would launder its poisoned tokens into
+        the continuation's prompt."""
+        req = self.slots[slot]
+        h = req.handle
+        emitted = self._emitted[slot]
+        row = torch.cat([self._nonfinite[slot:slot + 1].to(torch.int32),
+                         self._outbuf[slot, :emitted]]).cpu().numpy()
+        if row[0]:
+            h.set_exception(NumericalError(
+                f"request {h.uid} produced non-finite logits during "
+                "decode (caught at preemption); its tokens are not "
+                "trustworthy and were not delivered"))
+            self._release_slot(slot)
+            return
+        toks = row[1:]
+        req.out_prefix.extend(int(t) for t in toks)
+        req.prompt = np.concatenate([req.prompt, toks.astype(np.int32)])
+        # a slot at its budget retired in _finish_done: the rest is >= 1
+        req.max_new_tokens -= emitted
+        req.preemptions += 1
+        self.stats.preemptions += 1
+        self._release_slot(slot)
+        self.scheduler.requeue(h)
 
     @torch.no_grad()
     def _prefill_group(self, gslots: List[int], handles: List[Handle]):
@@ -245,12 +374,18 @@ class Engine:
                                    dtype=torch.float32, device=dev)
         temps_h = [r.temperature for r in greqs]
         temps = torch.tensor(temps_h, dtype=torch.float32, device=dev)
+        act = (self.faults.on_call("prefill")
+               if self.faults is not None else None)
+        if act is not None:
+            act.fire()  # raises and delays land before any state changes
         logits, sc = self.model.prefill(
             self.cfg, self.params, sc, torch.from_numpy(toks).to(dev),
             lengths=torch.from_numpy(lens).to(dev))
         first = self._sample(logits[:, -1], temps,
                              draw=any(t > 0 for t in temps_h))
         bad = self._row_nonfinite(logits[:, -1])
+        if act is not None and act.poison:
+            bad[0] = True  # the group's first request fails alone
         self._write_slots(gslots, sc)
         idx = torch.as_tensor(gslots, dtype=torch.int64, device=dev)
         self._pending[idx] = first
@@ -263,6 +398,12 @@ class Engine:
             self._emitted[s] = 1
         self.stats.prefills += len(greqs)
         self.stats.prefill_batches += 1
+        if any(r.stream for r in greqs):
+            # streamers pay one read per group for their first tokens
+            fv = first.cpu().numpy()
+            for i, (r, h) in enumerate(zip(greqs, handles)):
+                if r.stream and h.push_token(int(fv[i])):
+                    self.stats.streamed_tokens += 1
         # real prompt tokens vs the padded (n, pmax) prefill executed
         self.stats.record_batch(items=int(lens.sum()),
                                 padded=int(len(greqs) * pmax - lens.sum()),
@@ -313,7 +454,8 @@ class Engine:
                         "trustworthy and were not delivered"))
                 self._release_slot(slot)
                 continue
-            req.out_tokens = [int(t) for t in row[1:]]
+            # out_prefix: the tokens of incarnations before a preemption
+            req.out_tokens = req.out_prefix + [int(t) for t in row[1:]]
             # a late result into a handle already cancelled or timed out
             # is dropped by the handle's state machine
             if h is None or h.set_result(req.out_tokens):
@@ -345,6 +487,10 @@ class Engine:
         # sticky: once a live slot's logits go non-finite the bit stays
         # set until the slot retires
         self._nonfinite |= self._row_nonfinite(lg) & live
+        if self.debug_numerics:
+            # a cache NaN the int8 quantizers would launder into finite
+            # logits still trips the flag
+            self._nonfinite |= self._cache_nonfinite() & live
         tok = torch.where(live, self._sample(lg, self._temps, draw),
                           self._pending)
         b = torch.arange(self.B, device=self.device)
@@ -357,14 +503,22 @@ class Engine:
     def step(self) -> int:
         """Admit, then one decode step for all live slots; returns the
         number of live slots.  A raising decode step fails only the slots
-        live in it; the step itself never raises."""
+        live in it; the step itself never raises (an injected ``crash``,
+        a ``BaseException``, goes through on purpose)."""
+        self.heartbeat = time.monotonic()
         self._sweep_slots()
         self._admit()
         live_mask = np.asarray([r is not None for r in self.slots], bool)
         live = [i for i in range(self.B) if live_mask[i]]
         if not live:
             return 0
+        act = (self.faults.on_call("decode")
+               if self.faults is not None else None)
         try:
+            if act is not None:
+                act.fire()
+                if act.poison:
+                    self._poison_slot(live[0])
             self._decode(live_mask)
         except Exception as e:  # noqa: BLE001 -- per-batch containment
             for slot in live:
@@ -377,8 +531,32 @@ class Engine:
         self.stats.decoded_tokens += len(live)
         for slot in live:
             self._emitted[slot] += 1
+        self._stream_live(live)
         self._finish_done()
         return len(live)
+
+    def _stream_live(self, live: List[int]) -> None:
+        """Push this step's token into every live streaming slot's
+        handle: one read of the pending tokens, shared by all of them,
+        and none when no live slot streams."""
+        streamers = [s for s in live if self.slots[s] is not None
+                     and self.slots[s].stream
+                     and self.slots[s].handle is not None]
+        if not streamers:
+            return
+        pend = self._pending.cpu().numpy()
+        for s in streamers:
+            if self.slots[s].handle.push_token(int(pend[s])):
+                self.stats.streamed_tokens += 1
+
+    @torch.no_grad()
+    def _poison_slot(self, slot: int) -> None:
+        """NaN-poison ONE slot's cache rows (``nan@decode``) in place --
+        the decode graph replays these very buffers -- so that request
+        alone fails with ``NumericalError``."""
+        for leaf in self.cache.values():
+            if leaf.is_floating_point() and leaf.ndim >= 2:
+                leaf[:, slot] = float("nan")
 
     def run(self, max_steps: int = 10_000) -> EngineStats:
         """Step until the queue and every slot are empty (or

@@ -1,5 +1,5 @@
 """Batched vision inference (images in, logits out); twin of
-``repro.serving.vision`` without ``mesh=`` and ``faults=``.
+``repro.serving.vision`` without ``mesh=`` and ``FallbackGuard``.
 
 ``submit()`` queues one image and returns a handle at once; a batch runs
 when it fills to ``max_batch``, when its oldest request is older than
@@ -17,6 +17,15 @@ eagerly (the twin of ``jax.disable_jit()``), as the CPU always does.
 
 There is no silent retry: a kernel that raises fails its batch's requests
 (the scheduler contains the exception) and the engine keeps serving.
+
+Fault injection (:mod:`.faults`; ``faults=`` or ``REPRO_FAULT_SPEC``)
+fires at the ``vision`` site (each executed batch: a ``nan`` poisons the
+first row's logits, and that request alone fails) and at the scheduler's
+``executor`` site.  The JAX package's ``vision.kernel`` site fires inside
+its ``FallbackGuard``; the port has none (ROADMAP A5), so an injector
+that names it is refused when the engine is built rather than accepted
+and never fired.  ``heartbeat`` is the wall-clock time ``poll()`` was
+last entered.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import torch
 from ..core.tree import device_of
 from ..models import get_model
 from ..models.config import ArchConfig
+from . import faults as _faults
 from .batching import ServeStats, pow2_bucket
 from .errors import NumericalError
 from .graphs import for_device, in_use
@@ -57,9 +67,18 @@ class VisionEngine:
                  attn: Optional[str] = None,
                  clock: Callable[[], float] = time.monotonic,
                  overload: Optional[OverloadPolicy] = None,
+                 faults: Optional[_faults.FaultInjector] = None,
                  graphs: bool = True):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
+        faults = faults if faults is not None else _faults.from_env()
+        if faults is not None and any(
+                spec.site == "vision.kernel" for spec in faults.specs):
+            raise ValueError(
+                "fault site 'vision.kernel' fires inside the JAX "
+                "package's FallbackGuard, which the port does not have "
+                "(ROADMAP A5: no silent retry on the card); inject at "
+                "'vision' or 'executor' instead")
         self.cfg = cfg
         self.model = get_model(cfg)
         self.params = params
@@ -67,12 +86,15 @@ class VisionEngine:
         self.attn = attn
         self.B = max_batch
         self.stats = VisionStats()
+        self.faults = faults
+        # wall-clock time poll() was last entered (supervision liveness)
+        self.heartbeat: Optional[float] = None
         self.step_graphs = for_device(self.device, graphs)
         self._inputs = {}  # graph key -> its static (bucket, res, res, 3)
         self.scheduler = Scheduler(
             policy=FlushPolicy(max_batch=max_batch, max_delay_ms=max_delay_ms),
             executor=self._execute, stats=self.stats, clock=clock,
-            overload=overload)
+            overload=overload, faults=self.faults)
 
     def bucket(self, n: int) -> int:
         """Smallest power of two >= n, capped at max_batch: the batch
@@ -110,9 +132,17 @@ class VisionEngine:
             self.cfg, self.params, x, attn=self.attn))
 
     def _execute(self, handles: List[Handle], reason: str) -> None:
-        """One flushed batch -> per-handle logits, finite-checked per row."""
+        """One flushed batch -> per-handle logits, finite-checked per row
+        (an exception out of here fails this batch's handles)."""
+        act = (self.faults.on_call("vision")
+               if self.faults is not None else None)
+        if act is not None:
+            act.fire()  # raises and delays before any work runs
         imgs = np.stack([h.payload for h in handles]).astype(np.float32)
         out = self._run_batch(imgs, self.bucket(len(handles)))
+        if act is not None and act.poison:
+            out = out.copy()
+            out[0] = np.nan  # that request fails alone
         for i, (h, row) in enumerate(zip(handles, out)):
             if not np.all(np.isfinite(row)):
                 h.set_exception(NumericalError(
@@ -124,7 +154,9 @@ class VisionEngine:
     def submit(self, image: np.ndarray,
                deadline_ms: Optional[float] = None) -> Handle:
         """Queue one (res, res, 3) image; the handle's ``result()`` is its
-        (n_classes,) logits.  Raises ``ValueError`` up front on a wrong
+        (n_classes,) logits.  A batch it fills runs inline unless a
+        serving daemon drives the engine (then submit is host-only).
+        Raises ``ValueError`` up front on a wrong
         shape, a non-numeric dtype or NaN/Inf pixels."""
         img = np.asarray(image)
         if img.shape != (self.cfg.img_res, self.cfg.img_res, 3):
@@ -142,6 +174,7 @@ class VisionEngine:
 
     def poll(self) -> int:
         """Execute whatever is due; returns the requests resolved."""
+        self.heartbeat = time.monotonic()
         return self.scheduler.poll()
 
     def flush(self) -> Optional[np.ndarray]:

@@ -8,6 +8,8 @@ machine with an H100 and nvcc:
 """
 import ctypes
 import sys
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -1337,3 +1339,99 @@ def test_loaded_mixed_lm_artifact_serves_the_same_tokens(cuda, tmp_path):
         runs.append(([h.handle.result() for h in hs], kernels.counts()))
     assert runs[1] == runs[0]
     assert runs[0][1]["m2q_matmul"]["launches"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The serving runtime on the card: fault poisoning inside graph mode, the
+# daemon capturing its graphs on its own thread, chip_smoke's phase 8 (b)
+# at reduced width.
+# ---------------------------------------------------------------------------
+
+
+def _reduced_lm(kv, device):
+    from repro_torch import recipe
+    from repro_torch.configs.registry import REDUCED
+    from repro_torch.models import dense_lm
+    cfg = REDUCED["qwen1.5-0.5b"].replace(kv_cache_dtype=kv)
+    return recipe.quantize(cfg, dense_lm.init(cfg, seed=0, device=device),
+                           "w4-weights-only")
+
+
+@pytest.mark.parametrize("kv,scan", [("bf16", False), ("int8", True)])
+def test_poisoning_in_graph_mode_hits_the_graphs_buffers(cuda, kv, scan):
+    """``nan@decode:3`` poisons slot 0's cache rows in place after the
+    decode graph was captured (step 1): the replayed graph reads them, so
+    that request fails as in eager mode (f32 cache: through the logits;
+    int8 cache: the captured cache scan), and its batchmates' tokens
+    equal the eager run's."""
+    from repro_torch.serving.faults import FaultInjector
+    qm = _reduced_lm(kv, cuda)
+    reqs = _token_requests(qm.cfg)[:4]
+    runs = {}
+    for graphs in (False, True):
+        eng = qm.serve(max_batch=4, max_len=64, seed=0, graphs=graphs,
+                       debug_numerics=scan,
+                       faults=FaultInjector.parse("nan@decode:3"))
+        hs = [eng.submit(p, max_new_tokens=max(n, 4), temperature=0.0)
+              for p, n, _ in reqs]
+        eng.run()
+        runs[graphs] = [(h.handle.state, h.out_tokens) for h in hs]
+        if graphs:
+            assert len(eng.step_graphs) == 1
+    assert runs[True] == runs[False]
+    assert runs[True][0] == ("FAILED", [])
+    assert all(state == "DONE" for state, _ in runs[True][1:])
+
+
+def test_daemon_captures_its_graphs_while_another_thread_submits(cuda):
+    """The serve thread captures the decode graphs while a foreign thread
+    keeps submitting (host-only submits): every request completes, every
+    capture ran on the serve thread, the counts reconcile."""
+    from repro_torch.serving.daemon import ServingDaemon
+    qm = _reduced_lm("int8", cuda)
+    eng = qm.serve(max_batch=4, max_len=64, seed=0)
+    captured, capture = [], eng.step_graphs._capture
+
+    def spy(*args):
+        captured.append(threading.current_thread().name)
+        return capture(*args)
+
+    eng.step_graphs._capture = spy
+    reqs = _token_requests(qm.cfg)
+    out = []
+    with ServingDaemon(eng) as daemon:
+        def submitter():
+            for i, (p, n, t) in enumerate(reqs * 2):
+                out.append(daemon.submit(p, slo="batch" if i % 2 else
+                                         "interactive", max_new_tokens=n,
+                                         temperature=t))
+                time.sleep(0.002)
+
+        th = threading.Thread(target=submitter)
+        th.start()
+        th.join(120.0)
+        assert not th.is_alive()
+        for r in out:
+            assert len(r.handle.result(timeout=120.0)) == r.max_new_tokens \
+                + len(r.out_prefix)
+    assert captured and set(captured) == {"repro-serve"}
+    assert len(eng.step_graphs) == 2 and not daemon._thread.is_alive()
+    assert eng.stats.submitted == eng.stats.completed == len(reqs) * 2
+
+
+def test_phase8_script_at_reduced_width(cuda):
+    """chip_smoke's phase 8 (b) on the reduced qwen: the graphed and the
+    eager run fail the same uids with the same classes, deliver the same
+    tokens, preempt with the evicted stream kept, and launch
+    decode_attn_int8 once per layer and step."""
+    from repro_torch.serving.faults import FaultInjector
+    qm = _reduced_lm("int8", cuda)
+    runs = {}
+    for graphs in (True, False):
+        eng = qm.serve(max_batch=chip_smoke.RUNTIME_BATCH, max_len=64,
+                       seed=0, graphs=graphs, debug_numerics=True,
+                       faults=FaultInjector.parse(chip_smoke.RUNTIME_SPEC))
+        runs[graphs] = chip_smoke.drive_runtime_script(eng)
+        if graphs:
+            assert len(eng.step_graphs) == 2
+    assert chip_smoke.runtime_script_problems(qm.cfg, runs, "cuda") == []

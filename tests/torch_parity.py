@@ -358,3 +358,78 @@ def all_meta(tree):
                 assert v.device.type == "meta"
         if isinstance(leaf, torch.Tensor):
             assert leaf.device.type == "meta"
+
+
+# ---------------------------------------------------------------------------
+# serving: the reduced qwen1.5-0.5b engines of both packages
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def reduced_lm_params():
+    """The reduced qwen1.5-0.5b's float params from the JAX package's init
+    at ``PRNGKey(0)``: (JAX tree, the same numbers as the port's CPU
+    tree)."""
+    from repro.configs.registry import REDUCED
+    from repro.models import dense_lm
+    from repro_torch.convert import params_from_numpy
+    cfg = REDUCED["qwen1.5-0.5b"]
+    jparams = jax.jit(lambda k: dense_lm.init(cfg, k))(jax.random.PRNGKey(0))
+    return jparams, params_from_numpy(jax_to_numpy(jparams), "cpu")
+
+
+def lm_engines(kv_cache_dtype="bf16", **kw):
+    """(JAX Engine with every dispatch axis off, the port's Engine on the
+    CPU) over the same reduced-qwen weights; ``kw`` goes to both (an
+    ``faults=`` spec string is parsed by each package)."""
+    from repro.configs.registry import REDUCED as JREDUCED
+    from repro.serving import faults as jfaults
+    from repro.serving.engine import Engine as JEngine
+    from repro_torch.configs.registry import REDUCED as TREDUCED
+    from repro_torch.serving import faults as tfaults
+    from repro_torch.serving.engine import Engine as TEngine
+    jparams, tparams = reduced_lm_params()
+    spec = kw.pop("faults", None)
+    kw = dict(dict(max_batch=2, max_len=64), **kw)
+    off = jops.DispatchConfig(dense=False, conv=False, attn=False)
+    jeng = JEngine(JREDUCED["qwen1.5-0.5b"].replace(
+        kv_cache_dtype=kv_cache_dtype), jparams, dispatch=off,
+        faults=jfaults.FaultInjector.parse(spec) if spec else None, **kw)
+    teng = TEngine(TREDUCED["qwen1.5-0.5b"].replace(
+        kv_cache_dtype=kv_cache_dtype), tparams,
+        faults=tfaults.FaultInjector.parse(spec) if spec else None, **kw)
+    return jeng, teng
+
+
+def lm_prompts(vocab_size, n, seed=0, lo=4, hi=13):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab_size, int(rng.integers(lo, hi)),
+                         dtype=np.int32) for _ in range(n)]
+
+
+def outcomes(reqs):
+    """Per request: (uid, state, exception class name or None, tokens
+    delivered)."""
+    rows = []
+    for r in reqs:
+        exc = r.handle.exception()
+        rows.append((r.uid, r.handle.state,
+                     type(exc).__name__ if exc is not None else None,
+                     len(r.out_tokens or [])))
+    return rows
+
+
+def done_tokens(reqs):
+    """Per DONE request: uid -> the tokens its handle delivered."""
+    return {r.uid: list(map(int, r.handle.result())) for r in reqs
+            if r.handle.state == "DONE"}
+
+
+OUTCOME_FIELDS = ("submitted", "completed", "failed", "cancelled",
+                  "timed_out", "shed", "rejected", "steps", "prefills",
+                  "prefill_batches", "finished", "decoded_tokens",
+                  "preemptions", "streamed_tokens")
+
+
+def stats_fields(stats):
+    return {k: getattr(stats, k) for k in OUTCOME_FIELDS}
