@@ -129,7 +129,37 @@ Phases, each fatal on failure (nonzero exit, no result line):
    thread in the interactive and batch classes: every handle DONE,
    reconciled, 42 / 20 / 14 / 14 launches per forward (logits are not
    gated here: daemon batches form by timing, and relu_attn's scales
-   span the batch).  The artifacts are removed at the end.
+   span the batch);
+
+9. supervised serving -- (a) ``python -m repro_torch.launch.daemon --arch
+   qwen1.5-0.5b --recovery-smoke`` in-process at full width: its
+   ``recovery smoke ok`` line (a restart, every request exact or within
+   the teacher-forced bound, the journal exact) and its kernels launched,
+   no plain call; (b) :func:`supervised_cases` over phase 6's ``token``
+   artifact (int8 KV, ``max_batch`` 8, graphs), each engine build warmed
+   and captured in the factory before it is armed: ``crash@decode`` (one
+   restart), ``hang@decode`` after 2 s (a HungStepError restart whose new
+   engine is built and captured after the released serve thread left), a
+   streamed request across a restart (streamed == result), every build
+   armed until the circuit opens (CircuitOpenError on every handle, a
+   rejected submit, the torn-down engine freed before each rebuild, and
+   allocated memory after restart 3 within half an engine of restart
+   1's), and a second supervisor cold-starting from the journal of a
+   first stopped like a dead process; goodput 100% where no circuit
+   opens, the journals exact with 0 pending, replayed tokens equal to a
+   fault-free run's or, only where the replay's prefill group had another
+   size or padded length, within the teacher-forced
+   5e-2-of-max-|logit| bound (counts printed), launches as the engines'
+   steps and prefill groups route them; (c) :func:`process_kill_replay`: a child process
+   serving the artifact on the card is SIGKILLed mid-flight and a fresh
+   one replays its journal to exact reconciliation; (d)
+   :func:`supervised_vision` over phase 4's artifact under
+   ``crash@vision``: 12 images DONE after the restart, 42 / 20 / 14 / 14
+   launches per forward; (e) the CLI's ``--health-file`` read while it
+   serves: a ready snapshot, the JAX package's keys (``HEALTH_KEYS``), 0
+   restarts, no torn file; (f) per restart, detection, teardown, backoff,
+   factory and recovery seconds and allocated bytes, printed beside the
+   card.  The artifacts are removed at the end.
 
 It then prints the card's name and power limit again, one JSON line with
 every kernel's numbers and, last, the ``{"ok": true, "device": ...}``
@@ -1131,40 +1161,14 @@ def token_requests(cfg):
     return reqs
 
 
-def teacher_forced_logits(torch, cfg, params, prompts, forced):
-    """Prefill ``prompts`` into a batch-len(prompts) cache, then decode
-    the ``forced`` tokens (steps, B); returns the (steps + 1, B, vocab)
-    f32 logits."""
-    from repro_torch.models import dense_lm
-    B = len(prompts)
-    lens = [len(p) for p in prompts]
-    toks = torch.zeros((B, max(lens)), dtype=torch.int64, device="cuda")
-    for i, p in enumerate(prompts):
-        toks[i, :len(p)] = torch.as_tensor(p, device="cuda")
-    cache = dense_lm.init_cache(cfg, B, TOKEN_MAX_LEN, dtype=torch.float32,
-                                device="cuda")
-    out = []
-    with torch.no_grad():
-        lg, cache = dense_lm.prefill(
-            cfg, params, cache, toks,
-            lengths=torch.tensor(lens, dtype=torch.int32, device="cuda"))
-        out.append(lg[:, 0, :cfg.vocab_size].float())
-        for t in forced:
-            lg, cache = dense_lm.decode_step(
-                cfg, params, cache,
-                torch.as_tensor(t, device="cuda").reshape(B, 1).long())
-            out.append(lg[:, 0, :cfg.vocab_size].float())
-    return torch.stack(out)
-
-
 def token_margins(logits, served) -> dict:
     """Where a served token (``served`` (steps, B)) is not the argmax of
     the teacher-forced ``logits`` (steps, B, vocab): the logits' top-2
     margin there and the served token's gap below the top."""
     import numpy as np
+    from repro_torch.launch.daemon import token_gaps
     top2 = np.sort(logits, axis=-1)[..., -2:]
-    gap = logits.max(-1) - np.take_along_axis(logits, served[..., None],
-                                              -1)[..., 0]
+    gap = token_gaps(logits, served)
     at = np.argwhere(served != logits.argmax(-1))
     rows = [{"step": int(t), "request": int(b),
              "top2_margin": float(top2[t, b, 1] - top2[t, b, 0]),
@@ -1257,6 +1261,8 @@ def run_token_path(torch, out_dir, name: str):
     from repro_torch import kernels, recipe
     from repro_torch.configs.registry import ARCHS
     from repro_torch.kernels import ops
+    from repro_torch.launch.daemon import (TEACHER_FORCED_BOUND,
+                                           teacher_forced_logits)
     from repro_torch.models import dense_lm
 
     cfg = ARCHS["qwen1.5-0.5b"].replace(kv_cache_dtype="int8")
@@ -1374,9 +1380,11 @@ def run_token_path(torch, out_dir, name: str):
     steps = min(reqs[i][1] for i in pick) - 1
     prompts = [reqs[i][0] for i in pick]
     forced = np.array([outs[i][:steps] for i in pick]).T
-    got = teacher_forced_logits(torch, cfg, qm.params, prompts, forced)
+    got = teacher_forced_logits(cfg, qm.params, prompts, forced,
+                                TOKEN_MAX_LEN)
     with ops.reference_path():
-        ref = teacher_forced_logits(torch, cfg, qm.params, prompts, forced)
+        ref = teacher_forced_logits(cfg, qm.params, prompts, forced,
+                                    TOKEN_MAX_LEN)
     diff = float((got - ref).abs().max())
     top = float(ref.abs().max())
     same_argmax = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
@@ -1389,16 +1397,16 @@ def run_token_path(torch, out_dir, name: str):
     # 5e-2 of the largest logit is ~8 bf16 ulps of it (0.051-0.086 of a
     # 5.19 max |logit| measured on an H100 at 700 W); a served token may
     # sit below the teacher-forced argmax by no more than that bound
-    if not diff <= 5e-2 * top:
+    bound = TEACHER_FORCED_BOUND * top
+    if not diff <= bound:
         fail(f"{name} path: teacher-forced logits differ from the plain "
              f"versions' by {diff} (max |logit| {top})")
-    within_bound = bool(margins["largest_gap"] <= 5e-2 * top)
+    within_bound = bool(margins["largest_gap"] <= bound)
     print(f"{name} path served-vs-teacher-forced mismatches:", json.dumps(dict(
-        margins, bound=5e-2 * top, within_bound=within_bound)), flush=True)
+        margins, bound=bound, within_bound=within_bound)), flush=True)
     if not within_bound:
         fail(f"{name} path: a served token sits {margins['largest_gap']} "
-             f"below the teacher-forced argmax, over the bound "
-             f"{5e-2 * top}")
+             f"below the teacher-forced argmax, over the bound {bound}")
 
     # the batch-8 decode step at the served run's cache lengths
     cache = {k: v.clone() for k, v in engine.cache.items()}
@@ -1740,7 +1748,7 @@ def _line(pattern, text, what):
     import re
     m = re.search(pattern, text)
     if m is None:
-        fail(f"phase 8: no {what} line in {text[-400:]!r}")
+        fail(f"no {what} line in {text[-400:]!r}")
     return m
 
 
@@ -1785,8 +1793,8 @@ def run_runtime(torch, out_dir, card):
     counts = kernels.counts()
     add(counts)
     m = _line(r"requests=(\d+) decoded=(\d+) steps=(\d+) tok/s=([\d.]+)",
-              text, "requests=")
-    flushes = _line(r"flushes=(\{.*\})", text, "flushes=")
+              text, "phase 8 requests=")
+    flushes = _line(r"flushes=(\{.*\})", text, "phase 8 flushes=")
     groups = sum(json.loads(flushes[1].replace("'", '"')).values())
     steps = int(m[3])
     if (int(m[1]), int(m[2])) != (8, 8 * 15) or not float(m[4]) > 0:
@@ -1871,7 +1879,7 @@ def run_runtime(torch, out_dir, card):
                   f"(c) over {s.steps} steps")
     stream = _line(r"stream ttft=([\d.]+)ms tokens=(\d+) gap "
                    r"p50=([\d.]+)ms max=([\d.]+)ms gaps_ms=(\[.*\])",
-                   text, "stream")
+                   text, "phase 8 stream")
     generated = s.decoded_tokens + s.prefills
     res["token_daemon"] = dict(
         requests=s.submitted, tokens=generated, wall_s=wall,
@@ -1932,6 +1940,710 @@ def run_runtime(torch, out_dir, card):
         json.dumps(res, indent=1))
     del eng, daemon, vis
     torch.cuda.empty_cache()
+    return total
+
+
+# ---- phase 9: supervised serving -------------------------------------------
+# the top-level keys of Supervisor.health() over a daemon without a
+# journal: the JAX package's (tests/test_torch_supervisor.py holds this set
+# against it); the port's trip_latches value is {"axes": None}
+HEALTH_KEYS = frozenset({
+    "state", "ready", "restarts", "last_recovery_s", "replayed",
+    "supervised_outstanding", "unix_time", "trip_latches", "stats",
+    "daemon_state", "queue_depth", "daemon_outstanding", "heartbeat_age_s",
+    "step_in_flight_s", "crashed"})
+SUP_MAX_NEW = 16
+SUP_WAIT = 300.0  # seconds: every wait of phase 9 is bounded
+# the circuit case's budget: restarts 1-3 rebuild, the 4th opens it
+SUP_CIRCUIT_RESTARTS = 3
+
+
+def supervised_requests(cfg, n: int = 8):
+    """Phase 9's prompts: ``n`` of 8-40 tokens, seeded."""
+    import numpy as np
+    rng = np.random.default_rng(9)
+    return [rng.integers(0, cfg.vocab_size, int(rng.integers(8, 41)),
+                         dtype=np.int32) for _ in range(n)]
+
+
+def timed_injector(spec: str):
+    """A FaultInjector for ``spec`` that also records the wall-clock time
+    of each call it fires on (``fired_unix``): where detection starts."""
+    from repro_torch.serving.faults import FaultInjector
+    inj = FaultInjector.parse(spec)
+    inj.fired_unix = []
+    on_call = inj.on_call
+
+    def timed(site):
+        act = on_call(site)
+        if act is not None:
+            inj.fired_unix.append(time.time())
+        return act
+
+    inj.on_call = timed
+    return inj
+
+
+class Builds:
+    """A supervisor's engine factory over one quantized model: each build
+    is ``qm.serve(**serve_kw)`` warmed by ``warm`` (fault-free; on the
+    card this captures its graphs), and only then armed with ``arm`` --
+    the first build, or every one with ``arm_every``.  Keeps per-build
+    figures (``rows``): never the engines, each of which holds a KV cache
+    and a graph pool on the card.  ``mem_in`` / ``mem_out``: allocated
+    bytes on entry and after the build, each after a collection but for
+    a rebuild's entry, read as the supervisor leaves the card: a restart
+    must already have freed the torn-down engine.  ``groups``: a token
+    engine's served prefill groups
+    (:class:`~repro_torch.launch.daemon.PrefillGroups`), warm-ups
+    excluded."""
+
+    def __init__(self, qm, serve_kw, warm, arm=None, arm_every=False):
+        from repro_torch.core.tree import device_of
+        from repro_torch.launch.daemon import PrefillGroups
+        self.qm, self.serve_kw, self.warm = qm, serve_kw, warm
+        self.arm, self.arm_every = arm, arm_every
+        self.cuda = device_of(qm.params).type == "cuda"
+        self.rows = []
+        self.groups = PrefillGroups()
+
+    def _allocated(self, collect=True):
+        import gc
+        import torch
+        if not self.cuda:
+            return None
+        if collect:
+            gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    def __call__(self):
+        row = {"entered_unix": time.time(),
+               "mem_in": self._allocated(collect=not self.rows)}
+        t0 = time.perf_counter()
+        eng = self.qm.serve(**self.serve_kw)
+        self.warm(eng)
+        if hasattr(eng, "_prefill_group"):
+            self.groups.watch(eng)
+        row["mem_out"] = self._allocated()
+        row["build_s"] = time.perf_counter() - t0
+        graphs = eng.step_graphs
+        row["graphs"] = 0 if graphs is None else len(graphs)
+        row["capture_s"] = 0.0 if graphs is None else graphs.capture_s
+        row["stats"] = eng.stats
+        if self.arm is not None and (self.arm_every or not self.rows):
+            eng.faults = row["injector"] = timed_injector(self.arm)
+        self.rows.append(row)
+        return eng
+
+
+def _outcomes(handles, timeout=SUP_WAIT):
+    """Per client handle: (state, tokens or None, error class name)."""
+    out = []
+    for h in handles:
+        try:
+            res = h.result(timeout=timeout)
+            out.append((h.state, [int(t) for t in res], None))
+        except BaseException as e:  # noqa: BLE001 -- recorded, judged later
+            out.append((h.state, None, type(e).__name__))
+    return out
+
+
+def restart_figures(sup, builds) -> list:
+    """Per restart: detection (fault -> watchdog), teardown (-> the old
+    serve thread gone), backoff, factory (engine + warm-up + captures),
+    recovery (detection -> new daemon serving) seconds, and the allocated
+    bytes before and after the new build."""
+    rows = []
+    for k, e in enumerate(sup.restart_log):
+        inj = builds.rows[min(k, len(builds.rows) - 1)].get("injector")
+        new = builds.rows[k + 1] if k + 1 < len(builds.rows) else {}
+        rows.append(dict(
+            restart=e["restart"], reason=e["reason"],
+            detection_s=(e["detected_unix"] - inj.fired_unix[0]
+                         if inj is not None and inj.fired_unix else None),
+            teardown_s=e["teardown_s"],
+            serve_thread_exited=e["serve_thread_exited"],
+            backoff_s=e.get("backoff_s"), factory_s=e.get("factory_s"),
+            recovery_s=e.get("recovery_s"),
+            capture_s=new.get("capture_s"), graphs=new.get("graphs"),
+            mem_after_teardown=new.get("mem_in"),
+            mem_after_restart=new.get("mem_out")))
+    return rows
+
+
+def expected_launches(cfg, stats) -> Counter:
+    """The token engines' launches over ``stats`` (each engine's): the
+    ``token`` path's routing (:func:`token_launches`)."""
+    want = Counter()
+    for s in stats:
+        want.update(token_launches(cfg, "token", s.steps, s.prefill_batches))
+    return want
+
+
+def launch_problems(counts, want, what, field) -> list:
+    """``counts`` against ``want`` in ``field`` (``launches`` on the card,
+    ``plain_calls`` on the CPU), and nothing in the other field."""
+    other = "plain_calls" if field == "launches" else "launches"
+    return [f"{what}: {k} {c}, expected {want.get(k, 0)} {field}"
+            for k, c in counts.items()
+            if c[field] != want.get(k, 0) or c[other]]
+
+
+def die_like_a_process(sup) -> bool:
+    """Stop ``sup`` as a killed process stops: its watchdog and serve
+    thread halt, nothing is cancelled, no terminal is journaled for what
+    was in flight, and the journal file is closed.  Returns whether the
+    serve thread exited."""
+    sup._stop_evt.set()
+    sup._watchdog.join(SUP_WAIT)
+    daemon = sup._daemon
+    daemon.abort()
+    exited = daemon.join(SUP_WAIT)
+    sup.journal.close()
+    return exited
+
+
+def supervised_cases(qm, serve_kw, workdir, hang_s: float = 2.0):
+    """Phase 9 (b): supervisors over engines of the token model ``qm``
+    (``serve_kw``: its ``serve`` arguments), each build warmed and
+    captured in the factory before it is armed.  Five cases: crash@decode
+    (one restart), hang@decode detected after ``hang_s`` (one
+    HungStepError restart; the new engine built after the old thread
+    left), a streamed request across a crash (streamed == result), every
+    build armed until the circuit opens, and a second supervisor
+    cold-starting from the journal of a first stopped like a dead
+    process.  Replayed tokens are held against one fault-free reference
+    run (exact, or within the teacher-forced bound where a replay's
+    prefill group differed from the reference's).  Returns (results,
+    problems); ``results["counts"]`` the kernel counts of every served
+    run."""
+    from repro_torch import kernels
+    from repro_torch.core.tree import device_of
+    from repro_torch.launch.daemon import PrefillGroups, replay_agreement
+    from repro_torch.serving.journal import RequestJournal
+    from repro_torch.serving.supervisor import RestartPolicy, Supervisor
+    cfg = qm.cfg
+    max_len = serve_kw["max_len"]
+    prompts = supervised_requests(cfg)
+    cuda = device_of(qm.params).type == "cuda"
+    field = "launches" if cuda else "plain_calls"
+    problems, cases, total = [], {}, Counter()
+
+    def warm(eng):
+        for p in prompts:
+            eng.submit(p, max_new_tokens=SUP_MAX_NEW)
+        eng.run()
+
+    kernels.reset_counts()
+    ref_groups = PrefillGroups()
+    ref = ref_groups.watch(qm.serve(**serve_kw))
+    ref_reqs = [ref.submit(p, max_new_tokens=SUP_MAX_NEW) for p in prompts]
+    ref.run()
+    expected = [[int(t) for t in r.handle.result()] for r in ref_reqs]
+    problems += launch_problems(kernels.counts(), expected_launches(
+        cfg, [ref.stats]), "reference", field)
+    total.update({k: c[field] for k, c in kernels.counts().items()})
+    del ref, ref_reqs
+
+    def policy(**kw):
+        return RestartPolicy(**dict(dict(hang_threshold_s=10.0,
+                                         backoff_base_s=0.05,
+                                         poll_interval_s=0.02), **kw))
+
+    def finish(name, sup, builds, outs, want_idx, extra_stats=()):
+        """Counts, goodput, replay agreement and restart figures of one
+        case, after its supervisor stopped."""
+        counts = kernels.counts()
+        total.update({k: c[field] for k, c in counts.items()})
+        problems.extend(launch_problems(counts, expected_launches(
+            cfg, [r["stats"] for r in builds.rows] + list(extra_stats)),
+            name, field))
+        done = [o for o in outs if o[0] == "DONE"]
+        agree = replay_agreement(
+            cfg, qm.params, [prompts[i] for i in want_idx],
+            [o[1] for o in outs], [expected[i] for i in want_idx], max_len,
+            builds.groups, ref_groups) if len(done) == len(outs) else None
+        if agree is not None and agree["off"]:
+            problems.append(f"{name}: replayed tokens off the reference "
+                            f"beyond the bound: {agree['rows']}")
+        cases[name] = dict(
+            restarts=sup.restarts, replayed=sup.replayed,
+            goodput=len(done) / len(outs), agreement=agree,
+            outcomes=[o[0] if o[2] is None else o[2] for o in outs],
+            log=sup.restart_log, figures=restart_figures(sup, builds),
+            builds=[{k: v for k, v in r.items()
+                     if k not in ("stats", "injector")}
+                    for r in builds.rows])
+        return cases[name]
+
+    def journal_exact(path, name):
+        with RequestJournal(path) as j:
+            rec = j.reconcile()
+        if not rec["exact"] or rec["pending"]:
+            problems.append(f"{name}: journal {rec}")
+        return rec
+
+    # (1) crash@decode -> one restart
+    builds = Builds(qm, serve_kw, warm, arm="crash@decode:4")
+    jpath = workdir / "crash.jsonl"
+    kernels.reset_counts()
+    sup = Supervisor(builds, journal=RequestJournal(jpath),
+                     policy=policy()).start()
+    hs = [sup.submit(p, request_id=f"crash-{i}", max_new_tokens=SUP_MAX_NEW)
+          for i, p in enumerate(prompts)]
+    outs = _outcomes(hs)
+    sup.shutdown()
+    c = finish("crash", sup, builds, outs, range(len(prompts)))
+    c["journal"] = journal_exact(jpath, "crash")
+
+    # (2) hang@decode -> a HungStepError restart; the factory's captures
+    # come after the old serve thread left
+    builds = Builds(qm, serve_kw, warm, arm="hang@decode:4")
+    kernels.reset_counts()
+    sup = Supervisor(builds, policy=policy(hang_threshold_s=hang_s,
+                                           poll_interval_s=0.05)).start()
+    hs = [sup.submit(p, max_new_tokens=SUP_MAX_NEW) for p in prompts]
+    outs = _outcomes(hs)
+    sup.shutdown()
+    c = finish("hang", sup, builds, outs, range(len(prompts)))
+    if c["log"] and len(builds.rows) > 1:
+        e = c["log"][0]
+        c["built_after_teardown"] = bool(
+            builds.rows[1]["entered_unix"] >= e["detected_unix"]
+            + e["teardown_s"])
+        if not (e["serve_thread_exited"] and c["built_after_teardown"]
+                and (builds.rows[1]["graphs"] or not cuda)):
+            problems.append(f"hang: teardown {e}, rebuild "
+                            f"{c['builds'][1]}")
+
+    # (3) a streamed request across a restart
+    builds = Builds(qm, serve_kw, warm, arm="crash@decode:6")
+    kernels.reset_counts()
+    sup = Supervisor(builds, policy=policy()).start()
+    streamed = []
+    hs = [sup.submit(prompts[0], max_new_tokens=SUP_MAX_NEW,
+                     on_token=streamed.append)]
+    hs += [sup.submit(p, max_new_tokens=SUP_MAX_NEW) for p in prompts[1:4]]
+    outs = _outcomes(hs)
+    sup.shutdown()
+    c = finish("stream", sup, builds, outs, range(4))
+    c["streamed"] = len(streamed)
+    if streamed != outs[0][1]:
+        problems.append(f"stream: streamed {streamed} != result "
+                        f"{outs[0][1]}")
+
+    # (4) every build armed: restarts until the circuit opens (the last
+    # case's supervisor and engine go first: the first build's entry is
+    # the memory baseline)
+    sup = None
+    builds = Builds(qm, serve_kw, warm, arm="crash@decode:1",
+                    arm_every=True)
+    kernels.reset_counts()
+    sup = Supervisor(builds, policy=policy(
+        backoff_base_s=0.01, max_restarts=SUP_CIRCUIT_RESTARTS,
+        restart_window_s=300.0)).start()
+    hs = [sup.submit(p, max_new_tokens=SUP_MAX_NEW) for p in prompts[:4]]
+    outs = _outcomes(hs)
+    ready = sup.ready()
+    try:
+        sup.submit(prompts[0], max_new_tokens=SUP_MAX_NEW)
+        rejected = None
+    except Exception as e:  # noqa: BLE001 -- judged below
+        rejected = type(e).__name__
+    health = sup.health()
+    sup.shutdown()
+    c = finish("circuit", sup, builds, outs, range(4))
+    c.update(ready=ready, rejected=rejected,
+             rejected_count=health["stats"]["rejected"])
+    if (any(o[2] != "CircuitOpenError" for o in outs)
+            or sup.restarts != SUP_CIRCUIT_RESTARTS + 1
+            or ready != {"ready": False, "reason": "circuit_open"}
+            or rejected != "CircuitOpenError"
+            or health["stats"]["rejected"] != 1):
+        problems.append(f"circuit: outcomes {c['outcomes']}, restarts "
+                        f"{sup.restarts}, ready {ready}, rejected "
+                        f"{rejected} / {health['stats']['rejected']}")
+    if cuda:
+        # allocated once restart 1's and restart 3's new engine is built
+        # and captured: the card then holds the parameters, the new
+        # engine, and whatever the restart's thread allocated on first
+        # use; the slack, half of one engine (its KV cache, decode buffers
+        # and the graph pool's live outputs), is below what one leaked
+        # engine adds.  On entry to each rebuild the supervisor has freed
+        # the torn-down engine: the card holds no more than before the
+        # first build, within the same slack
+        rows = builds.rows
+        footprint = rows[0]["mem_out"] - rows[0]["mem_in"]
+        c["memory"] = dict(engine_bytes=footprint, slack=footprint // 2,
+                           before_first_build=rows[0]["mem_in"],
+                           after_restart_1=rows[1]["mem_out"],
+                           after_restart_3=rows[3]["mem_out"],
+                           teardowns=[r["mem_in"] for r in rows[1:]])
+        if rows[3]["mem_out"] > rows[1]["mem_out"] + footprint // 2:
+            problems.append(f"circuit: memory grew with restarts: "
+                            f"{c['memory']}")
+        if any(r["mem_in"] > rows[0]["mem_in"] + footprint // 2
+               for r in rows[1:]):
+            problems.append(f"circuit: a torn-down engine was still on "
+                            f"the card at a rebuild: {c['memory']}")
+
+    # (5) cold start from the journal of a supervisor stopped like a dead
+    # process (a short first request completes before the stop)
+    jpath = workdir / "cold.jsonl"
+    kernels.reset_counts()
+    first = Builds(qm, serve_kw, warm)
+    dead = Supervisor(first, journal=RequestJournal(jpath),
+                      policy=policy()).start()
+    hs = [dead.submit(p, request_id=f"cold-{i}",
+                      max_new_tokens=4 if i == 0 else SUP_MAX_NEW)
+          for i, p in enumerate(prompts)]
+    hs[0].result(timeout=SUP_WAIT)
+    if not die_like_a_process(dead):
+        problems.append("cold start: the first supervisor's serve thread "
+                        "did not exit")
+    with RequestJournal(jpath) as j:
+        left = [r["rid"] for r in j.pending()]
+    builds = Builds(qm, serve_kw, warm)
+    sup = Supervisor(builds, journal=RequestJournal(jpath),
+                     policy=policy()).start()
+    got = sup.handles()
+    rids = sorted(got, key=lambda r: int(r.split("-")[1]))
+    outs = _outcomes([got[r] for r in rids])
+    sup.shutdown()
+    c = finish("cold_start", sup, builds, outs,
+               [int(r.split("-")[1]) for r in rids],
+               extra_stats=[first.rows[0]["stats"]])
+    c["journal"] = journal_exact(jpath, "cold start")
+    c["left_pending"] = len(left)
+    if not left or rids != left or sup.replayed != len(left):
+        problems.append(f"cold start: {len(left)} left pending, replayed "
+                        f"{sup.replayed} ({rids})")
+
+    for name, c in cases.items():
+        if name != "circuit" and (c["goodput"] != 1.0
+                                  or c["restarts"] != (name != "cold_start")):
+            problems.append(f"{name}: goodput {c['goodput']}, restarts "
+                            f"{c['restarts']}, outcomes {c['outcomes']}")
+    return dict(cases=cases, counts=total), problems
+
+
+def supervised_vision(vis, n_images: int = N_IMAGES, max_batch: int = BATCH):
+    """Phase 9 (d): a supervised VisionEngine over ``vis`` under
+    ``crash@vision:1``, every bucket warmed and captured before the first
+    build is armed; ``n_images`` submitted in both classes must all end
+    DONE after the restart, with finite logits and every forward's
+    launches as routed.  Returns (results, problems)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.serving.supervisor import RestartPolicy, Supervisor
+    cfg = vis.cfg
+    rng = np.random.default_rng(6)
+    images = rng.normal(0, 1, (max(n_images, max_batch), cfg.img_res,
+                               cfg.img_res, 3)).astype(np.float32)
+
+    def warm(eng):
+        n = max_batch
+        while n >= 1:
+            eng.classify(images[:n])
+            n //= 2
+
+    builds = Builds(vis, dict(max_batch=max_batch), warm,
+                    arm="crash@vision:1")
+    field = "launches" if builds.cuda else "plain_calls"
+    kernels.reset_counts()
+    sup = Supervisor(builds, policy=RestartPolicy(
+        hang_threshold_s=10.0, backoff_base_s=0.02,
+        poll_interval_s=0.02)).start()
+    hs = [sup.submit(img, slo="interactive" if i % 3 == 0 else "batch")
+          for i, img in enumerate(images[:n_images])]
+    outs = []
+    for h in hs:
+        try:
+            outs.append(np.asarray(h.result(timeout=SUP_WAIT)))
+        except BaseException as e:  # noqa: BLE001 -- judged below
+            outs.append(type(e).__name__)
+    sup.shutdown()
+    counts = kernels.counts()
+    m2q, dw, attn = main_path_calls(cfg, 1)
+    # the MSA mixer runs int8 (relu_attn and its scales) on the card, f32
+    # einsums on the CPU (ops.default_attn)
+    n_attn = len(attn) if builds.cuda else 0
+    per_fwd = {"m2q_matmul": len(m2q), "dwconv_w4": len(dw),
+               "relu_attn": n_attn, "relu_attn_scales": n_attn}
+    forwards = sum(r["stats"].batches for r in builds.rows)
+    problems = launch_problems(
+        counts, {k: n * forwards for k, n in per_fwd.items()},
+        f"vision over {forwards} forwards", field)
+    done = sum(1 for h in hs if h.state == "DONE")
+    if done != n_images or sup.restarts != 1 or not all(
+            isinstance(o, np.ndarray) and o.shape == (cfg.n_classes,)
+            and np.isfinite(o).all() for o in outs):
+        problems.append(f"vision: {done} of {n_images} DONE, restarts "
+                        f"{sup.restarts}, outcomes "
+                        f"{[o if isinstance(o, str) else 'logits' for o in outs]}")
+    return dict(images=n_images, done=done, restarts=sup.restarts,
+                forwards=forwards, log=sup.restart_log,
+                figures=restart_figures(sup, builds),
+                counts={k: c[field] for k, c in counts.items()}), problems
+
+
+def kill_child() -> None:
+    """One process of (c), run as ``python -c "import chip_smoke;
+    chip_smoke.kill_child()" PHASE ARTIFACT JOURNAL SERVE_KW``: ``serve``
+    submits phase 9's requests under a journal-backed supervisor (the
+    first of 4 tokens, the rest of 16), waits until the first is
+    journaled terminal, and SIGKILLs itself; ``replay`` cold-starts a
+    supervisor from the journal and prints its results."""
+    import os
+    import signal
+    from repro_torch.launch.daemon import PrefillGroups
+    from repro_torch.recipe import QuantizedModel
+    from repro_torch.serving.journal import RequestJournal
+    from repro_torch.serving.supervisor import Supervisor
+    phase, art, jpath, serve_kw = sys.argv[1:5]
+    serve_kw = json.loads(serve_kw)
+    device = serve_kw.pop("device")
+    qm = QuantizedModel.load(art, device=device)
+    groups = PrefillGroups()
+    sup = Supervisor(lambda: groups.watch(qm.serve(**serve_kw)),
+                     journal=RequestJournal(jpath)).start()
+    if phase == "serve":
+        hs = [sup.submit(p, request_id=f"req-{i}",
+                         max_new_tokens=4 if i == 0 else SUP_MAX_NEW)
+              for i, p in enumerate(supervised_requests(qm.cfg))]
+        hs[0].result(timeout=SUP_WAIT)
+        # its terminal is journaled by a done-callback on the serve
+        # thread, which may run after this wait returns
+        t0 = time.monotonic()
+        while sup.journal.terminal_state("req-0") is None \
+                and time.monotonic() - t0 < SUP_WAIT:
+            time.sleep(0.01)
+        print("KILL-READY", flush=True)
+        os.kill(os.getpid(), signal.SIGKILL)  # no shutdown, no drain
+    results = {rid: [int(t) for t in h.result(timeout=SUP_WAIT)]
+               for rid, h in sup.handles().items()}
+    rec = sup.journal.reconcile()
+    sup.shutdown()
+    print("REPLAY-RESULT " + json.dumps(
+        {"results": results, "reconcile": rec, "replayed": sup.replayed,
+         "groups": groups}), flush=True)
+
+
+def process_kill_replay(qm, art, workdir, serve_kw, device):
+    """Phase 9 (c): a child process serving ``art`` (``qm`` saved) under a
+    journal-backed supervisor is SIGKILLed mid-flight; a fresh one
+    replays its journal.  The replayed tokens are held against a
+    fault-free run of ``qm`` in this process.  Returns (results,
+    problems)."""
+    import os
+    import signal
+    from repro_torch.launch.daemon import PrefillGroups, replay_agreement
+    from repro_torch.serving.journal import RequestJournal
+    jpath = str(workdir / "kill.jsonl")
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join([str(SRC), str(ROOT)])}
+    arg = json.dumps(dict(serve_kw, device=device))
+    res, problems = {}, []
+
+    def child(phase):
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; "
+             "chip_smoke.kill_child()", phase, str(art), jpath, arg],
+            env=env, cwd=ROOT, capture_output=True, text=True,
+            timeout=SUP_WAIT)
+        res[f"{phase}_s"] = time.perf_counter() - t0
+        return p
+
+    p1 = child("serve")
+    if "KILL-READY" not in p1.stdout or p1.returncode != -signal.SIGKILL:
+        return res, [f"kill: the serving child ended rc {p1.returncode}: "
+                     f"{p1.stdout[-400:]} {p1.stderr[-1200:]}"]
+    with RequestJournal(jpath) as j:
+        res["after_kill"] = j.reconcile()
+    p2 = child("replay")
+    lines = [ln for ln in p2.stdout.splitlines()
+             if ln.startswith("REPLAY-RESULT ")]
+    if p2.returncode != 0 or not lines:
+        return res, [f"kill: the replaying child ended rc {p2.returncode}: "
+                     f"{p2.stderr[-1200:]}"]
+    out = json.loads(lines[0].split(" ", 1)[1])
+    prompts = supervised_requests(qm.cfg)
+    idx = sorted(int(r.split("-")[1]) for r in out["results"])
+    ref_groups = PrefillGroups()
+    eng = ref_groups.watch(qm.serve(**serve_kw))
+    refs = [eng.submit(prompts[i], max_new_tokens=4 if i == 0 else
+                       SUP_MAX_NEW) for i in idx]
+    eng.run()
+    agree = replay_agreement(
+        qm.cfg, qm.params, [prompts[i] for i in idx],
+        [out["results"][f"req-{i}"] for i in idx],
+        [r.handle.result() for r in refs], serve_kw["max_len"],
+        out["groups"], ref_groups)
+    with RequestJournal(jpath) as j:
+        final = j.reconcile()
+    res.update(replayed=out["replayed"], reconcile=out["reconcile"],
+               final=final, agreement=agree)
+    pending = res["after_kill"]["pending"]
+    if (pending < 1 or res["after_kill"]["submitted"] != len(prompts)
+            or out["replayed"] != len(idx) or len(idx) != pending
+            or not final["exact"] or final["pending"] or agree["off"]):
+        problems.append(f"kill: {json.dumps(res)[:1500]}")
+    return res, problems
+
+
+def run_supervised(torch, out_dir, card):
+    """Phase 9, supervised serving on the card: (a) the daemon CLI's
+    ``--recovery-smoke`` at full width, (b) :func:`supervised_cases` over
+    phase 6's ``token`` artifact, (c) :func:`process_kill_replay` of it,
+    (d) :func:`supervised_vision` over phase 4's ``m2q-w8a8`` artifact,
+    (e) the CLI's ``--health-file`` read while it serves, (f) the restart
+    figures printed beside the card.  Returns the kernels' counts of (a),
+    (b), (d) and (e) (the process-kill children count their own)."""
+    import gc
+    import tempfile
+    import threading
+    from repro_torch import kernels, recipe
+    from repro_torch.launch import daemon as launch_daemon
+
+    total = Counter()
+    res = {"card": card}
+
+    def add(counts, what):
+        plain = {k: c["plain_calls"] for k, c in counts.items()
+                 if c["plain_calls"]}
+        if plain:
+            fail(f"phase 9 {what}: plain calls {plain}")
+        total.update({k: c["launches"] for k, c in counts.items()})
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) the recovery smoke CLI, in-process, at full width (bf16 cache)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rc, text = _printed(launch_daemon.main, [
+        "--arch", "qwen1.5-0.5b", "--recovery-smoke", "--timeout",
+        str(SUP_WAIT)])
+    counts = kernels.counts()
+    add(counts, "(a)")
+    m = _line(r"recovery smoke ok: crash@decode -> (\d+) restart\(s\), "
+              r"(\d+) replayed, goodput=100%, results match fault-free "
+              r"reference \((\d+) exact, (\d+) within the teacher-forced "
+              r"bound\), journal exact \((\d+) submits == (\d+) "
+              r"terminals\), (\d+) engine builds", text,
+              "phase 9 (a) recovery smoke ok")
+    log = json.loads(_line(r"restart log: (\[.*\])", text,
+                           "phase 9 (a) restart log")[1])
+    if rc != 0 or int(m[1]) < 1 or m[5] != m[6] \
+            or not counts["int4_matmul"]["launches"]:
+        fail(f"phase 9 (a): rc {rc}, {m[0]!r}, counts {counts}")
+    res["recovery_cli"] = dict(
+        line=m[0], restarts=int(m[1]), replayed=int(m[2]), exact=int(m[3]),
+        bounded=int(m[4]), log=log, wall_s=time.perf_counter() - t0,
+        launches={k: c["launches"] for k, c in counts.items()
+                  if c["launches"]})
+    print("phase 9 (a):", json.dumps(res["recovery_cli"]), flush=True)
+    release()
+
+    # (b) the scripted supervisor cases, (c) the process kill
+    tok = recipe.QuantizedModel.load(ARTIFACTS / "token", device="cuda")
+    serve_kw = dict(max_batch=TOKEN_BATCH, max_len=TOKEN_MAX_LEN, seed=0)
+    with tempfile.TemporaryDirectory(dir=ARTIFACTS) as wd:
+        b, problems = supervised_cases(tok, serve_kw, Path(wd), hang_s=2.0)
+        if problems:
+            fail("phase 9 (b): " + "; ".join(problems)[:2000])
+        total.update(b["counts"])
+        res["cases"] = b["cases"]
+        print("phase 9 (b):", json.dumps({
+            name: {k: c[k] for k in ("restarts", "replayed", "goodput",
+                                     "agreement", "outcomes")}
+            for name, c in b["cases"].items()}), flush=True)
+        print("phase 9 (b) circuit memory:",
+              json.dumps(b["cases"]["circuit"]["memory"]), flush=True)
+        release()
+        k, problems = process_kill_replay(tok, ARTIFACTS / "token",
+                                          Path(wd), serve_kw, "cuda")
+        if problems:
+            fail("phase 9 (c): " + "; ".join(problems)[:2000])
+        res["process_kill"] = k
+        print("phase 9 (c):", json.dumps(k), flush=True)
+    del tok
+    release()
+
+    # (d) a supervised vision daemon under crash@vision
+    vis = recipe.QuantizedModel.load(ARTIFACTS / "m2q-w8a8", device="cuda")
+    v, problems = supervised_vision(vis)
+    if problems:
+        fail("phase 9 (d): " + "; ".join(problems)[:2000])
+    total.update(v["counts"])
+    res["vision"] = v
+    print("phase 9 (d):", json.dumps(v), flush=True)
+    del vis
+    release()
+
+    # (e) --health-file, its snapshots read while the CLI serves
+    hpath = ARTIFACTS / "health.json"
+    snaps, torn, stop = [], [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            try:
+                snaps.append(json.loads(hpath.read_text()))
+            except FileNotFoundError:
+                pass
+            except json.JSONDecodeError as e:
+                torn.append(repr(e))
+            stop.wait(0.02)
+
+    th = threading.Thread(target=poll, daemon=True)
+    th.start()
+    kernels.reset_counts()
+    try:
+        rc, text = _printed(launch_daemon.main, [
+            "--arch", "qwen1.5-0.5b", "--health-file", str(hpath),
+            "--max-batch", str(TOKEN_BATCH), "--max-len", "128",
+            "--requests", "8", "--max-new", str(SUP_MAX_NEW),
+            "--timeout", str(SUP_WAIT)])
+    finally:
+        stop.set()
+        th.join(SUP_WAIT)
+    counts = kernels.counts()
+    add(counts, "(e)")
+    final = json.loads(hpath.read_text())
+    serving = [s for s in snaps if s["state"] == "running"
+               and s["ready"]["ready"]]
+    res["health_file"] = dict(
+        snapshots=len(snaps), ready_snapshots=len(serving), torn=torn,
+        keys=sorted(final), final_state=final["state"],
+        restarts=final["restarts"], stats=final["stats"],
+        trip_latches=final["trip_latches"])
+    if (rc != 0 or not serving or torn or set(final) != HEALTH_KEYS
+            or any(s["restarts"] for s in snaps) or final["restarts"]
+            or final["trip_latches"] != {"axes": None}
+            or final["stats"]["completed"] != 8
+            or not counts["int4_matmul"]["launches"]):
+        fail(f"phase 9 (e): rc {rc}, {json.dumps(res['health_file'])}")
+    print("phase 9 (e):", json.dumps(res["health_file"]), flush=True)
+    release()
+
+    # (f) per restart: detection, teardown, backoff, factory, recovery
+    # seconds and allocated bytes, beside the card
+    figures = {f"(b) {name}": c["figures"]
+               for name, c in res["cases"].items() if c["figures"]}
+    figures["(d) vision"] = v["figures"]
+    figures["(a) cli"] = [{k: e.get(k) for k in (
+        "reason", "teardown_s", "backoff_s", "factory_s", "recovery_s")}
+        for e in log]
+    print(card, flush=True)
+    for what, rows in figures.items():
+        for row in rows:
+            print(f"phase 9 (f) {what}:", json.dumps(row), flush=True)
+    res["figures"] = figures
+    (out_dir / "chip_smoke_supervised.json").write_text(
+        json.dumps(res, indent=1, default=str))
     return total
 
 
@@ -2021,11 +2733,14 @@ def main() -> None:
 
         # ---- 8. the serving runtime, each part from zeroed counters -------
         launches.update(run_runtime(torch, out_dir, card))
+
+        # ---- 9. supervised serving, each part from zeroed counters --------
+        launches.update(run_supervised(torch, out_dir, card))
     finally:
         import shutil
         shutil.rmtree(ARTIFACTS, ignore_errors=True)
 
-    # ---- 9. results -----------------------------------------------------
+    # ---- 10. results ----------------------------------------------------
     replaces = {"m2q_matmul": "src/repro/kernels/m2q_matmul.py:80",
                 "dwconv_w4": "src/repro/kernels/dwconv_w4.py:107",
                 "relu_attn": "src/repro/kernels/relu_attn.py:74",

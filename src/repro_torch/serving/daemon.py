@@ -48,7 +48,9 @@ serve thread touches the card: token submits are host-only, and the
 daemon turns off the vision scheduler's inline execution at submit
 (``Scheduler.execute_on_submit``), because a CUDA call from another
 thread during a CUDA-graph capture on the serve thread would invalidate
-the capture.
+the capture.  For the same reason a supervisor that tears a daemon down
+waits (:meth:`ServingDaemon.join`, bounded) for the abandoned serve
+thread to leave before it builds and captures the next engine.
 """
 from __future__ import annotations
 
@@ -167,6 +169,18 @@ class ServingDaemon:
             self._drain = False
             self._wake.notify_all()
             return list(self._handles.values())
+
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Wait up to ``timeout`` seconds for the serve thread to exit;
+        True once it has (or never started).  A supervisor calls this
+        after :meth:`abort` and before it builds the next engine, so that
+        an abandoned thread's last CUDA work cannot overlap the new
+        engine's graph captures."""
+        th = self._thread
+        if th is None:
+            return True
+        th.join(timeout)
+        return not th.is_alive()
 
     def shutdown(self, drain: bool = True,
                  timeout: Optional[float] = None) -> None:

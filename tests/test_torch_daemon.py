@@ -456,8 +456,9 @@ def test_daemon_cli_smoke_and_traffic(capsys):
     (launch_serve, ["--mesh", "2x2"], "A9"),
     (launch_daemon, ["--mesh", "2x2"], "A9"),
     (launch_daemon, ["--coordinator", "127.0.0.1:1"], "A9"),
-    (launch_daemon, ["--health-file", "h.json"], "A6"),
-    (launch_daemon, ["--recovery-smoke"], "A6")])
+    # multi-host: --health-file's per-process readiness markers
+    (launch_daemon, ["--coordinator", "127.0.0.1:1", "--health-file",
+                     "h.json"], "A9")])
 def test_unported_flags_exit_naming_their_roadmap_item(cli, argv, names):
     with pytest.raises(SystemExit) as e:
         cli.main(["--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu"]

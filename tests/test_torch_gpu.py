@@ -1435,3 +1435,73 @@ def test_phase8_script_at_reduced_width(cuda):
         if graphs:
             assert len(eng.step_graphs) == 2
     assert chip_smoke.runtime_script_problems(qm.cfg, runs, "cuda") == []
+
+
+def test_supervised_cases_at_reduced_width(cuda, tmp_path):
+    """chip_smoke's phase 9 (b) on the reduced qwen (int8 cache, graphs):
+    crash, hang, a streamed request across a restart, the circuit breaker
+    (allocated memory after restart 3 within half an engine of restart
+    1's) and cold start -- no problem, every build captured its graph."""
+    qm = _reduced_lm("int8", cuda)
+    res, problems = chip_smoke.supervised_cases(
+        qm, dict(max_batch=4, max_len=64, seed=0), tmp_path, hang_s=1.0)
+    assert problems == []
+    assert [c["restarts"] for c in res["cases"].values()] == [1, 1, 1, 4, 0]
+    assert all(b["graphs"] >= 1 for c in res["cases"].values()
+               for b in c["builds"])
+    assert res["cases"]["circuit"]["memory"]["engine_bytes"] > 0
+
+
+def test_captures_after_a_released_hang_run_alone(cuda):
+    """hang@decode: the teardown releases the hang and waits for the old
+    serve thread; the rebuilt engine's warm-up captures its decode graph
+    on the watchdog thread while no serve thread is alive, and the
+    replayed requests complete from the new graphs."""
+    from repro_torch.serving.supervisor import RestartPolicy, Supervisor
+    qm = _reduced_lm("int8", cuda)
+    reqs = _token_requests(qm.cfg)[:4]
+    seen = []
+
+    def factory():
+        eng = qm.serve(max_batch=4, max_len=64, seed=0)
+        capture = eng.step_graphs._capture
+
+        def spy(*args):
+            seen.append((threading.current_thread().name, sum(
+                th.name == "repro-serve" and th.is_alive()
+                for th in threading.enumerate())))
+            return capture(*args)
+
+        eng.step_graphs._capture = spy
+        for p, n, _ in reqs:
+            eng.submit(p, max_new_tokens=n)
+        eng.run()
+        if len(seen) == 1:
+            eng.faults = chip_smoke.timed_injector("hang@decode:3")
+        return eng
+
+    sup = Supervisor(factory, policy=RestartPolicy(
+        hang_threshold_s=1.0, poll_interval_s=0.05, backoff_base_s=0.01))
+    sup.start()
+    hs = [sup.submit(p, max_new_tokens=n) for p, n, _ in reqs]
+    outs = [h.result(timeout=120.0) for h in hs]
+    sup.shutdown()
+    assert sup.restarts == 1
+    assert sup.restart_log[0]["reason"] == "HungStepError"
+    assert sup.restart_log[0]["serve_thread_exited"]
+    assert seen == [("MainThread", 0), ("repro-supervisor", 0)]
+    assert [len(o) for o in outs] == [n for _, n, _ in reqs]
+
+
+def test_supervised_vision_crash_restart(cuda):
+    """chip_smoke's phase 9 (d) on the reduced B1 under m2q-w8a8:
+    crash@vision, one restart, every image DONE, launches as routed."""
+    from repro_torch import recipe
+    from repro_torch.configs.efficientvit_b1 import REDUCED as B1
+    from repro_torch.models import efficientvit
+    vis = recipe.quantize(B1, efficientvit.init(B1, seed=0, device=cuda),
+                          "m2q-w8a8")
+    v, problems = chip_smoke.supervised_vision(vis, n_images=10,
+                                               max_batch=4)
+    assert problems == [] and v["restarts"] == 1 and v["done"] == 10
+    assert v["counts"]["relu_attn"] > 0
