@@ -22,7 +22,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
    N=151936; ``m2q_matmul`` also at the mixed qwen's shapes: one decode
    step at batch 8 -- (8, 1024, 1024) x 96, (8, 2816, 1024) x 24 and
    the lm_head (8, 1024, 151936) -- and one prefill group of 8 prompts of
-   128 tokens), with kernel / plain / library device times (CUDA graphs
+   128 tokens; and at the dense LM pool's shapes (phase 10):
+   ``decode_attn_int8`` at each config's decode step (B=8 T=256 Hkv=8
+   D=128, G = 5, 4, 3, 2), ``int4_matmul`` at the four lm_heads (M=8,
+   K x N = 5120 x 151936, 4096 x 49280, 3072 x 256000, 2048 x 92672),
+   ``m2q_matmul`` at minitron-4b's mixed decode step, its lm_head and a
+   prefill group of 8 prompts of 64 tokens), with kernel / plain /
+   library device times (CUDA graphs
    timed by CUDA events) and the card's least time for the same work
    (m2q_matmul, int8_matmul and int4_matmul also per path: their shapes
    of different paths never run in one forward; every row but
@@ -161,12 +167,34 @@ Phases, each fatal on failure (nonzero exit, no result line):
    factory and recovery seconds and allocated bytes, printed beside the
    card.  The artifacts are removed at the end.
 
+10. the dense LM pool -- (a) qwen3-14b, granite-3-8b, minitron-4b and
+   internvl2-2b at their published widths with the int8 KV cache: each
+   ``init`` on the card (seed 0), ``recipe.quantize(..., "m2q-w8a8",
+   release=True)`` at the decode deployment shape (every leaf 4-bit; the
+   float tree handed over and dropped leaf by leaf, so qwen3-14b's 59 GB
+   f32 tree quantizes within the card), then 8 greedy requests of 8-64
+   prompt tokens and 16 new tokens through ``Engine(max_batch=8,
+   max_len=256)`` eagerly and from its CUDA graphs (a capturing pass and
+   a timed one): graph tokens equal eager tokens, no token >=
+   ``vocab_size`` (granite's and internvl2's vocabularies are padded),
+   every pass's launches equal to what the quantized tree routes
+   (:func:`tree_launches`: decode_attn_int8 once a layer a step,
+   int4_matmul once a step and a prefill group), teacher-forced kernel
+   logits within 5e-2 of max |logit| of ``reference_path()``'s; prints
+   init and quantize seconds, peak allocated bytes, the graphed decode
+   step and tokens/s; (c) internvl2-2b's stub frontend: a prefill of 256
+   patch embeddings ahead of 4 prompts, then 8 decode steps, kernels
+   against plain versions within the same bound; (b) minitron-4b again
+   at 64 tokens a step, the mixed LM with its relu2 group (161
+   m2q_matmul and 32 decode_attn_int8 launches a decode step).
+
 It then prints the card's name and power limit again, one JSON line with
 every kernel's numbers and, last, the ``{"ok": true, "device": ...}``
 line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -264,9 +292,16 @@ def capture(fn, iters: int = 1):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            y = fn()
+    # no garbage collection inside the capture: freeing an engine of an
+    # earlier path (engines sit in reference cycles) would free its CUDA
+    # graphs, a CUDA call that invalidates this capture
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                y = fn()
+    finally:
+        gc.enable()
     return graph, y
 
 
@@ -739,12 +774,15 @@ def sdpa_reference_ms(torch, q, k8, v8, lengths, window):
         qs, k, v, attn_mask=mask))
 
 
-def check_decode_attn(torch, rng, n_layers: int) -> Tally:
+def check_decode_attn(torch, rng, n_layers: int, pool=()) -> Tally:
     """decode_attn_int8 at the token path's decode shape (B=8, T=256,
     Hkv=16, G=1, D=64, bf16 q, ragged lengths as the served run holds
-    them; ``n_layers`` launches per decode step), plus a GQA shape (G=4,
-    D=128), a windowed case and the decode shape at batch 1, 2 and 4,
-    which the path does not run (0 launches).  Each row: the f32 store
+    them; ``n_layers`` launches per decode step), at the decode shape of
+    each ``(name, cfg)`` of ``pool`` (B=8, T=256, its Hkv, G and D, lengths
+    9-80 as its served run holds them; ``cfg.n_layers`` launches per
+    step; each a path of its own, as the qwen step is), plus a GQA shape
+    (G=4, D=128), a windowed case and the decode shape at batch 1, 2 and
+    4, which no path runs (0 launches).  Each row: the f32 store
     within two flipped p8 codes per (b, h, g) row of the plain version
     (the share of elements within 1e-6 of max |out| recorded); the bf16
     store (the served one, timed) equal to the f32 store rounded once,
@@ -758,14 +796,18 @@ def check_decode_attn(torch, rng, n_layers: int) -> Tally:
     from repro_torch.kernels import decode_attn_int8 as k
     from repro_torch.nn.attention import quantize_kv_rows
     tally = Tally("decode_attn_int8")
-    cases = [  # (B, T, Hkv, G, D, lengths, window, launches per step)
+    cases = [  # (B, T, Hkv, G, D, lengths, window, launches per step,
+        #          path)
         (8, 256, 16, 1, 64, [1, 256] + list(rng.integers(8, 137, 6)), None,
-         n_layers),
-        (8, 256, 4, 4, 128, list(rng.integers(1, 257, 8)), None, 0),
-        (8, 256, 16, 1, 64, list(rng.integers(1, 257, 8)), 64, 0),
-    ] + [(B, 256, 16, 1, 64, list(rng.integers(8, 137, B)), None, 0)
-         for B in (1, 2, 4)]
-    for B, T, H, G, D, lengths, window, n in cases:
+         n_layers, "qwen1.5-0.5b decode step"),
+        (8, 256, 4, 4, 128, list(rng.integers(1, 257, 8)), None, 0, None),
+        (8, 256, 16, 1, 64, list(rng.integers(1, 257, 8)), 64, 0, None),
+    ] + [(B, 256, 16, 1, 64, list(rng.integers(8, 137, B)), None, 0, None)
+         for B in (1, 2, 4)] + [
+        (8, 256, c.n_kv_heads, c.n_heads // c.n_kv_heads, c.head_dim,
+         list(rng.integers(9, 81, 8)), None, c.n_layers,
+         f"{name} decode step") for name, c in pool]
+    for B, T, H, G, D, lengths, window, n, path in cases:
         lengths = [int(x) for x in lengths]
         q = _randn(torch, rng, (B, H, G, D), dtype=torch.bfloat16)
         k8, ks = quantize_kv_rows(_randn(torch, rng, (B, T, H, D)))
@@ -793,7 +835,7 @@ def check_decode_attn(torch, rng, n_layers: int) -> Tally:
         tally.measure(shape, n, lambda: k.decode_attn_int8(*args),
                       lambda: k.decode_attn_int8_plain(*args), None,
                       nbytes, ops_ms, err_bound=k.error_bound(*args),
-                      timed=served)
+                      timed=served, path=path)
         y_ref = k.decode_attn_int8_plain(*args)
         err = (y32 - y_ref).abs()
         row = tally.rows[-1]
@@ -1129,11 +1171,13 @@ def token_recipe(name: str):
     return rec.replace(tokens_per_step=64) if name == "token-m2q" else rec
 
 
-def token_m2q_calls(cfg, batch: int, prefill_len: int):
+def token_m2q_calls(cfg, batch: int, prefill_len: int,
+                    label: str = "token-m2q"):
     """m2q_matmul's calls (path, M, K, N) in one decode step and in one
-    prefill group of ``prefill_len``-token prompts of the mixed qwen: the
-    five stacked matmuls of every layer, then the lm_head (on the last
-    position of each prompt)."""
+    prefill group of ``prefill_len``-token prompts of a mixed LM (qwen;
+    ``label`` names another, as minitron-4b's): the five stacked matmuls
+    of every layer, then the lm_head (on the last position of each
+    prompt)."""
     def layers(M):
         shapes = {"attn/wq": (cfg.d_model, cfg.q_dim),
                   "attn/wk": (cfg.d_model, cfg.kv_dim),
@@ -1143,8 +1187,8 @@ def token_m2q_calls(cfg, batch: int, prefill_len: int):
         return [(f"layers/{p}@{i}", M, *shapes[p])
                 for i in range(cfg.n_layers) for p in LM_MIXED]
     head = ("lm_head", batch, cfg.d_model, cfg.padded_vocab)
-    return {"token-m2q decode step": layers(batch) + [head],
-            "token-m2q prefill group": layers(batch * prefill_len) + [head]}
+    return {f"{label} decode step": layers(batch) + [head],
+            f"{label} prefill group": layers(batch * prefill_len) + [head]}
 
 
 def token_requests(cfg):
@@ -2647,6 +2691,330 @@ def run_supervised(torch, out_dir, card):
     return total
 
 
+# ---- phase 10: the dense LM pool -------------------------------------------
+# each config at its published width, random weights from seed 0, int8 KV
+LM_POOL = ("qwen3-14b", "granite-3-8b", "minitron-4b", "internvl2-2b")
+POOL_REQUESTS = 8
+POOL_NEW = 16
+POOL_PREFIX_STEPS = 8
+# one prefill group of the pool's traffic: 8 prompts of 8-64 tokens,
+# padded to 64
+POOL_PREFILL_LEN = 64
+
+
+def pool_requests(cfg, n: int = POOL_REQUESTS):
+    """``n`` seeded prompts of 8-64 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(10)
+    return [rng.integers(0, cfg.vocab_size, int(rng.integers(8, 65)),
+                         dtype=np.int32) for _ in range(n)]
+
+
+def kernel_of(leaf):
+    """The kernel ``ops.qtensor_matmul`` sends ``leaf`` (a 2-D leaf or a
+    layer slice) to, or None where it takes the plain ``x @ dequant``."""
+    from repro_torch.core.qtensor import QAPoT, QExpertM2Q, QM2Q, QUniform
+    from repro_torch.kernels import ops
+    if not ops.kernel_supported(leaf):
+        return None
+    if isinstance(leaf, (QM2Q, QExpertM2Q)):
+        return "m2q_matmul"
+    if isinstance(leaf, QAPoT):
+        return "apot_matmul"
+    return "int8_matmul" if leaf.bits == 8 else "int4_matmul"
+
+
+def tree_launches(qm, steps: int, groups: int) -> Counter:
+    """The kernel launches of ``steps`` decode steps and ``groups``
+    prefill groups, worked out from the quantized tree: each layer
+    matmul whose layer slice a kernel takes once per layer, a kernel-run
+    lm_head once, in every step and group; with an int8 cache,
+    decode_attn_int8 once per layer and step."""
+    from repro_torch.core.qtensor import slice_layer
+    cfg = qm.cfg
+    per_pass = Counter()
+    for r in qm.report:
+        leaf = _get(qm.params, r.path)
+        if r.path.startswith("layers/"):
+            per_pass[kernel_of(slice_layer(leaf, 0))] += cfg.n_layers
+        elif r.path != "embed":  # the embedding is a row gather
+            per_pass[kernel_of(leaf)] += 1
+    per_pass.pop(None, None)
+    want = Counter({k: v * (steps + groups) for k, v in per_pass.items()})
+    if cfg.kv_cache_dtype == "int8":
+        want["decode_attn_int8"] += cfg.n_layers * steps
+    return want
+
+
+def _sync_peak(torch, device, reset: bool):
+    """Synchronize the card and return its peak allocated bytes since the
+    last reset (resetting it if asked); None off the card."""
+    if torch.device(device).type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def pool_quantize(torch, cfg, kind: str, device="cuda"):
+    """``init`` of ``cfg`` on ``device`` (seed 0), then ``recipe.quantize``
+    under m2q-w8a8 -- at the decode deployment shape (``kind``
+    ``"decode"``: 2 tokens a step, from the calibration batch) or at 64
+    tokens a step (``"mixed"``) -- with the float tree handed over
+    (``release=True``: each float leaf leaves the card once its QTensor
+    exists).  Returns (qm, {init_s, quantize_s, init_peak_bytes,
+    quantize_peak_bytes})."""
+    from repro_torch import recipe
+    from repro_torch.models import dense_lm
+    rec = recipe.PRESETS["m2q-w8a8"]
+    if kind == "mixed":
+        rec = rec.replace(tokens_per_step=64)
+    _sync_peak(torch, device, reset=True)
+    t0 = time.perf_counter()
+    params = dense_lm.init(cfg, seed=0, device=device)
+    init_peak = _sync_peak(torch, device, reset=True)
+    t1 = time.perf_counter()
+    qm = recipe.quantize(cfg, params, rec, release=True)
+    del params
+    quant_peak = _sync_peak(torch, device, reset=True)
+    return qm, {"init_s": t1 - t0, "quantize_s": time.perf_counter() - t1,
+                "init_peak_bytes": init_peak,
+                "quantize_peak_bytes": quant_peak}
+
+
+def pool_serve(torch, qm, device="cuda",
+               requests: int = POOL_REQUESTS, max_new: int = POOL_NEW,
+               max_len: int = TOKEN_MAX_LEN):
+    """Serve ``requests`` greedy requests of ``max_new`` tokens through
+    the token Engine (``max_batch`` 8, int8 KV), eagerly (one pass) and
+    from its CUDA graphs (two passes: the first captures the decode step,
+    the second is timed; on the CPU every pass runs eagerly), and hold
+    the run: graph tokens equal eager tokens, every token below
+    ``vocab_size``, each request its token count, the launches of every
+    pass equal to :func:`tree_launches` (at full width and the decode
+    shape, one int4_matmul a step and group besides decode_attn_int8
+    once a layer and step; at REDUCED width the mixed path's), and the
+    teacher-forced kernel logits of two requests within
+    TEACHER_FORCED_BOUND of max |logit| of ``reference_path()``'s, a
+    served token never further below the teacher-forced argmax than
+    that.  Returns (figures,
+    problems, kernel launches)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    from repro_torch.launch.daemon import (TEACHER_FORCED_BOUND,
+                                           teacher_forced_logits)
+    from repro_torch.models import dense_lm
+    cfg = qm.cfg
+    on_card = torch.device(device).type == "cuda"
+    field = "launches" if on_card else "plain_calls"
+    prompts = pool_requests(cfg, requests)
+    problems, res, served, launches = [], {}, {}, Counter()
+    for graphs, passes in ((False, ("eager",)),
+                           (True, ("graph warm", "graph"))):
+        engine = qm.serve(max_batch=TOKEN_BATCH, max_len=max_len, seed=0,
+                          graphs=graphs)
+        for mode in passes:
+            s0 = (engine.stats.steps, engine.stats.prefill_batches)
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            handles = [engine.submit(p, max_new_tokens=max_new)
+                       for p in prompts]
+            engine.run()
+            _sync_peak(torch, device, reset=False)
+            res[f"{mode}_pass_s"] = time.perf_counter() - t0
+            counts = kernels.counts()
+            outs = served[mode] = [h.handle.result() for h in handles]
+            steps = engine.stats.steps - s0[0]
+            groups = engine.stats.prefill_batches - s0[1]
+            res[f"{mode}_steps"], res[f"{mode}_groups"] = steps, groups
+            want = tree_launches(qm, steps, groups)
+            got = {k: c[field] for k, c in counts.items() if c[field]}
+            if got != dict(want):
+                problems.append(f"{mode}: {field} {got} over {steps} steps "
+                                f"and {groups} prefill groups, expected "
+                                f"{dict(want)}")
+            if on_card and any(c["plain_calls"] for c in counts.values()):
+                problems.append(f"{mode}: plain calls {counts}")
+            launches.update({k: c["launches"] for k, c in counts.items()})
+            if any(len(t) != max_new for t in outs):
+                problems.append(f"{mode}: token counts "
+                                f"{[len(t) for t in outs]}")
+        if graphs:
+            if engine.step_graphs is not None:
+                res["graph_capture_s"] = engine.step_graphs.capture_s
+            cache = {k: v.clone() for k, v in engine.cache.items()}
+        del engine
+    for mode in ("graph warm", "graph"):
+        if served[mode] != served["eager"]:
+            problems.append(f"{mode} pass: graph-served tokens differ from "
+                            "the eager ones")
+    top_id = max(t for toks in served["eager"] for t in toks)
+    res["served_tokens_max"] = top_id
+    if top_id >= cfg.vocab_size:
+        problems.append(f"served token {top_id} >= vocab {cfg.vocab_size}")
+    generated = sum(len(t) for t in served["graph"])
+    res["tokens_per_s"] = {m: generated / res[f"{m}_pass_s"]
+                           for m in ("eager", "graph")}
+
+    # teacher-forced logits, kernels vs plain versions: two requests
+    pick = [0, 1]
+    steps = max_new - 1
+    forced = np.array([served["eager"][i][:steps] for i in pick]).T
+    with torch.no_grad():
+        got = teacher_forced_logits(cfg, qm.params, [prompts[i] for i in pick],
+                                    forced, max_len)
+        with ops.reference_path():
+            ref = teacher_forced_logits(cfg, qm.params,
+                                        [prompts[i] for i in pick], forced,
+                                        max_len)
+    diff, top = float((got - ref).abs().max()), float(ref.abs().max())
+    bound = TEACHER_FORCED_BOUND * top
+    margins = token_margins(got.cpu().numpy(), np.array(
+        [served["eager"][i][:steps + 1] for i in pick]).T)
+    res.update(teacher_forced_max_abs_diff=diff, logits_max_abs=top,
+               teacher_forced_bound=bound,
+               largest_served_gap=margins["largest_gap"],
+               served_off_argmax=len(margins["mismatches"]))
+    if not diff <= bound:
+        problems.append(f"teacher-forced logits differ from the plain "
+                        f"versions' by {diff} (bound {bound})")
+    if not margins["largest_gap"] <= bound:
+        problems.append(f"a served token sits {margins['largest_gap']} below "
+                        f"the teacher-forced argmax (bound {bound})")
+
+    # the batch-8 decode step at the served cache's lengths, in a graph
+    if on_card:
+        tok = torch.zeros((TOKEN_BATCH, 1), dtype=torch.int64, device=device)
+        with torch.no_grad():
+            res["decode_step_graph_ms"] = graph_ms(
+                lambda: dense_lm.decode_step(cfg, qm.params, cache, tok),
+                iters=2, reps=3)
+        res["decode_lengths"] = cache["lengths"].tolist()
+    res["peak_bytes_serving"] = _sync_peak(torch, device, reset=True)
+    return res, problems, launches
+
+
+def lm_pool_case(torch, cfg, kind: str, device="cuda",
+                 requests: int = POOL_REQUESTS, max_new: int = POOL_NEW,
+                 max_len: int = TOKEN_MAX_LEN):
+    """:func:`pool_quantize` then :func:`pool_serve` of one config:
+    (figures, problems)."""
+    qm, res = pool_quantize(torch, cfg, kind, device)
+    served, problems, _ = pool_serve(torch, qm, device, requests,
+                                     max_new, max_len)
+    return dict(res, **served), problems
+
+
+def lm_pool_prefix_case(torch, qm, steps: int = POOL_PREFIX_STEPS,
+                        device="cuda"):
+    """internvl2 with its stub frontend: one ragged ``prefill`` of 4
+    prompts of 16-48 tokens behind ``n_patches`` prefix embeddings
+    (standard normal, from seed 11), then ``steps`` teacher-forced
+    ``decode_step`` calls, once with the kernels and once under
+    ``reference_path()``; the logits must agree within
+    TEACHER_FORCED_BOUND of max |logit|.  Returns (figures, problems,
+    kernel launches)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    from repro_torch.launch.daemon import TEACHER_FORCED_BOUND
+    from repro_torch.models import dense_lm
+    cfg = qm.cfg
+    P = cfg.n_patches
+    rng = np.random.default_rng(11)
+    lens = rng.integers(16, 49, 4)
+    toks = rng.integers(0, cfg.vocab_size, (4, int(lens.max())))
+    prefix = rng.normal(0, 1, (4, P, cfg.d_model)).astype(np.float32)
+    forced = rng.integers(0, cfg.vocab_size, (steps, 4))
+    max_len = P + int(lens.max()) + steps
+
+    def run():
+        cache = dense_lm.init_cache(cfg, 4, max_len, device=device)
+        lg, cache = dense_lm.prefill(
+            cfg, qm.params, cache, torch.from_numpy(toks).to(device),
+            prefix_embeds=torch.from_numpy(prefix).to(device),
+            lengths=torch.from_numpy((P + lens).astype(np.int32)).to(device))
+        out = [lg[:, 0, :cfg.vocab_size].float()]
+        for t in forced:
+            lg, cache = dense_lm.decode_step(
+                cfg, qm.params, cache, torch.from_numpy(t[:, None]).to(device))
+            out.append(lg[:, 0, :cfg.vocab_size].float())
+        return torch.stack(out)
+
+    kernels.reset_counts()
+    with torch.no_grad():
+        got = run()
+        counts = kernels.counts()
+        with ops.reference_path():
+            ref = run()
+    diff, top = float((got - ref).abs().max()), float(ref.abs().max())
+    bound = TEACHER_FORCED_BOUND * top
+    problems = []
+    if not diff <= bound:
+        problems.append(f"prefix path: logits differ from the plain "
+                        f"versions' by {diff} (bound {bound})")
+    field = "launches" if torch.device(device).type == "cuda" \
+        else "plain_calls"
+    want = tree_launches(qm, steps, 1)
+    got_counts = {k: c[field] for k, c in counts.items() if c[field]}
+    if got_counts != dict(want):
+        problems.append(f"prefix path: {field} {got_counts}, expected "
+                        f"{dict(want)}")
+    res = dict(prefix=P, prompt_lengths=lens.tolist(), steps=steps,
+               max_abs_diff=diff, logits_max_abs=top, bound=bound,
+               same_argmax=float((got.argmax(-1) == ref.argmax(-1))
+                                 .float().mean()))
+    return res, problems, Counter({k: c["launches"]
+                                   for k, c in counts.items()})
+
+
+def run_lm_pool(torch, out_dir, card) -> Counter:
+    """Phase 10: (a) each config of ``LM_POOL`` at its published width
+    quantized at the decode shape and served (:func:`pool_quantize`,
+    :func:`pool_serve`); (c) internvl2's prefix path on its (a) model;
+    (b) minitron-4b at 64 tokens a step, the mixed LM with the relu2
+    group.  Every case's figures printed beside the card; any problem
+    fails the run.  Returns the kernel launches."""
+    from repro_torch.configs.registry import ARCHS
+    t0 = time.perf_counter()
+    gc.collect()  # what earlier phases left: their peaks are not ours
+    torch.cuda.empty_cache()
+    total = Counter()
+    out = {"allocated_at_start": torch.cuda.memory_allocated()}
+    cases = [(name, "decode") for name in LM_POOL] + [("minitron-4b",
+                                                        "mixed")]
+    for name, kind in cases:
+        cfg = ARCHS[name].replace(kv_cache_dtype="int8")
+        qm, res = pool_quantize(torch, cfg, kind)
+        problems = [f"{r.path} is not 4-bit at the decode shape"
+                    for r in qm.report if kind == "decode"
+                    and (r.decision != "lowbit" or r.bits != 4.0)]
+        served, more, launches = pool_serve(torch, qm)
+        problems += more
+        res.update(served)
+        total.update(launches)
+        if name == "internvl2-2b" and kind == "decode":
+            res["prefix"], more, launches = lm_pool_prefix_case(torch, qm)
+            problems += more
+            total.update(launches)
+        key = f"{name} {kind}"
+        out[key] = res
+        print(f"phase 10 {key}:", json.dumps(res), flush=True)
+        if problems:
+            fail(f"phase 10 {key}: " + "; ".join(problems)[:2000])
+        del qm
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    out["card"] = card
+    print(f"phase 10: {out['phase_s']:.1f} s; {card}", flush=True)
+    (out_dir / "chip_smoke_lm_pool.json").write_text(
+        json.dumps(out, indent=1))
+    return total
+
+
 def main() -> None:
     import torch  # the card check needs torch before anything else
 
@@ -2687,10 +3055,15 @@ def main() -> None:
           f"{len(attn_calls)} attention calls; stem {stem_call}", flush=True)
     qwen = ARCHS["qwen1.5-0.5b"]
     lm_head_call = ("lm_head", TOKEN_BATCH, qwen.d_model, qwen.padded_vocab)
+    pool = [(name, ARCHS[name]) for name in LM_POOL]
+    pool_heads = {f"{name} lm_head": [("lm_head", TOKEN_BATCH, c.d_model,
+                                       c.padded_vocab)] for name, c in pool}
     rng = np.random.default_rng(0)
     tallies = [check_m2q(torch, rng, {
                    "m2q-w8a8": m2q_calls,
-                   **token_m2q_calls(qwen, TOKEN_BATCH, PREFILL_LEN)}),
+                   **token_m2q_calls(qwen, TOKEN_BATCH, PREFILL_LEN),
+                   **token_m2q_calls(ARCHS["minitron-4b"], TOKEN_BATCH,
+                                     POOL_PREFILL_LEN, "minitron-4b mixed")}),
                check_dwconv(torch, rng, dw_calls),
                check_attn(torch, rng, attn_calls),
                check_scales(torch, rng, attn_calls),
@@ -2698,10 +3071,11 @@ def main() -> None:
                                        "int8-stem": [stem_call]}),
                check_weights_only(torch, rng, "int4_matmul",
                                   {"w4-weights-only": m2q_calls,
-                                   "qwen-decode-step": [lm_head_call]}),
+                                   "qwen-decode-step": [lm_head_call],
+                                   **pool_heads}),
                check_weights_only(torch, rng, "apot_matmul",
                                   {"weights-only-apot": m2q_calls}),
-               check_decode_attn(torch, rng, qwen.n_layers)]
+               check_decode_attn(torch, rng, qwen.n_layers, pool)]
     detail = {t.name: t.rows for t in tallies}
     (out_dir / "chip_smoke_kernels.json").write_text(
         json.dumps(detail, indent=1))
@@ -2736,11 +3110,14 @@ def main() -> None:
 
         # ---- 9. supervised serving, each part from zeroed counters --------
         launches.update(run_supervised(torch, out_dir, card))
+
+        # ---- 10. the dense LM pool, each pass from zeroed counters ---------
+        launches.update(run_lm_pool(torch, out_dir, card))
     finally:
         import shutil
         shutil.rmtree(ARTIFACTS, ignore_errors=True)
 
-    # ---- 10. results ----------------------------------------------------
+    # ---- 11. results ----------------------------------------------------
     replaces = {"m2q_matmul": "src/repro/kernels/m2q_matmul.py:80",
                 "dwconv_w4": "src/repro/kernels/dwconv_w4.py:107",
                 "relu_attn": "src/repro/kernels/relu_attn.py:74",

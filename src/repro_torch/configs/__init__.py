@@ -1,1 +1,1 @@
-"""Model configurations (EfficientViT-B1 and B2)."""
+"""Model configurations (EfficientViT-B1 and B2; the dense LMs)."""

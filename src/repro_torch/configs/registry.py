@@ -1,14 +1,32 @@
-"""Architecture registry: the EfficientViT and qwen1.5-0.5b entries of
-``repro.configs.registry`` (the other families are not ported yet)."""
-from . import efficientvit_b1, efficientvit_b2, qwen15_05b
+"""Architecture registry: the EfficientViT and dense-LM entries of
+``repro.configs.registry`` (the MoE, recurrent and whisper families are
+not ported yet)."""
+from . import (efficientvit_b1, efficientvit_b2, granite3_8b, internvl2_2b,
+               minitron_4b, qwen3_14b, qwen15_05b)
 
-ARCHS = {
-    "efficientvit-b1-r224": efficientvit_b1.CONFIG,
-    "efficientvit-b2-r224": efficientvit_b2.CONFIG,
-    "efficientvit-b1-r256": efficientvit_b1.CONFIG_R256,
-    "efficientvit-b1-r288": efficientvit_b1.CONFIG_R288,
-    "qwen1.5-0.5b": qwen15_05b.CONFIG,
+_MODULES = {
+    "qwen1.5-0.5b": qwen15_05b,
+    "qwen3-14b": qwen3_14b,
+    "granite-3-8b": granite3_8b,
+    "minitron-4b": minitron_4b,
+    "internvl2-2b": internvl2_2b,
+    "efficientvit-b1-r224": efficientvit_b1,
+    "efficientvit-b2-r224": efficientvit_b2,
 }
-REDUCED = {"efficientvit-b1-r224": efficientvit_b1.REDUCED,
-           "efficientvit-b2-r224": efficientvit_b2.REDUCED,
-           "qwen1.5-0.5b": qwen15_05b.REDUCED}
+
+ARCHS = {name: mod.CONFIG for name, mod in _MODULES.items()}
+ARCHS["efficientvit-b1-r256"] = efficientvit_b1.CONFIG_R256
+ARCHS["efficientvit-b1-r288"] = efficientvit_b1.CONFIG_R288
+REDUCED = {name: mod.REDUCED for name, mod in _MODULES.items()}
+
+
+def get_config(name: str):
+    return ARCHS[name]
+
+
+def get_reduced(name: str):
+    return REDUCED[name]
+
+
+def list_archs():
+    return list(ARCHS)

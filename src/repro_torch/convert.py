@@ -21,8 +21,9 @@ with its class under ``"qtensor"`` and its fields by the JAX leaf's names:
 
 ``act_scale`` may be None.  Anything else, and any field whose dtype or
 shape disagrees with the leaf it claims to be, raises.  The whole
-dense-LM tree crosses this way (float norms and biases, QUniform embedding,
-stacked layers and head).
+dense-LM tree crosses this way (float norms, biases and qk_norm's
+``q_gamma`` / ``k_gamma``, QUniform embedding, stacked layers -- a relu2
+``mlp`` has no ``w3`` -- and head).
 """
 from __future__ import annotations
 

@@ -174,6 +174,68 @@ def _quantize_leaf(w: torch.Tensor, kind: str, decision: str,
     raise ValueError(f"unknown compute scheme {p.compute_scheme}")
 
 
+def _quantize_stacked(w: torch.Tensor, kind: str, decision: str,
+                      p: pol.M2QPolicy, act_max_abs):
+    """:func:`_quantize_leaf` of a stacked (L, K, N) weight, one layer at a
+    time: every quantizer here takes per-(layer, filter) statistics
+    (``reduce_axes=(1,)``) and Eq. 6 selects per layer, so the fields
+    equal the whole leaf's bit for bit, while the temporaries are one
+    layer's.  ``act_max_abs``: None or the (L, 1, 1) per-layer stats."""
+    parts = [_quantize_leaf(w[i:i + 1], kind, decision, p,
+                            None if act_max_abs is None
+                            else act_max_abs[i:i + 1])
+             for i in range(w.shape[0])]
+    first = parts[0]
+    return dataclasses.replace(first, shape=tuple(w.shape), **{
+        f.name: torch.cat([getattr(q, f.name) for q in parts])
+        for f in dataclasses.fields(first)
+        if isinstance(getattr(first, f.name), torch.Tensor)})
+
+
+# weights dequantized at a time by :func:`_mse`
+MSE_CHUNK = 1 << 26
+
+
+def _rows(qt, lo: int, hi: int, n: int):
+    """Rows ``lo:hi`` of a QTensor leaf whose payload has ``n`` rows (the
+    layers of a stacked leaf; the rows of a 2-D one): every tensor field
+    that spans them is sliced, the others (per-filter scales of one row)
+    are kept."""
+    def part(t):
+        spans = isinstance(t, torch.Tensor) and t.ndim and t.shape[0] == n
+        return t[lo:hi] if spans else t
+    return dataclasses.replace(qt, **{f.name: part(getattr(qt, f.name))
+                                      for f in dataclasses.fields(qt)})
+
+
+def _mse(leaf: torch.Tensor, qt) -> float:
+    """``mean((leaf - dequant(qt))^2)`` in f32 through one buffer of the
+    leaf's size: dequantized ``MSE_CHUNK`` weights' worth of rows (whole
+    layers of a stacked leaf) at a time, then the difference and its
+    square written in place -- the same values, so the same mean -- with
+    the dequantize temporaries of one block."""
+    n = (qt.codes if isinstance(qt, QAPoT) else qt.payload).shape[0]
+    step = max(1, MSE_CHUNK * n // max(leaf.numel(), 1))
+    buf = None
+    for lo in range(0, n, step):
+        part = _rows(qt, lo, lo + step, n).dequant()
+        if buf is None:
+            buf = torch.empty((n,) + tuple(part.shape[1:]),
+                              dtype=torch.float32, device=part.device)
+        buf[lo:lo + part.shape[0]] = part
+        del part
+    torch.sub(leaf.to(torch.float32).reshape(buf.shape), buf, out=buf)
+    return float(torch.mean(buf.pow_(2)))
+
+
+def _release(tree, key: str) -> None:
+    """Drop the leaf at ``key`` from ``tree`` (set it to None)."""
+    *parents, last = key.split("/")
+    for part in parents:
+        tree = tree[int(part)] if isinstance(tree, list) else tree[part]
+    tree[int(last) if isinstance(tree, list) else last] = None
+
+
 def _stacked_stats(act_stats: Dict[str, float], key: str, shape: tuple):
     """Per-layer ``'<key>@<i>'`` statistics of a stacked leaf as one
     (L, 1, ..., 1) array broadcasting over its trailing axes, or None
@@ -280,32 +342,42 @@ def quantize_model(params, rules: Sequence[Rule], shape_ctx: pol.ShapeCtx,
                    m2q_policy: Optional[pol.M2QPolicy] = None,
                    act_stats: Optional[Dict[str, float]] = None,
                    ffn_groups: Optional[Sequence[tuple]] = None,
-                   overrides: Optional[Sequence[Override]] = None):
+                   overrides: Optional[Sequence[Override]] = None,
+                   release: bool = False):
     """Apply M2Q to ``params``; non-matching leaves pass through.
     Returns (qparams, per-layer reports in tree order).  ``ffn_groups``:
     (up, gate|None, down) path-regex triples for perm-folded FFN
-    quantization (:func:`_joint_group_quantize`)."""
+    quantization (:func:`_joint_group_quantize`).  Stacked leaves are
+    quantized one layer at a time (:func:`_quantize_stacked`).
+    ``release``: each float leaf that becomes a QTensor is dropped from
+    ``params`` (set to None) once its quantized twin exists, so the
+    device never holds the float tree and the quantized one whole -- what
+    lets a model whose float tree fills most of the card quantize there
+    (the caller must hold no other reference to the float leaves)."""
     p = m2q_policy or pol.M2QPolicy()
     act_stats = act_stats or {}
     report: List[LayerReport] = []
     pre, permuted_down = _fold_groups(params, ffn_groups, shape_ctx, p,
                                       overrides)
+    if release:
+        for key in pre:
+            _release(params, key)
 
     def visit(key, leaf):
-        if not isinstance(leaf, torch.Tensor):
-            return leaf
-        if key in pre:
-            qt = pre[key]
+        if key in pre:  # its float leaf may be released already
+            qt = pre.pop(key)
             report.append(LayerReport(
                 path=key, kind=pol.KIND_DENSE, decision="mixed(perm-folded)",
-                shape=tuple(leaf.shape), bits=weight_bits(qt),
+                shape=tuple(qt.shape), bits=weight_bits(qt),
                 n_apot=qt.n_apot, n_uniform=qt.n_uniform))
             return qt
-        leaf = permuted_down.get(key, leaf)
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        leaf = permuted_down.pop(key, leaf)
         c = _classify(key, tuple(leaf.shape), rules, shape_ctx, p, overrides)
         if c is None:
             return leaf
-        kind, decision, p_leaf, conv, _ = c
+        kind, decision, p_leaf, conv, stacked = c
         # activation stats: the plain key, or per-layer '@i' keys
         ams = act_stats.get(key)
         if ams is None and leaf.ndim >= 3 and not conv:
@@ -313,17 +385,21 @@ def quantize_model(params, rules: Sequence[Rule], shape_ctx: pol.ShapeCtx,
         w = leaf.to(torch.float32)
         if conv:
             w = w.reshape(-1, w.shape[-1])
-        qt = _quantize_leaf(w, kind, decision, p_leaf, ams)
+        if stacked:
+            qt = _quantize_stacked(w, kind, decision, p_leaf, ams)
+        else:
+            qt = _quantize_leaf(w, kind, decision, p_leaf, ams)
+        del w
         if conv:
             qt = dataclasses.replace(qt, shape=tuple(leaf.shape))
         rep = LayerReport(path=key, kind=kind, decision=decision,
                           shape=tuple(leaf.shape), bits=weight_bits(qt))
         if isinstance(qt, (QM2Q, QExpertM2Q)):
             rep.n_apot, rep.n_uniform = qt.n_apot, qt.n_uniform
-        w_hat = qt.dequant()
-        rep.mse = float(torch.mean(
-            (leaf.to(torch.float32).reshape(w_hat.shape) - w_hat) ** 2))
+        rep.mse = _mse(leaf, qt)
         report.append(rep)
+        if release:
+            _release(params, key)
         return qt
 
     return map_with_path(visit, params), report

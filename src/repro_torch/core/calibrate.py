@@ -15,6 +15,22 @@ from . import policy as pol
 from .tree import map_with_path
 
 
+def path_str(path) -> str:
+    """Canonical '/'-joined string of a tree path: a sequence of parts
+    that are dict keys (``.key``), sequence indices (``.idx``) -- the key
+    objects of a JAX tree path -- or plain strings and ints, as the port's
+    ``core.tree`` paths are built."""
+    parts = []
+    for p in path:
+        if hasattr(p, "key"):
+            parts.append(str(p.key))
+        elif hasattr(p, "idx"):
+            parts.append(str(p.idx))
+        else:
+            parts.append(str(p))
+    return "/".join(parts)
+
+
 class CalibTensor:
     """Float weight + max-abs observer."""
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from .quant import APoTQ
+from .quant import APoTQ, UniformQ
 
 ZERO_BIT = 0x80
 SIGN_BIT = 0x40
@@ -60,3 +60,18 @@ def apot_decode_units(codes: torch.Tensor) -> torch.Tensor:
     mag = (1 << (7 - ((c >> 3) & 7))) + (1 << (7 - (c & 7)))
     val = torch.where((c & SIGN_BIT) != 0, -mag, mag)
     return torch.where((c & ZERO_BIT) != 0, torch.zeros_like(val), val)
+
+
+def store_uniform(u: UniformQ) -> torch.Tensor:
+    """The integer payload at its storage width: 4-bit packed two to a
+    byte along the last axis, any other width one uint8 per weight."""
+    if u.bits == 4:
+        return pack_int4(u.q)
+    return u.q.to(torch.uint8)
+
+
+def load_uniform(payload: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of :func:`store_uniform`: int32 codes."""
+    if bits == 4:
+        return unpack_int4(payload).to(torch.int32)
+    return payload.to(torch.int32)

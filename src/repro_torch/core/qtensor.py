@@ -209,6 +209,10 @@ class QM2Q(_Merged):
                    None if act is None else act.to(w.device), tuple(w.shape),
                    int(ui.numel()), int(ai.numel()))
 
+    def scheme_mask(self) -> torch.Tensor:
+        """(N,) bool: True where the column is uniform-quantized."""
+        return self.a_scale.reshape(-1) == 0.0
+
 
 @dataclasses.dataclass
 class QExpertM2Q(_Merged):
@@ -259,6 +263,13 @@ def slice_layer(leaf, i: int):
             for f in dataclasses.fields(leaf)
             if isinstance(getattr(leaf, f.name), torch.Tensor)})
     return leaf[i]  # a CalibTensor: per-layer '<path>@<i>' stats
+
+
+def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ W`` through the leaf's plain matmul (JAX's entry point for
+    ``nn.dense``): what ``kernels.ops.qtensor_matmul`` runs for a leaf no
+    kernel takes."""
+    return w.matmul(x)
 
 
 def is_qtensor(x) -> bool:

@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from ..core.qtensor import QAPoT, QExpertM2Q, QM2Q, QUniform
+from ..core.qtensor import QAPoT, QExpertM2Q, QM2Q, QUniform, qmatmul
 from . import apot_matmul as _apot
 from . import decode_attn_int8 as _dec
 from . import dwconv_w4 as _dw
@@ -102,7 +102,7 @@ def qtensor_matmul(x: torch.Tensor, qt) -> torch.Tensor:
     """y = x @ W for a 2-D QTensor leaf; x (..., K) -> (..., N) in x.dtype
     (a cast of the kernel's f32 output, except where it stored x.dtype)."""
     if not kernel_supported(qt):
-        return qt.matmul(x)
+        return qmatmul(x, qt)
     y = _kernel_matmul(x.reshape(-1, x.shape[-1]).contiguous(), qt)
     return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
 

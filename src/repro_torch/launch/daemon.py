@@ -10,6 +10,9 @@ interactive request token by token:
   PYTHONPATH=src python -m repro_torch.launch.daemon --arch qwen1.5-0.5b \
       --reduced --requests 8 --stream [--device cpu]
 
+``--arch`` takes the port's dense LMs: qwen1.5-0.5b, qwen3-14b,
+granite-3-8b, minitron-4b and internvl2-2b (text only).
+
 ``--smoke`` is the fast path: one streamed request with a tight timeout,
 clean drain, exact outcome reconciliation -- exits non-zero on any of
 those failing.
@@ -72,6 +75,7 @@ def build_engine(args):
     if args.no_quant:
         return Engine(cfg, params, **engine_kw)
     qm = quantize_for_serving(cfg, params)
+    del params
     print(f"[daemon] quantized {len(qm.report)} layers")
     return qm.serve(**engine_kw)
 

@@ -5,6 +5,10 @@ token engine.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --reduced --requests 8 --max-new 16 [--device cpu]
 
+``--arch`` takes the port's dense LMs: qwen1.5-0.5b, qwen3-14b,
+granite-3-8b, minitron-4b and internvl2-2b (served as text: the token
+engine takes no patch prefix, as in the JAX package).
+
 The engine runs on ``--device`` (the card by default).  ``--mesh``
 (sharded execution) is not ported: it waits for the port's sharding
 (ROADMAP A9).
@@ -36,11 +40,13 @@ def quantize_for_serving(cfg, params, batch: int = 2, calib_len: int = 32,
     """Offline PTQ via the recipe API: calibrate on random prompts, apply
     M2Q, return the persistable artifact.  Only the prompt shape is
     overridden; the recipe's other CalibSpec fields (batches, seed) are
-    kept."""
+    kept.  ``params`` is handed over: each float leaf is dropped from it
+    once quantized (``recipe.quantize(..., release=True)``), so a float
+    tree that fills most of the card (qwen3-14b's) quantizes there."""
     rec = as_recipe(recipe)
     rec = rec.replace(calib=dataclasses.replace(
         rec.calib, batch_size=batch, seq_len=calib_len))
-    return quantize(cfg, params, rec)
+    return quantize(cfg, params, rec, release=True)
 
 
 def main(argv=None) -> None:

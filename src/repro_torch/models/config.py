@@ -1,6 +1,7 @@
 """Architecture config (the vision and dense-LM subset of
-``repro.models.config``'s ``ArchConfig``; the MoE, hybrid, whisper and
-sharding fields come with those families)."""
+``repro.models.config``'s ``ArchConfig``, the VLM stub frontend's
+``n_patches`` included; the MoE, hybrid, whisper and sharding fields come
+with those families)."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,6 +31,8 @@ class ArchConfig:
     window: Optional[int] = None  # sliding attention window (None: all)
     kv_cache_dtype: str = "bf16"  # bf16 | int8 (per-row scales, integer
                                   # decode attention)
+    # vlm stub frontend: patch embeddings prepended to the tokens
+    n_patches: int = 0
     # efficientvit (vision)
     widths: Tuple[int, ...] = ()
     depths: Tuple[int, ...] = ()

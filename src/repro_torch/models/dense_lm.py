@@ -1,6 +1,9 @@
 """Decoder-only transformer LM (twin of ``repro.models.dense_lm`` without
-the MoE variants and the VLM prefix): qwen1.5-0.5b (QKV bias, MHA) and the
-other dense families' attention/FFN shapes.
+the MoE variants): qwen1.5-0.5b (QKV bias, MHA), qwen3-14b (qk_norm,
+GQA), granite-3-8b (GQA), minitron-4b (GQA, squared-ReLU FFN) and
+internvl2-2b (GQA; its stub frontend's patch embeddings enter
+:func:`forward` and :func:`prefill` as ``prefix_embeds``, ahead of the
+tokens).
 
 Layer parameters are stacked along a leading L axis, as in the JAX
 package, and run by a Python loop over :func:`layer_params` slices (JAX
@@ -68,11 +71,13 @@ def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
 
     def stacked(shape):
-        if device.type == "meta":  # shape only, as in nn.lecun_normal
-            return torch.empty((L,) + shape, dtype=torch.float32,
-                               device=device)
-        return torch.stack([nn.lecun_normal(shape, g, device)
-                            for _ in range(L)])
+        # filled layer by layer (the draws torch.stack of L draws would
+        # take, in the same order) so the tree never holds a leaf twice
+        out = torch.empty((L,) + shape, dtype=torch.float32, device=device)
+        if device.type != "meta":  # meta: shape only, as nn.lecun_normal
+            for i in range(L):
+                out[i] = nn.lecun_normal(shape, g, device)
+        return out
 
     def fill(value, shape):
         return torch.full((L,) + shape, value, dtype=torch.float32,
@@ -201,13 +206,22 @@ def block_decode(cfg: ArchConfig, lp, x, kv, lengths, rows):
 # ---------------------------------------------------------------------------
 
 
-def _embed(cfg: ArchConfig, params, tokens):
-    return nn.embed(tokens, params["embed"]).to(getattr(torch, cfg.dtype))
+def _embed(cfg: ArchConfig, params, tokens, prefix_embeds=None):
+    """Token embeddings in ``cfg.dtype``, after ``prefix_embeds`` (B, P,
+    d_model) where given (the VLM stub frontend: internvl2)."""
+    dtype = getattr(torch, cfg.dtype)
+    x = nn.embed(tokens, params["embed"]).to(dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(device=x.device, dtype=dtype), x],
+                      dim=1)
+    return x
 
 
-def forward(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, padded_vocab) in ``cfg.dtype``."""
-    x = _embed(cfg, params, tokens)
+def forward(cfg: ArchConfig, params, tokens: torch.Tensor,
+            prefix_embeds=None) -> torch.Tensor:
+    """tokens (B, S), after ``prefix_embeds`` (B, P, d_model) if given ->
+    logits (B, P + S, padded_vocab) in ``cfg.dtype``."""
+    x = _embed(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for i in range(cfg.n_layers):
         x = block(cfg, layer_params(params["layers"], i), x, positions)
@@ -251,13 +265,15 @@ def decode_step(cfg: ArchConfig, params, cache: dict, tokens: torch.Tensor):
 
 
 def prefill(cfg: ArchConfig, params, cache: dict, tokens: torch.Tensor,
-            lengths=None):
-    """Fill the cache from (B, S) prompts; returns (last-token logits
-    (B, 1, padded_vocab), cache).  ``lengths`` (B,): ragged prompts,
-    right-padded to S -- the logits are read at ``lengths - 1`` and the
-    cache records the true lengths; the pad rows' k/v sit at positions the
-    decode masks."""
-    x = _embed(cfg, params, tokens)
+            prefix_embeds=None, lengths=None):
+    """Fill the cache from (B, S) prompts, after ``prefix_embeds`` (B, P,
+    d_model) if given; returns (last-token logits (B, 1, padded_vocab),
+    cache).  Positions and the cache run over all P + S rows.
+    ``lengths`` (B,): ragged sequences (prefix included), right-padded to
+    P + S -- the logits are read at ``lengths - 1`` and the cache records
+    the true lengths; the pad rows' k/v sit at positions the decode
+    masks."""
+    x = _embed(cfg, params, tokens, prefix_embeds)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     for i in range(cfg.n_layers):

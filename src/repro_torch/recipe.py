@@ -250,8 +250,8 @@ class QuantizedModel:
     def serve(self, **engine_kw):
         """The serving engine for this model, by modality: the batched
         :class:`~repro_torch.serving.vision.VisionEngine` for the vision
-        family (``max_batch``, ``max_delay_ms``, ``attn``, ...), the
-        continuous-batching token
+        family (``max_batch``, ``min_bucket``, ``max_delay_ms``, ``attn``,
+        ...), the continuous-batching token
         :class:`~repro_torch.serving.engine.Engine` otherwise
         (``max_batch``, ``max_len``, ``seed``, ``max_delay_ms``, ...)."""
         if self.cfg.family == "efficientvit":
@@ -321,13 +321,18 @@ def _model_forward(cfg: ArchConfig, model, params, x, attn: Optional[str]):
 
 def quantize(arch_or_cfg, params, recipe: Union[str, QuantRecipe] = "m2q-w8a8",
              calib_batches: Optional[Iterable] = None,
-             attn: Optional[str] = None) -> QuantizedModel:
+             attn: Optional[str] = None,
+             release: bool = False) -> QuantizedModel:
     """Calibrate -> scheme-select -> quantize, in one call, on the device
     the float ``params`` live on.  ``calib_batches``: model inputs (numpy
     or tensors: images, or token prompts); None synthesizes them per the
     recipe's CalibSpec; weights-only recipes skip calibration.  ``attn``:
     the vision MSA token mixer used during calibration (device default
-    when None)."""
+    when None).  ``release``: the caller hands ``params`` over -- each
+    quantized leaf's float weight is dropped from it as soon as its
+    QTensor exists (``core.apply.quantize_model``), so a float tree that
+    fills most of the card (qwen3-14b's 59 GB) quantizes there; the
+    numbers are the same either way."""
     cfg = resolve_cfg(arch_or_cfg)
     rec = as_recipe(recipe)
     rec.validate()
@@ -354,11 +359,12 @@ def quantize(arch_or_cfg, params, recipe: Union[str, QuantRecipe] = "m2q-w8a8",
         run_calibration(
             lambda p, b: _model_forward(cfg, model, p, b, attn), wrapped,
             calib_batches)
+        del wrapped, calib_batches  # no reference to the float leaves
 
     qparams, report = quantize_model(
         params, resolved.rules, resolved.shape_ctx, rec.policy,
         act_stats=act_stats, ffn_groups=resolved.ffn_groups or None,
-        overrides=resolved.overrides)
+        overrides=resolved.overrides, release=release)
     toks = resolved.shape_ctx.tokens_per_step
     return QuantizedModel(
         cfg=cfg, recipe=rec.replace(tokens_per_step=toks), params=qparams,
@@ -408,7 +414,7 @@ FUNCTION_FIELDS = {
     "moe_shared_expert": False, "moe_capacity_factor": 1.25,
     "block_pattern": (), "lru_width": 0, "conv1d_width": 4,
     "rwkv_head_dim": 64, "n_enc_layers": 0, "n_audio_ctx": 1500,
-    "n_patches": 0, "attn_bf16_mm": False,
+    "attn_bf16_mm": False,
 }
 EXECUTION_FIELDS = {"causal_skip": False, "act_sharding": "",
                     "remat_policy": "full"}

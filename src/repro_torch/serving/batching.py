@@ -119,6 +119,17 @@ class ServeStats:
             if len(self.queue_ms) > self._MAX_LATENCY_SAMPLES:
                 del self.queue_ms[: self._MAX_LATENCY_SAMPLES // 2]
 
+    def reset(self) -> None:
+        """Zero every counter in place, under the lock (between a warm-up
+        and timed traffic: the scheduler keeps its reference, so the stats
+        reset without rebinding; the lock is not a field and stays)."""
+        with self._lock:
+            for f in dataclasses.fields(self):
+                setattr(self, f.name,
+                        f.default_factory()
+                        if f.default is dataclasses.MISSING
+                        else f.default)
+
     # -- derived metrics -----------------------------------------------------
     def latency_ms(self, pct: float) -> float:
         return _percentile(sorted(self.queue_ms), pct)

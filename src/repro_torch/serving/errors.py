@@ -21,7 +21,8 @@ callers can catch precisely what they can handle:
 * :class:`InjectedFault` — raised by the :mod:`.faults` harness on a
   provoked executor failure (defined there, re-exported here).
 
-Process-level failures (the supervision layer, not ported yet):
+Process-level failures (raised by the supervision layer,
+:mod:`.supervisor`):
 
 * :class:`HungStepError` — the engine's serve thread was inside one step
   longer than the supervisor's watchdog threshold.

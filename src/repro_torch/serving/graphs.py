@@ -24,6 +24,7 @@ step.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Hashable, Optional, Sequence
 
@@ -81,8 +82,17 @@ def _record(fn: Callable, pool, generators: Sequence[torch.Generator]):
     graph = torch.cuda.CUDAGraph()
     for g in generators:
         graph.register_generator_state(g)
-    with torch.cuda.graph(graph, pool=pool):
-        out = fn()
+    # no garbage collection inside the capture: one could free an earlier
+    # engine's graph (engines sit in reference cycles), and that graph's
+    # CUDA call would invalidate this capture (cudaError 901)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            out = fn()
+    finally:
+        if collecting:
+            gc.enable()
     return graph, out
 
 

@@ -5,9 +5,10 @@
 when it fills to ``max_batch``, when its oldest request is older than
 ``max_delay_ms`` (checked by :meth:`VisionEngine.poll`), or on
 :meth:`VisionEngine.flush`.  Each executed batch is zero-padded up to a
-power-of-two bucket and runs one forward on the engine's device.  Logits
-are finite-checked per row: a non-finite row fails its own request with
-:class:`~.errors.NumericalError` while its batchmates are delivered.
+power-of-two bucket (at least ``min_bucket``) and runs one forward on the
+engine's device.  Logits are finite-checked per row: a non-finite row
+fails its own request with :class:`~.errors.NumericalError` while its
+batchmates are delivered.
 
 On CUDA (``graphs=True``, the default) each bucket's forward is a CUDA
 graph (:mod:`.graphs`), captured at the bucket's first use over a static
@@ -63,6 +64,7 @@ class VisionEngine:
     """Deadline-batched classifier over a (quantized) parameter tree."""
 
     def __init__(self, cfg: ArchConfig, params, max_batch: int = 64,
+                 min_bucket: int = 1,
                  max_delay_ms: Optional[float] = None,
                  attn: Optional[str] = None,
                  clock: Callable[[], float] = time.monotonic,
@@ -85,6 +87,9 @@ class VisionEngine:
         self.device = device_of(params)
         self.attn = attn
         self.B = max_batch
+        # the smallest bucket executed: a batch below it is padded up, so
+        # only the buckets from min_bucket to max_batch are ever captured
+        self.min_bucket = max(1, min_bucket)
         self.stats = VisionStats()
         self.faults = faults
         # wall-clock time poll() was last entered (supervision liveness)
@@ -97,9 +102,9 @@ class VisionEngine:
             overload=overload, faults=self.faults)
 
     def bucket(self, n: int) -> int:
-        """Smallest power of two >= n, capped at max_batch: the batch
-        shape actually executed."""
-        return pow2_bucket(n, cap=self.B)
+        """Smallest power of two >= n, floored at min_bucket and capped at
+        max_batch: the batch shape actually executed."""
+        return pow2_bucket(n, self.min_bucket, self.B)
 
     def _run_batch(self, images: np.ndarray, bucket: int) -> np.ndarray:
         n = images.shape[0]

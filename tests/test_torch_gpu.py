@@ -1505,3 +1505,76 @@ def test_supervised_vision_crash_restart(cuda):
                                                max_batch=4)
     assert problems == [] and v["restarts"] == 1 and v["done"] == 10
     assert v["counts"]["relu_attn"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The dense LM pool (qwen3-14b, granite-3-8b, minitron-4b, internvl2-2b):
+# decode_attn_int8 at their GQA groups, int4_matmul at their lm_heads,
+# m2q_matmul at minitron's mixed shapes, and chip_smoke's phase 10 at
+# REDUCED width.
+# ---------------------------------------------------------------------------
+
+POOL = [(name, ARCHS[name]) for name in chip_smoke.LM_POOL]
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [5, 4, 3, 2])
+def test_decode_attn_kernel_at_the_pool_groups(cuda, G, q_dtype):
+    """B 8, T 256, Hkv 8, D 128 at each pool group (5 and 3 the first
+    groups that are not a power of two), ragged lengths (0, 1, T, a slot
+    idled past T, served-like lengths): within two p8 codes of the plain
+    version, the bf16 store the f32 store rounded once, one launch."""
+    lengths = [0, 1, 256, 300] + [int(x) for x in np.random.default_rng(
+        G).integers(9, 81, 4)]
+    args = decode_inputs(8, 256, 8, G, 128, lengths, cuda, seed=G,
+                         q_dtype=q_dtype)
+    scale = 128 ** -0.5
+    kernels.reset_counts()
+    y = decode_attn_int8.decode_attn_int8(*args, scale)
+    assert kernels.counts()["decode_attn_int8"] == {"launches": 1,
+                                                    "plain_calls": 0}
+    _within_two_codes(y, args, scale, None)
+    y16 = decode_attn_int8.decode_attn_int8(*args, scale,
+                                            out_dtype=torch.bfloat16)
+    _equal(y16, y.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("name,cfg", POOL, ids=[n for n, _ in POOL])
+def test_int4_kernel_at_the_pool_lm_heads(cuda, name, cfg):
+    """Each pool lm_head at the decode batch: M 8, K = d_model, N = the
+    padded vocab (49280 and 92672 multiples of 128, not of 256), bf16 x
+    on the narrow plan, within the f32 summation bound."""
+    M, K, N = chip_smoke.TOKEN_BATCH, cfg.d_model, cfg.padded_vocab
+    assert int4_matmul.launch_plan(M, K, N)["bm"] <= 16
+    x = _randn((M, K), K, cuda, dtype=torch.bfloat16)
+    qt = QUniform.quantize(_randn((K, N), N, cuda, std=K ** -0.5), bits=4)
+    args = (x, qt.payload, qt.scale.reshape(-1), qt.zero_point.reshape(-1))
+    y = int4_matmul.int4_matmul(*args)
+    _within_f32_bound(y, int4_matmul.int4_matmul_plain(*args), x,
+                      qt.dequant())
+
+
+POOL_M2Q_SHAPES = sorted({c[1:] for calls in chip_smoke.token_m2q_calls(
+    ARCHS["minitron-4b"], chip_smoke.TOKEN_BATCH,
+    chip_smoke.POOL_PREFILL_LEN).values() for c in calls})
+
+
+@pytest.mark.parametrize("M,K,N", POOL_M2Q_SHAPES)
+def test_m2q_kernel_equals_plain_at_minitrons_mixed_shapes(cuda, M, K, N):
+    """minitron-4b at 64 tokens a step: its layer slices at the decode
+    step and a prefill group of 8 x 64 tokens, and its lm_head (8, 3072,
+    256000), bit for bit."""
+    test_m2q_kernel_equals_plain_at_the_mixed_lm_shapes(cuda, M, K, N)
+
+
+@pytest.mark.parametrize("name", chip_smoke.LM_POOL)
+def test_lm_pool_case_at_reduced_width(cuda, name):
+    """chip_smoke's phase 10 serving case on the card at REDUCED width
+    (the mixed path, through the taxonomy overrides): graph tokens equal
+    eager, launches as the tree routes them, the teacher-forced bound."""
+    from repro_torch.configs.registry import REDUCED
+    res, problems = chip_smoke.lm_pool_case(
+        torch, REDUCED[name].replace(kv_cache_dtype="int8"), "decode",
+        device="cuda", requests=4, max_new=6, max_len=64)
+    assert problems == []
+    assert res["served_tokens_max"] < REDUCED[name].vocab_size

@@ -175,6 +175,44 @@ def test_failed_capture_raises_and_restores_the_counters(monkeypatch):
     assert len(sg) == 0
 
 
+@pytest.mark.parametrize("raises", [False, True])
+def test_no_garbage_collection_inside_a_capture(monkeypatch, raises):
+    """``_record`` runs the captured step with the garbage collector off (a
+    collection could free an earlier engine's graph, whose CUDA call would
+    invalidate the capture) and turns it back on after, also when the
+    step raises; a collector the caller had turned off stays off."""
+    import contextlib
+    import gc
+
+    class FakeGraph:
+        def register_generator_state(self, g):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda graph, pool=None: contextlib.nullcontext())
+    seen = []
+
+    def step():
+        seen.append(gc.isenabled())
+        if raises:
+            raise RuntimeError("step failed")
+        return "out"
+
+    assert gc.isenabled()
+    with (pytest.raises(RuntimeError) if raises
+          else contextlib.nullcontext()):
+        graph, out = graphs._record(step, None, ())
+        assert isinstance(graph, FakeGraph) and out == "out"
+    assert seen == [False] and gc.isenabled()
+    gc.disable()
+    try:
+        graphs._record(lambda: None, None, ()) if not raises else None
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
 def _refuse_cuda(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("torch.cuda touched on a CPU engine")
