@@ -27,7 +27,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
    D=128, G = 5, 4, 3, 2), ``int4_matmul`` at the four lm_heads (M=8,
    K x N = 5120 x 151936, 4096 x 49280, 3072 x 256000, 2048 x 92672),
    ``m2q_matmul`` at minitron-4b's mixed decode step, its lm_head and a
-   prefill group of 8 prompts of 64 tokens), with kernel / plain /
+   prefill group of 8 prompts of 64 tokens; and at the MoE LMs' shapes
+   (phase 11): ``decode_attn_int8`` at llama4-scout's G 5 and dbrx's G 6
+   (Hkv 8, D 128), ``int4_matmul`` at llama4-scout's lm_head (M 8, K
+   5120, N 202112), ``m2q_matmul`` at dbrx's mixed decode step and
+   prefill group -- attention slices at M 8 / 512, each expert's w1, w3
+   (K 6144, N 10752) and w2 (K 10752, N 6144) at its capacity of 8 / 160
+   rows, the lm_head (8, 6144, 100352)), with kernel / plain /
    library device times (CUDA graphs
    timed by CUDA events) and the card's least time for the same work
    (m2q_matmul, int8_matmul and int4_matmul also per path: their shapes
@@ -187,6 +193,26 @@ Phases, each fatal on failure (nonzero exit, no result line):
    against plain versions within the same bound; (b) minitron-4b again
    at 64 tokens a step, the mixed LM with its relu2 group (161
    m2q_matmul and 32 decode_attn_int8 launches a decode step).
+
+11. the MoE LMs -- at their published widths with the int8 KV cache,
+   the depth cut (the f32 trees do not fit the card whole):
+   llama4-scout-17b-a16e (4 of 48 layers; 16 experts top-1 and a shared
+   expert, G 5, vocab 202048 -> 202112) under m2q-w8a8 at the decode
+   shape (every leaf 4-bit, the experts (L, 16, K, N/2) QUniform leaves:
+   decode_attn_int8 4 and int4_matmul 1 a decode step), and dbrx-132b (2
+   of 40 layers; 16 experts top-4, G 6) at 256 tokens a step (64 an
+   expert: the experts (L, 16, K, N) QExpertM2Q leaves, attention and the
+   lm_head mixed: 105 m2q_matmul -- 16 a leaf and layer for the experts,
+   4 attention slices a layer, the lm_head -- and 2 decode_attn_int8 a
+   decode step), one at a time: ``init`` on the card (seed 0),
+   ``quantize(..., release=True)``, the leaves checked, the artifact
+   saved and loaded on the card (leaf for leaf bit-identical), then the
+   loaded model served as in phase 10 (8 greedy requests x 16 tokens,
+   eager and graphed tokens equal, launches as ``tree_launches`` counts
+   them, 0 plain calls, teacher-forced logits within 5e-2 of max |logit|
+   of ``reference_path()``'s); prints peaks, init / quantize / save /
+   load seconds, the graphed decode step, tokens/s and each model's
+   full-depth 4-bit tree bytes from ``abstract_quantize``.
 
 It then prints the card's name and power limit again, one JSON line with
 every kernel's numbers and, last, the ``{"ok": true, "device": ...}``
@@ -487,19 +513,28 @@ def check_m2q(torch, rng, calls_by_path) -> Tally:
     ``library_ms`` sum every path given (one B1 forward, one decode step
     and one prefill group); the B1 forward's own sums, the figure the
     entry gave before the LM paths joined it, are
-    ``per_path["m2q-w8a8"]``."""
+    ``per_path["m2q-w8a8"]``.  One weight is drawn and quantized per (K,
+    N) and shared by the paths that run that shape (a decode step and a
+    prefill group); each row's activation scale is its own x's."""
+    import dataclasses
     from repro_torch.core.qtensor import QM2Q
+    from repro_torch.core.quant import act_scale_from_stats
     from repro_torch.core.scheme_select import select_schemes
     from repro_torch.kernels import m2q_matmul as k
     tally = Tally("m2q_matmul")
+    weights = {}
     for path, calls in calls_by_path.items():
         for (M, K, N), n in Counter([c[1:] for c in calls]).items():
             x = _randn(torch, rng, (M, K), dtype=torch.bfloat16)
-            w = _randn(torch, rng, (K, N), std=K ** -0.5)
-            asn = select_schemes(w)
-            qt = QM2Q.quantize(w, asn.apot_idx, asn.uniform_idx,
-                               act_max_abs=float(x.abs().max()))
-            del w
+            if (K, N) not in weights:
+                w = _randn(torch, rng, (K, N), std=K ** -0.5)
+                asn = select_schemes(w)
+                weights[K, N] = QM2Q.quantize(w, asn.apot_idx,
+                                              asn.uniform_idx)
+                del w
+            qt = dataclasses.replace(weights[K, N], act_scale=(
+                act_scale_from_stats(torch.tensor(float(x.abs().max())))
+                .to(x.device)))
             args = (x, qt.act_scale, qt.payload, qt.u_scale.reshape(-1),
                     qt.u_zp.reshape(-1), qt.a_scale.reshape(-1))
             w_deq = qt.dequant(torch.bfloat16)
@@ -921,10 +956,11 @@ def _bits(torch, t):
                    8: torch.int64}[t.element_size()])
 
 
-def check_same_model(torch, what, a, b) -> None:
+def check_same_model(torch, what, a, b, device: str = "cuda") -> None:
     """Fail unless ``b`` (a loaded artifact) holds ``a``'s model: every
     leaf of the same class with equal static fields and bit-identical
-    tensors on the card, and equal cfg, recipe, reports and act_stats."""
+    tensors on ``device`` (the card), and equal cfg, recipe, reports and
+    act_stats."""
     import dataclasses
     from repro_torch.core.tree import leaves_with_path
     la, lb = dict(leaves_with_path(a.params)), dict(leaves_with_path(b.params))
@@ -942,7 +978,7 @@ def check_same_model(torch, what, a, b) -> None:
         for field, (u, v) in pairs.items():
             if isinstance(u, torch.Tensor):
                 same = (isinstance(v, torch.Tensor) and u.dtype == v.dtype
-                        and u.shape == v.shape and v.device.type == "cuda"
+                        and u.shape == v.shape and v.device.type == device
                         and torch.equal(_bits(torch, u), _bits(torch, v)))
             else:
                 same = u == v
@@ -954,26 +990,31 @@ def check_same_model(torch, what, a, b) -> None:
             fail(f"{what}: the loaded {field} differs from the saved one")
 
 
-def round_trip(torch, qm, what: str):
-    """``qm.save`` and ``QuantizedModel.load(..., device="cuda")``, timed;
-    fails unless the loaded model is ``qm``'s.  Returns (the loaded
-    model, {artifact_bytes, save_s, load_s}).  The artifact is removed,
-    but for the paths in ``KEPT_ARTIFACTS``."""
+def round_trip(torch, qm, what: str, device: str = "cuda",
+               root: Path = ARTIFACTS):
+    """``qm.save`` under ``root`` and ``QuantizedModel.load(...,
+    device=device)`` (the card), timed; fails unless the loaded model is
+    ``qm``'s.  Returns (the loaded model, {artifact_bytes, save_s,
+    load_s}).  The artifact is removed, but for the paths in
+    ``KEPT_ARTIFACTS``."""
     import shutil
     from repro_torch import recipe
-    path = ARTIFACTS / what
+    path = Path(root) / what
     if path.exists():
         shutil.rmtree(path)
-    torch.cuda.synchronize()
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
     try:  # fail() exits through here too: no artifact stays behind
         t0 = time.perf_counter()
         step_dir = qm.save(path)
         t1 = time.perf_counter()
-        loaded = recipe.QuantizedModel.load(path, device="cuda")
-        torch.cuda.synchronize()
+        loaded = recipe.QuantizedModel.load(path, device=device)
+        if on_card:
+            torch.cuda.synchronize()
         t2 = time.perf_counter()
         size = sum(f.stat().st_size for f in step_dir.iterdir())
-        check_same_model(torch, what, qm, loaded)
+        check_same_model(torch, what, qm, loaded, device)
     finally:
         if what not in KEPT_ARTIFACTS:
             shutil.rmtree(path, ignore_errors=True)
@@ -2727,16 +2768,22 @@ def kernel_of(leaf):
 def tree_launches(qm, steps: int, groups: int) -> Counter:
     """The kernel launches of ``steps`` decode steps and ``groups``
     prefill groups, worked out from the quantized tree: each layer
-    matmul whose layer slice a kernel takes once per layer, a kernel-run
-    lm_head once, in every step and group; with an int8 cache,
-    decode_attn_int8 once per layer and step."""
+    matmul whose layer slice a kernel takes once per layer, an MoE
+    expert leaf whose layer slice ``m2q_matmul`` takes once per expert
+    and layer, a kernel-run lm_head once, in every step and group; with
+    an int8 cache, decode_attn_int8 once per layer and step."""
     from repro_torch.core.qtensor import slice_layer
+    from repro_torch.kernels import ops
     cfg = qm.cfg
     per_pass = Counter()
     for r in qm.report:
         leaf = _get(qm.params, r.path)
         if r.path.startswith("layers/"):
-            per_pass[kernel_of(slice_layer(leaf, 0))] += cfg.n_layers
+            layer = slice_layer(leaf, 0)
+            if ops.expert_kernel_supported(layer):
+                per_pass["m2q_matmul"] += cfg.n_layers * cfg.moe_experts
+            else:
+                per_pass[kernel_of(layer)] += cfg.n_layers
         elif r.path != "embed":  # the embedding is a row gather
             per_pass[kernel_of(leaf)] += 1
     per_pass.pop(None, None)
@@ -2761,16 +2808,16 @@ def _sync_peak(torch, device, reset: bool):
 def pool_quantize(torch, cfg, kind: str, device="cuda"):
     """``init`` of ``cfg`` on ``device`` (seed 0), then ``recipe.quantize``
     under m2q-w8a8 -- at the decode deployment shape (``kind``
-    ``"decode"``: 2 tokens a step, from the calibration batch) or at 64
-    tokens a step (``"mixed"``) -- with the float tree handed over
-    (``release=True``: each float leaf leaves the card once its QTensor
-    exists).  Returns (qm, {init_s, quantize_s, init_peak_bytes,
-    quantize_peak_bytes})."""
+    ``"decode"``: 2 tokens a step, from the calibration batch), at 64
+    tokens a step (``"mixed"``) or at ``kind`` tokens a step (an int) --
+    with the float tree handed over (``release=True``: each float leaf
+    leaves the card once its QTensor exists).  Returns (qm, {init_s,
+    quantize_s, init_peak_bytes, quantize_peak_bytes})."""
     from repro_torch import recipe
     from repro_torch.models import dense_lm
     rec = recipe.PRESETS["m2q-w8a8"]
-    if kind == "mixed":
-        rec = rec.replace(tokens_per_step=64)
+    if kind != "decode":
+        rec = rec.replace(tokens_per_step=64 if kind == "mixed" else kind)
     _sync_peak(torch, device, reset=True)
     t0 = time.perf_counter()
     params = dense_lm.init(cfg, seed=0, device=device)
@@ -3015,6 +3062,152 @@ def run_lm_pool(torch, out_dir, card) -> Counter:
     return total
 
 
+# ---- phase 11: the MoE LMs ------------------------------------------------
+# (name, layers of the published depth served, tokens a step of the
+# recipe: None is the decode shape).  Published widths; the depth is cut
+# because the f32 trees do not fit the card at full depth (llama4-scout
+# 8.81 GB a layer + 8.28 GB of embed and head; dbrx 12.9 GB a layer).
+MOE_CASES = (("llama4-scout-17b-a16e", 4, None), ("dbrx-132b", 2, 256))
+
+
+def moe_m2q_calls(cfg, batch: int, prefill_len: int, label: str):
+    """m2q_matmul's calls (path, M, K, N) in one decode step and one
+    prefill group of a mixed MoE LM (dbrx at 256 tokens a step): per
+    layer the four attention slices on every token, each expert's w1, w3
+    and w2 on its ``capacity`` rows (E launches a leaf), then the lm_head
+    on the last position of each prompt."""
+    from repro_torch.models import dense_lm
+    from repro_torch.nn import moe
+    mcfg = dense_lm.moe_config(cfg)
+    D, F, E = cfg.d_model, cfg.moe_d_ff, cfg.moe_experts
+
+    def layers(tokens):
+        C = moe.capacity(tokens, mcfg)
+        per = [("attn/wq", tokens, D, cfg.q_dim),
+               ("attn/wk", tokens, D, cfg.kv_dim),
+               ("attn/wv", tokens, D, cfg.kv_dim),
+               ("attn/wo", tokens, cfg.q_dim, D)]
+        per += [(f"moe/experts/{w}", C, k, n) for _ in range(E)
+                for w, k, n in (("w1", D, F), ("w3", D, F), ("w2", F, D))]
+        return [(f"layers/{p}@{i}", M, K, N)
+                for i in range(cfg.n_layers) for p, M, K, N in per]
+    head = ("lm_head", batch, D, cfg.padded_vocab)
+    return {f"{label} decode step": layers(batch) + [head],
+            f"{label} prefill group": layers(batch * prefill_len) + [head]}
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor of a parameter tree (QTensor fields
+    included; ``meta`` tensors count their shapes)."""
+    import dataclasses
+    import torch
+    from repro_torch.core.tree import leaves_with_path
+    total = 0
+    for _, leaf in leaves_with_path(tree):
+        ts = [leaf] if isinstance(leaf, torch.Tensor) else [
+            getattr(leaf, f.name) for f in dataclasses.fields(leaf)]
+        total += sum(t.numel() * t.element_size() for t in ts
+                     if isinstance(t, torch.Tensor))
+    return total
+
+
+def leaf_problems(qm, mixed: bool) -> list:
+    """The MoE tree's leaves as the recipe must make them: at the decode
+    shape every leaf a 4-bit QUniform (the experts (L, E, K, N) with axis
+    3); mixed, every leaf but the embedding mixed, the experts
+    QExpertM2Q of 4-D payload with (L, 1, 1, 1) activation scales."""
+    from repro_torch.core.qtensor import QExpertM2Q, QUniform
+    cfg = qm.cfg
+    L, E = cfg.n_layers, cfg.moe_experts
+    problems = []
+    for r in qm.report:
+        leaf = _get(qm.params, r.path)
+        expert = "experts/" in r.path
+        if not mixed or r.path == "embed":
+            ok = (r.decision == "lowbit" and isinstance(leaf, QUniform)
+                  and leaf.bits == 4
+                  and (not expert or (leaf.axis == 3
+                                      and leaf.payload.shape[:2] == (L, E))))
+            want = "4-bit" + (" (L, E, K, N/2), axis 3" if expert else "")
+        elif expert:
+            ok = (r.decision == "mixed" and isinstance(leaf, QExpertM2Q)
+                  and leaf.payload.ndim == 4
+                  and tuple(leaf.payload.shape[:2]) == (L, E)
+                  and leaf.act_scale is not None
+                  and tuple(leaf.act_scale.shape) == (L, 1, 1, 1))
+            want = "a QExpertM2Q (L, E, K, N), (L, 1, 1, 1) act scale"
+        else:
+            ok = r.decision.startswith("mixed")
+            want = "mixed"
+        if not ok:
+            problems.append(f"{r.path} ({type(leaf).__name__}, "
+                            f"{r.decision}) is not {want}")
+    return problems
+
+
+def moe_case(torch, cfg, tokens_per_step=None, device="cuda",
+             requests: int = POOL_REQUESTS, max_new: int = POOL_NEW,
+             max_len: int = TOKEN_MAX_LEN, artifacts: Path = ARTIFACTS):
+    """One MoE LM: :func:`pool_quantize` (``init`` on ``device``, seed 0;
+    m2q-w8a8 at the decode shape, or at ``tokens_per_step``; the float
+    tree released leaf by leaf), the artifact saved under ``artifacts``
+    and loaded on ``device`` (every leaf bit-identical,
+    :func:`round_trip`), the quantized model freed, and the loaded one
+    served by :func:`pool_serve` (eager and graphed tokens equal, none >=
+    vocab, launches as :func:`tree_launches` counts them, teacher-forced
+    logits within the bound of ``reference_path()``'s).  Returns
+    (figures, problems, kernel launches, the loaded model)."""
+    kind = "decode" if tokens_per_step is None else tokens_per_step
+    qm, res = pool_quantize(torch, cfg, kind, device)
+    res["leaves"] = {r.path: f"{type(_get(qm.params, r.path)).__name__} "
+                     f"{r.decision} {tuple(r.shape)}" for r in qm.report}
+    res["quantized_bytes"] = tree_bytes(qm.params)
+    loaded, res["artifact"] = round_trip(torch, qm, cfg.name, device,
+                                         artifacts)
+    del qm
+    served, problems, launches = pool_serve(torch, loaded, device,
+                                            requests, max_new, max_len)
+    res.update(served)
+    return res, problems, launches, loaded
+
+
+def run_moe(torch, out_dir, card) -> Counter:
+    """Phase 11: each of ``MOE_CASES`` at its published width, its depth
+    cut, int8 KV: :func:`moe_case` on the card, its leaves held to
+    :func:`leaf_problems` (at full width the decode shape is all 4-bit,
+    a recipe's ``tokens_per_step`` the mixed tree), one model at a time
+    (freed before the next), beside its full-depth 4-bit tree bytes from
+    ``abstract_quantize`` at the decode shape (meta tensors).  Any
+    problem fails the run.  Returns the kernel launches."""
+    from repro_torch import recipe
+    from repro_torch.configs.registry import ARCHS
+    t0 = time.perf_counter()
+    gc.collect()  # what earlier phases left: their peaks are not ours
+    torch.cuda.empty_cache()
+    total = Counter()
+    out = {"allocated_at_start": torch.cuda.memory_allocated()}
+    for name, layers, toks in MOE_CASES:
+        cfg = ARCHS[name].replace(n_layers=layers, kv_cache_dtype="int8")
+        res, problems, launches, qm = moe_case(torch, cfg, toks)
+        problems += leaf_problems(qm, mixed=toks is not None)
+        del qm
+        res["layers"] = f"{layers} of {ARCHS[name].n_layers}"
+        res["full_depth_4bit_bytes"] = tree_bytes(
+            recipe.abstract_quantize(name))
+        total.update(launches)
+        out[name] = res
+        print(f"phase 11 {name}:", json.dumps(res), flush=True)
+        if problems:
+            fail(f"phase 11 {name}: " + "; ".join(problems)[:2000])
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    out["card"] = card
+    print(f"phase 11: {out['phase_s']:.1f} s; {card}", flush=True)
+    (out_dir / "chip_smoke_moe.json").write_text(json.dumps(out, indent=1))
+    return total
+
+
 def main() -> None:
     import torch  # the card check needs torch before anything else
 
@@ -3056,14 +3249,20 @@ def main() -> None:
     qwen = ARCHS["qwen1.5-0.5b"]
     lm_head_call = ("lm_head", TOKEN_BATCH, qwen.d_model, qwen.padded_vocab)
     pool = [(name, ARCHS[name]) for name in LM_POOL]
+    # the MoE LMs at phase 11's depth
+    moe_lms = [(name, ARCHS[name].replace(n_layers=layers))
+               for name, layers, _ in MOE_CASES]
     pool_heads = {f"{name} lm_head": [("lm_head", TOKEN_BATCH, c.d_model,
-                                       c.padded_vocab)] for name, c in pool}
+                                       c.padded_vocab)]
+                  for name, c in pool + moe_lms[:1]}
     rng = np.random.default_rng(0)
     tallies = [check_m2q(torch, rng, {
                    "m2q-w8a8": m2q_calls,
                    **token_m2q_calls(qwen, TOKEN_BATCH, PREFILL_LEN),
                    **token_m2q_calls(ARCHS["minitron-4b"], TOKEN_BATCH,
-                                     POOL_PREFILL_LEN, "minitron-4b mixed")}),
+                                     POOL_PREFILL_LEN, "minitron-4b mixed"),
+                   **moe_m2q_calls(moe_lms[1][1], TOKEN_BATCH,
+                                   POOL_PREFILL_LEN, "dbrx-132b")}),
                check_dwconv(torch, rng, dw_calls),
                check_attn(torch, rng, attn_calls),
                check_scales(torch, rng, attn_calls),
@@ -3075,7 +3274,8 @@ def main() -> None:
                                    **pool_heads}),
                check_weights_only(torch, rng, "apot_matmul",
                                   {"weights-only-apot": m2q_calls}),
-               check_decode_attn(torch, rng, qwen.n_layers, pool)]
+               check_decode_attn(torch, rng, qwen.n_layers,
+                                 pool + moe_lms)]
     detail = {t.name: t.rows for t in tallies}
     (out_dir / "chip_smoke_kernels.json").write_text(
         json.dumps(detail, indent=1))
@@ -3113,11 +3313,14 @@ def main() -> None:
 
         # ---- 10. the dense LM pool, each pass from zeroed counters ---------
         launches.update(run_lm_pool(torch, out_dir, card))
+
+        # ---- 11. the MoE LMs, each pass from zeroed counters ---------------
+        launches.update(run_moe(torch, out_dir, card))
     finally:
         import shutil
         shutil.rmtree(ARTIFACTS, ignore_errors=True)
 
-    # ---- 11. results ----------------------------------------------------
+    # ---- 12. results ----------------------------------------------------
     replaces = {"m2q_matmul": "src/repro/kernels/m2q_matmul.py:80",
                 "dwconv_w4": "src/repro/kernels/dwconv_w4.py:107",
                 "relu_attn": "src/repro/kernels/relu_attn.py:74",

@@ -1,8 +1,9 @@
-"""Architecture registry: the EfficientViT and dense-LM entries of
-``repro.configs.registry`` (the MoE, recurrent and whisper families are
-not ported yet)."""
-from . import (efficientvit_b1, efficientvit_b2, granite3_8b, internvl2_2b,
-               minitron_4b, qwen3_14b, qwen15_05b)
+"""Architecture registry: the EfficientViT, dense-LM and MoE-LM entries
+of ``repro.configs.registry`` (the recurrent and whisper families are not
+ported yet)."""
+from . import (dbrx_132b, efficientvit_b1, efficientvit_b2, granite3_8b,
+               internvl2_2b, llama4_scout_17b_a16e, minitron_4b, qwen3_14b,
+               qwen15_05b)
 
 _MODULES = {
     "qwen1.5-0.5b": qwen15_05b,
@@ -10,6 +11,8 @@ _MODULES = {
     "granite-3-8b": granite3_8b,
     "minitron-4b": minitron_4b,
     "internvl2-2b": internvl2_2b,
+    "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
+    "dbrx-132b": dbrx_132b,
     "efficientvit-b1-r224": efficientvit_b1,
     "efficientvit-b2-r224": efficientvit_b2,
 }

@@ -8,14 +8,17 @@ with its class under ``"qtensor"`` and its fields by the JAX leaf's names:
   "act_scale", "shape", "n_uniform", "n_apot"}`` -- a 2-D or flattened
   conv weight (payload (K, N), scales (1, N)) or a stacked perm-folded
   FFN member (payload (L, K, N), scales (L, 1, N), act_scale (L, 1, 1) if
-  any); ``"QExpertM2Q"`` has the same fields, stacked (L, K, N) only
-  (an (L, E, K, N) expert leaf raises: MoE is not ported)
+  any); ``"QExpertM2Q"`` has the same fields, stacked (L, K, N) or an
+  MoE expert leaf stacked over layers (payload (L, E, K, N), scales
+  (L, E, 1, N), act_scale (L, 1, 1, 1))
 * ``{"qtensor": "QUniform", "payload", "scale", "zero_point",
   "act_scale", "bits", "axis", "shape"}`` -- a 2-D or flattened conv
   weight (``axis`` 1, payload (K, N), scales (1, N)), a stacked per-layer
   weight (``axis`` 2, payload (L, K, N), scales (L, 1, N), act_scale
-  (L, 1, 1)) or an embedding table (``axis`` 0, payload (V, D), scales
-  (V, 1)); 4-bit payloads are packed along the last axis (half as wide)
+  (L, 1, 1)), a stacked expert weight (``axis`` 3, payload (L, E, K, N),
+  scales (L, E, 1, N), act_scale (L, 1, 1, 1)) or an embedding table
+  (``axis`` 0, payload (V, D), scales (V, 1)); 4-bit payloads are packed
+  along the last axis (half as wide)
 * ``{"qtensor": "QAPoT", "codes" (K, N) uint8, "scale" (1, N) f32,
   "act_scale", "shape"}``
 
@@ -23,7 +26,8 @@ with its class under ``"qtensor"`` and its fields by the JAX leaf's names:
 shape disagrees with the leaf it claims to be, raises.  The whole
 dense-LM tree crosses this way (float norms, biases and qk_norm's
 ``q_gamma`` / ``k_gamma``, QUniform embedding, stacked layers -- a relu2
-``mlp`` has no ``w3`` -- and head).
+``mlp`` has no ``w3`` -- and head), and the MoE LM's (a float router,
+the expert leaves, a shared expert).
 """
 from __future__ import annotations
 
@@ -90,13 +94,15 @@ def _merged(cls):
         if n_uniform + n_apot != n:
             raise ValueError(f"{what}: n_uniform + n_apot = "
                              f"{n_uniform + n_apot} != {n} filters")
-        if len(shape) == 3:   # stacked (L, K, N) layers
-            pshape, sshape, act_shape = shape, (shape[0], 1, n), \
-                (shape[0], 1, 1)
+        if len(shape) == 3 or (cls is QExpertM2Q and len(shape) == 4):
+            # stacked (L, K, N) layers, or (L, E, K, N) experts
+            pshape = shape
+            sshape = shape[:-2] + (1, n)
+            act_shape = (shape[0],) + (1,) * (len(shape) - 1)
         elif cls is QExpertM2Q:
-            raise ValueError(f"{what}: a {len(shape)}-D leaf is not a "
-                             "stacked (L, K, N) weight (expert leaves are "
-                             "not ported)")
+            raise ValueError(f"{what}: a {len(shape)}-D leaf is neither a "
+                             "stacked (L, K, N) weight nor a stacked (L, E, "
+                             "K, N) expert weight")
         else:                 # 2-D dense, or a conv filter flattened to 2-D
             pshape, sshape, act_shape = (math.prod(shape[:-1]), n), (1, n), ()
         payload = _array(d, "payload", np.int8, pshape, what)
@@ -118,17 +124,19 @@ def _quniform(d: dict, path: str, device) -> QUniform:
     if axis == 1:      # 2-D dense, or a conv filter flattened to 2-D
         pshape = [math.prod(shape[:-1]), shape[-1]]
         sshape = (1, shape[-1])
-    elif axis == 2 and len(shape) == 3:   # stacked (L, K, N) layers
+    elif axis == len(shape) - 1 and len(shape) in (3, 4):
+        # stacked (L, K, N) layers, or (L, E, K, N) experts
         pshape = list(shape)
-        sshape = (shape[0], 1, shape[2])
-        act_shape = (shape[0], 1, 1)
+        sshape = shape[:-2] + (1, shape[-1])
+        act_shape = (shape[0],) + (1,) * (len(shape) - 1)
     elif axis == 0 and len(shape) == 2:   # embedding rows
         pshape = list(shape)
         sshape = (shape[0], 1)
     else:
         raise ValueError(f"{what}: axis {axis} of a {len(shape)}-D weight "
                          "is none of 1 (filter-wise, 2-D payload), 2 "
-                         "(stacked layers) or 0 (embedding rows)")
+                         "(stacked layers), 3 (stacked experts) or 0 "
+                         "(embedding rows)")
     if bits == 4:
         pshape[-1] //= 2
     payload = _array(d, "payload", np.int8 if bits == 8 else np.uint8,

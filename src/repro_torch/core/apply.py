@@ -1,6 +1,6 @@
 """quantize_model: rewrite a float parameter tree into M2Q QTensor leaves
-(twin of ``repro.core.apply`` for 2-D dense, conv, embedding and stacked
-per-layer leaves).
+(twin of ``repro.core.apply`` for 2-D dense, conv, embedding, stacked
+per-layer and MoE expert leaves).
 
 Models tag quantizable weights with QUANT_RULES, ordered ``(regex, kind)``
 pairs matched against the tree path (first match wins).  The policy, the
@@ -14,8 +14,12 @@ per-layer, per-filter statistics (``reduce_axes=(1,)``); an embedding
 table is quantized per row (axis 0) for the gather.  A stacked leaf that
 resolves to the mixed m2q scheme becomes a :class:`QExpertM2Q` with a
 per-layer Eq. 6 split; an FFN group whose members all resolve to it is
-perm-folded (:func:`_joint_group_quantize`).  Expert leaves (MoE) are not
-ported and raise by name.
+perm-folded (:func:`_joint_group_quantize`).  An MoE expert leaf --
+(E, K, N), or (L, E, K, N) stacked over layers -- is classified on one
+expert's (K, N) at the deployment's tokens per expert; low-bit it is a
+QUniform with per-(layer, expert, filter) statistics, mixed one
+:func:`_batched_m2q` over E per layer, stacked over L (a QExpertM2Q with
+an (L, 1, 1, 1) activation scale).
 
 :func:`abstract_quantize_model` is the shape-only twin: from a float tree
 of ``meta`` tensors it builds the QTensor tree that :func:`quantize_model`
@@ -134,22 +138,46 @@ class LayerReport:
     mse: float = 0.0
 
 
+def _stack_layers(qts, shape, join=torch.stack):
+    """One QTensor of per-layer leaves ``qts``: every tensor field stacked
+    along a new leading layer axis (``join=torch.cat``: concatenated
+    along the existing one), ``shape`` the whole weight's."""
+    return dataclasses.replace(qts[0], shape=tuple(shape), **{
+        f.name: join([getattr(q, f.name) for q in qts])
+        for f in dataclasses.fields(qts[0])
+        if isinstance(getattr(qts[0], f.name), torch.Tensor)})
+
+
+def _concat(qts, shape):
+    """One QTensor of leaves ``qts`` that each hold a run of the leading
+    axis: every tensor field concatenated along it."""
+    return _stack_layers(qts, shape, join=torch.cat)
+
+
 def _batched_m2q(w: torch.Tensor, ratio) -> QExpertM2Q:
-    """Per-slice Eq. 6 selection over the leading (layer) axis; ratio None
-    becomes the fixed 1:1 split, which keeps the two halves stackable."""
-    asn = [select_schemes(w[i], ratio=0.5 if ratio is None else ratio)
-           for i in range(w.shape[0])]
-    return QExpertM2Q.quantize(w, np.stack([a.apot_idx for a in asn]),
-                               np.stack([a.uniform_idx for a in asn]))
+    """Per-slice Eq. 6 selection over the leading axis (layers or
+    experts); ratio None becomes the fixed 1:1 split, which keeps the two
+    halves stackable.  Each slice is quantized on its own -- every
+    statistic is per (slice, filter), so the fields are the whole
+    leaf's bit for bit -- which bounds the temporaries by one slice (an
+    expert of a whole layer's (E, K, N) weight)."""
+    parts = []
+    for i in range(w.shape[0]):
+        a = select_schemes(w[i], ratio=0.5 if ratio is None else ratio)
+        parts.append(QExpertM2Q.quantize(w[i:i + 1], a.apot_idx[None],
+                                         a.uniform_idx[None]))
+    return _concat(parts, w.shape)
 
 
 def _quantize_leaf(w: torch.Tensor, kind: str, decision: str,
                    p: pol.M2QPolicy, act_max_abs):
     """w is a (K, N) dense weight, a flattened (kh*kw*cin, cout) filter, a
-    (V, D) embedding or a stacked (L, K, N) per-layer weight (its act
-    stats (L, 1, 1))."""
+    (V, D) embedding, a stacked (L, K, N) per-layer weight (its act stats
+    (L, 1, 1)), an (E, K, N) expert weight or an (L, E, K, N) stacked
+    one (act stats (L, 1, 1, 1))."""
     ams = act_max_abs if p.quantize_activations else None
-    batched = kind in (pol.KIND_DENSE, pol.KIND_HEAD) and w.ndim >= 3
+    batched = (kind in (pol.KIND_DENSE, pol.KIND_HEAD, pol.KIND_EXPERT)
+               and w.ndim >= 3)
     ra = (w.ndim - 2,) if batched else None
     if decision == pol.DECISION_LOWBIT:
         if kind == pol.KIND_EMBEDDING:
@@ -162,8 +190,11 @@ def _quantize_leaf(w: torch.Tensor, kind: str, decision: str,
     if p.compute_scheme == "apot":
         return QAPoT.quantize(w, act_max_abs=ams, reduce_axes=ra)
     if p.compute_scheme == "m2q":
-        if w.ndim == 3:
-            qt = _batched_m2q(w, p.apot_ratio)
+        if w.ndim >= 3:
+            # (L, E, K, N): one batched leaf over E per layer, stacked
+            qt = _batched_m2q(w, p.apot_ratio) if w.ndim == 3 else \
+                _stack_layers([_batched_m2q(w[i], p.apot_ratio)
+                               for i in range(w.shape[0])], w.shape)
             if ams is not None:
                 qt.act_scale = act_scale_from_stats(
                     torch.as_tensor(ams, device=w.device))
@@ -176,20 +207,16 @@ def _quantize_leaf(w: torch.Tensor, kind: str, decision: str,
 
 def _quantize_stacked(w: torch.Tensor, kind: str, decision: str,
                       p: pol.M2QPolicy, act_max_abs):
-    """:func:`_quantize_leaf` of a stacked (L, K, N) weight, one layer at a
-    time: every quantizer here takes per-(layer, filter) statistics
-    (``reduce_axes=(1,)``) and Eq. 6 selects per layer, so the fields
-    equal the whole leaf's bit for bit, while the temporaries are one
-    layer's.  ``act_max_abs``: None or the (L, 1, 1) per-layer stats."""
-    parts = [_quantize_leaf(w[i:i + 1], kind, decision, p,
-                            None if act_max_abs is None
-                            else act_max_abs[i:i + 1])
-             for i in range(w.shape[0])]
-    first = parts[0]
-    return dataclasses.replace(first, shape=tuple(w.shape), **{
-        f.name: torch.cat([getattr(q, f.name) for q in parts])
-        for f in dataclasses.fields(first)
-        if isinstance(getattr(first, f.name), torch.Tensor)})
+    """:func:`_quantize_leaf` of a stacked (L, K, N) or (L, E, K, N)
+    weight, one layer at a time: every quantizer here takes per-(layer,
+    [expert,] filter) statistics (``reduce_axes=(ndim - 2,)``) and Eq. 6
+    selects per layer [and expert], so the fields equal the whole leaf's
+    bit for bit, while the temporaries are one layer's.
+    ``act_max_abs``: None or the (L, 1, ..., 1) per-layer stats."""
+    return _concat([_quantize_leaf(w[i:i + 1], kind, decision, p,
+                                   None if act_max_abs is None
+                                   else act_max_abs[i:i + 1])
+                    for i in range(w.shape[0])], w.shape)
 
 
 # weights dequantized at a time by :func:`_mse`
@@ -211,9 +238,18 @@ def _rows(qt, lo: int, hi: int, n: int):
 def _mse(leaf: torch.Tensor, qt) -> float:
     """``mean((leaf - dequant(qt))^2)`` in f32 through one buffer of the
     leaf's size: dequantized ``MSE_CHUNK`` weights' worth of rows (whole
-    layers of a stacked leaf) at a time, then the difference and its
-    square written in place -- the same values, so the same mean -- with
-    the dequantize temporaries of one block."""
+    layers of a stacked leaf, whole experts of a stacked expert leaf) at
+    a time, then the difference and its square written in place -- the
+    same values, so the same mean -- with the dequantize temporaries of
+    one block."""
+    if (qt.codes if isinstance(qt, QAPoT) else qt.payload).ndim == 4:
+        # (L, E, K, N): the (L * E) expert slices are the rows; the
+        # activation scale plays no part in dequant
+        qt = dataclasses.replace(qt, **{
+            f.name: getattr(qt, f.name).flatten(0, 1)
+            for f in dataclasses.fields(qt)
+            if isinstance(getattr(qt, f.name), torch.Tensor)
+            and getattr(qt, f.name).ndim == 4 and f.name != "act_scale"})
     n = (qt.codes if isinstance(qt, QAPoT) else qt.payload).shape[0]
     step = max(1, MSE_CHUNK * n // max(leaf.numel(), 1))
     buf = None
@@ -276,13 +312,8 @@ def _joint_group_quantize(w_up, w_gate, w_down, ratio):
     if not stacked:
         return ups[0], (gates[0] if gates else None), downs[0]
 
-    def stack(qts, shape):
-        return dataclasses.replace(qts[0], shape=tuple(shape), **{
-            name: torch.stack([getattr(q, name) for q in qts])
-            for name in ("payload", "u_scale", "u_zp", "a_scale")})
-
-    return (stack(ups, w_up.shape),
-            stack(gates, w_gate.shape) if gates else None,
+    return (_stack_layers(ups, w_up.shape),
+            _stack_layers(gates, w_gate.shape) if gates else None,
             torch.stack(downs))
 
 
@@ -319,20 +350,25 @@ def _classify(key: str, shape: tuple, rules, shape_ctx: pol.ShapeCtx,
               p: pol.M2QPolicy, overrides):
     """(kind, decision, effective policy, conv, stacked) of a leaf that
     quantization rewrites, or None for one it passes through; raises by
-    name on a leaf kind that is not ported."""
+    name on a leaf shape that is not ported.  ``stacked``: the leaf
+    carries a leading layer axis -- a 3-D dense / head leaf or a 4-D
+    expert leaf -- quantized one layer at a time, its activation scale
+    per layer."""
     kind = match_kind(rules, key)
     ndim = len(shape)
     if kind is None or kind == pol.KIND_SKIP or ndim < 2:
         return None
     conv = ndim == 4 and kind in (pol.KIND_DENSE, pol.KIND_DWCONV)
-    stacked = kind in (pol.KIND_DENSE, pol.KIND_HEAD) and ndim == 3
-    if not (conv or stacked or ndim == 2) or kind == pol.KIND_EXPERT:
+    expert = kind == pol.KIND_EXPERT and ndim in (3, 4)
+    stacked = (kind in (pol.KIND_DENSE, pol.KIND_HEAD) and ndim == 3) or \
+        (kind == pol.KIND_EXPERT and ndim == 4)
+    if not (conv or stacked or expert or ndim == 2):
         raise NotImplementedError(
             f"{key!r}: {kind} leaves of shape {shape} are not ported yet")
-    # classify on the per-unit shape (strip the stacked layer axis)
-    decision, p_leaf = resolve_decision(key, kind,
-                                        shape[1:] if stacked else shape,
-                                        shape_ctx, p, overrides)
+    # classify on the per-unit shape (strip the layer and expert axes)
+    decision, p_leaf = resolve_decision(
+        key, kind, shape[-2:] if expert or stacked else shape, shape_ctx, p,
+        overrides)
     if decision == pol.DECISION_SKIP:
         return None
     return kind, decision, p_leaf, conv, stacked
@@ -424,11 +460,12 @@ def abstract_quantize_model(params_abs, rules: Sequence[Rule],
     concrete path refuses by name, this refuses too.
 
     ``with_act_scales``: calibrated leaves carry an activation scale (a
-    scalar, or ``(L, 1, 1)`` on a stacked leaf; a perm-folded member has
-    none).  ``m2q_splits``: path -> (n_uniform, n_apot), e.g. from saved
+    scalar, or ``(L, 1, 1)`` on a stacked leaf, ``(L, 1, 1, 1)`` on a
+    stacked expert leaf; a perm-folded member has none).
+    ``m2q_splits``: path -> (n_uniform, n_apot), e.g. from saved
     LayerReports; required where the concrete Eq. 6 split is
-    data-dependent (``apot_ratio=None`` on a 2-D or conv leaf: stacked and
-    folded leaves split 1:1 then)."""
+    data-dependent (``apot_ratio=None`` on a 2-D or conv leaf: stacked,
+    expert and folded leaves split 1:1 then)."""
     p = m2q_policy or pol.M2QPolicy()
     fold_keys = {k for ku, kg, _ in _fold_group_keys(
         params_abs, ffn_groups, shape_ctx, p, overrides)
@@ -498,7 +535,8 @@ def abstract_quantize_model(params_abs, rules: Sequence[Rule],
         kind, decision, p_leaf, conv, stacked = c
         act = with_act_scales and p_leaf.quantize_activations
         w_shape = (math.prod(shape[:-1]), shape[-1]) if conv else shape
-        ra = (1,) if stacked else None
+        batched = not conv and len(shape) >= 3
+        ra = (len(shape) - 2,) if batched else None
         if key in fold_keys:  # [uniform | apot] columns, no act scale
             qt = q_m2q(key, shape, ra)
         elif decision == pol.DECISION_LOWBIT:
@@ -510,7 +548,7 @@ def abstract_quantize_model(params_abs, rules: Sequence[Rule],
             qt = q_apot(w_shape, ra, act=act, stacked=stacked)
         elif p_leaf.compute_scheme == "m2q":
             qt = q_m2q(key, w_shape, ra, act, stacked,
-                       QExpertM2Q if stacked else QM2Q)
+                       QExpertM2Q if batched else QM2Q)
         else:
             raise ValueError(f"unknown compute scheme "
                              f"{p_leaf.compute_scheme}")

@@ -9,7 +9,8 @@
   weight in ORIGINAL filter order (uniform byte or APoT code per column)
   with zero-masked per-column scales; perm-folded FFN members keep
   [uniform | apot] order instead.
-* :class:`QExpertM2Q` -- the same layout over a stacked (L, K, N) weight,
+* :class:`QExpertM2Q` -- the same layout over a stacked (L, K, N) weight
+  or an MoE expert weight ((E, K, N); (L, E, K, N) stacked over layers),
   with per-slice Eq. 6 splits.
 
 Each leaf keeps the JAX leaf's fields under the same names; ``shape`` is
@@ -25,7 +26,7 @@ import torch
 
 from . import packing
 from .quant import (act_scale_from_stats, apot_quantize, fake_quant_act,
-                    uniform_quantize)
+                    int_einsum, quantize_act, uniform_quantize)
 
 I8_OFFSET = 128
 
@@ -216,15 +217,20 @@ class QM2Q(_Merged):
 
 @dataclasses.dataclass
 class QExpertM2Q(_Merged):
-    """Merged mixed-scheme quantization of a stacked (L, K, N) weight:
-    per-(slice, filter) scales and a per-slice Eq. 6 split of equal counts
-    (``n_uniform`` / ``n_apot`` per slice).  A layer slice has a 2-D
-    payload and a (1, 1) activation scale, and runs ``m2q_matmul``."""
+    """Merged mixed-scheme quantization of a batched (B, K, N) weight --
+    the layers of a stacked dense weight, or the E experts of one MoE
+    layer: per-(slice, filter) scales and a per-slice Eq. 6 split of equal
+    counts (``n_uniform`` / ``n_apot`` per slice).  A layer slice of a
+    stacked dense leaf has a 2-D payload and a (1, 1) activation scale,
+    and runs ``m2q_matmul``; an expert leaf stacks the layers' (E, K, N)
+    leaves into (L, E, K, N), and its layer slice runs
+    :meth:`expert_matmul` (``m2q_matmul`` expert by expert on the
+    card)."""
 
     @classmethod
     def quantize(cls, w: torch.Tensor, apot_idx, uniform_idx,
                  act_max_abs=None) -> "QExpertM2Q":
-        """apot_idx / uniform_idx: (L, Na) / (L, Nu) per-slice filters."""
+        """apot_idx / uniform_idx: (B, Na) / (B, Nu) per-slice filters."""
         ui = torch.as_tensor(uniform_idx, dtype=torch.long, device=w.device)
         ai = torch.as_tensor(apot_idx, dtype=torch.long, device=w.device)
         inv_perm = torch.argsort(torch.cat([ui, ai], dim=-1), dim=-1)
@@ -232,6 +238,25 @@ class QExpertM2Q(_Merged):
         return cls(*_merged_fields(w, ui, ai, (1,), inv_perm),
                    None if act is None else act.to(w.device), tuple(w.shape),
                    int(ui.shape[-1]), int(ai.shape[-1]))
+
+    def expert_matmul(self, xe: torch.Tensor) -> torch.Tensor:
+        """``y[E, C, N] = xe[E, C, K] @ w[E, K, N]`` for an (E, K, N)
+        payload (an expert leaf's layer slice), in xe's dtype: the
+        dequantized einsum without an activation scale, else the integer
+        path of JAX's ``expert_matmul`` -- int8 x int8 sums exact, the
+        APoT half in units of 2^-7 (:func:`m2q_matmul_plain`'s arithmetic
+        expert by expert, so bit for bit what ``m2q_matmul`` gives)."""
+        if self.act_scale is None:
+            return torch.einsum("eck,ekn->ecn", xe, self.dequant(xe.dtype))
+        sa = self.act_scale.reshape(())
+        xq = quantize_act(xe, sa)
+        acc = int_einsum("eck,ekn->ecn", xq, self.payload)
+        acc_a = int_einsum("eck,ekn->ecn", xq, packing.apot_decode_units(
+            self.payload.view(torch.uint8)))
+        xsum = xq.to(torch.int32).sum(dim=-1, keepdim=True)
+        yu = (acc - xsum.to(torch.float32) * self.u_zp) * self.u_scale
+        ya = (acc_a * 0.0078125) * self.a_scale
+        return ((yu + ya) * sa).to(xe.dtype)
 
 
 QLeaf = (QUniform, QAPoT, QM2Q, QExpertM2Q)
@@ -254,7 +279,9 @@ def slice_layer(leaf, i: int):
     keeps ``axis == 2``, which ``kernels.ops.kernel_supported`` refuses
     exactly as JAX's does, and its matmul takes the plain ``x @
     dequant(x.dtype)``; a sliced QExpertM2Q has a 2-D payload and a (1, 1)
-    activation scale, which it accepts."""
+    activation scale, which it accepts.  A slice of a stacked (L, E, K, N)
+    expert leaf keeps E: an (E, K, N) payload, (E, 1, N) scales, a (1, 1,
+    1) activation scale."""
     if isinstance(leaf, torch.Tensor):
         return leaf[i]
     if isinstance(leaf, QLeaf):

@@ -8,7 +8,11 @@ layer-sliced ``QExpertM2Q`` -> ``m2q_matmul``; 2-D ``QUniform`` (axis 1)
 at 8 bits with an activation scale -> ``int8_matmul``, at 4 bits ->
 ``int4_matmul``; 2-D ``QAPoT`` without an activation scale ->
 ``apot_matmul``.  Every other leaf takes its
-plain QTensor ``matmul``, as JAX's ``qmatmul`` does.  Each kernel wrapper
+plain QTensor ``matmul``, as JAX's ``qmatmul`` does.
+:func:`qtensor_expert_matmul` runs an MoE expert product: a calibrated
+layer slice of a ``QExpertM2Q`` expert leaf goes to ``m2q_matmul`` one
+expert at a time (the kernel takes a 2-D payload, as JAX's
+``kernel_supported`` says).  Each kernel wrapper
 launches the CUDA kernel for CUDA tensors and runs the plain version for
 CPU tensors.  Nothing falls back: a kernel that fails to build or launch
 raises.  The one switch is :func:`reference_path`, an explicit scope in
@@ -96,6 +100,32 @@ def _kernel_matmul(x2: torch.Tensor, qt) -> torch.Tensor:
                   qt.zero_point.reshape(-1), out_dtype=x2.dtype)
     fn = _int4.int4_matmul_plain if ref else _int4.int4_matmul
     return fn(x2, qt.payload, qt.scale.reshape(-1), qt.zero_point.reshape(-1))
+
+
+def expert_kernel_supported(qt) -> bool:
+    """True when ``m2q_matmul`` computes this expert product expert by
+    expert: a layer slice of a calibrated QExpertM2Q expert leaf (an (E,
+    K, N) payload and one activation scale for the layer)."""
+    return (isinstance(qt, QExpertM2Q) and qt.payload.ndim == 3
+            and qt.act_scale is not None and qt.act_scale.numel() == 1)
+
+
+def qtensor_expert_matmul(xe: torch.Tensor, qt: QExpertM2Q) -> torch.Tensor:
+    """``y[E, C, N] = xe[E, C, K] @ W[E, K, N]`` in xe's dtype for a layer
+    slice of a QExpertM2Q expert leaf: E ``m2q_matmul`` calls, expert
+    ``e``'s (C, K) rows against its (K, N) payload with the layer's
+    activation scale (the plain version inside :func:`reference_path`);
+    exactly :meth:`QExpertM2Q.expert_matmul`, which an uncalibrated leaf
+    takes."""
+    if not expert_kernel_supported(qt):
+        return qt.expert_matmul(xe)
+    fn = _m2q.m2q_matmul_plain if _REFERENCE.get() else _m2q.m2q_matmul
+    sa = qt.act_scale.reshape(())
+    xe = xe.contiguous()
+    return torch.stack([
+        fn(xe[e], sa, qt.payload[e], qt.u_scale[e].reshape(-1),
+           qt.u_zp[e].reshape(-1), qt.a_scale[e].reshape(-1))
+        for e in range(xe.shape[0])]).to(xe.dtype)
 
 
 def qtensor_matmul(x: torch.Tensor, qt) -> torch.Tensor:

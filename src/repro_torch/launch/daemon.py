@@ -10,8 +10,9 @@ interactive request token by token:
   PYTHONPATH=src python -m repro_torch.launch.daemon --arch qwen1.5-0.5b \
       --reduced --requests 8 --stream [--device cpu]
 
-``--arch`` takes the port's dense LMs: qwen1.5-0.5b, qwen3-14b,
-granite-3-8b, minitron-4b and internvl2-2b (text only).
+``--arch`` takes the port's LMs: qwen1.5-0.5b, qwen3-14b, granite-3-8b,
+minitron-4b and internvl2-2b (text only), and the MoE
+llama4-scout-17b-a16e and dbrx-132b.
 
 ``--smoke`` is the fast path: one streamed request with a tight timeout,
 clean drain, exact outcome reconciliation -- exits non-zero on any of

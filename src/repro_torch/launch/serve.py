@@ -5,9 +5,10 @@ token engine.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --reduced --requests 8 --max-new 16 [--device cpu]
 
-``--arch`` takes the port's dense LMs: qwen1.5-0.5b, qwen3-14b,
+``--arch`` takes the port's LMs: the dense qwen1.5-0.5b, qwen3-14b,
 granite-3-8b, minitron-4b and internvl2-2b (served as text: the token
-engine takes no patch prefix, as in the JAX package).
+engine takes no patch prefix, as in the JAX package) and the MoE
+llama4-scout-17b-a16e and dbrx-132b.
 
 The engine runs on ``--device`` (the card by default).  ``--mesh``
 (sharded execution) is not ported: it waits for the port's sharding

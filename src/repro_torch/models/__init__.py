@@ -1,8 +1,11 @@
-"""Model zoo (EfficientViT and the dense decoder-only LM so far)."""
+"""Model zoo (EfficientViT and the decoder-only LM, dense or MoE, so
+far)."""
 from . import dense_lm, efficientvit
 from .config import ArchConfig
 
-FAMILIES = {"efficientvit": efficientvit, "dense_lm": dense_lm}
+# moe_lm shares the dense_lm implementation, as in the JAX package
+FAMILIES = {"efficientvit": efficientvit, "dense_lm": dense_lm,
+            "moe_lm": dense_lm}
 
 
 def get_model(cfg: ArchConfig):

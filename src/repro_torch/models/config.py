@@ -1,6 +1,6 @@
-"""Architecture config (the vision and dense-LM subset of
+"""Architecture config (the vision, dense-LM and MoE-LM subset of
 ``repro.models.config``'s ``ArchConfig``, the VLM stub frontend's
-``n_patches`` included; the MoE, hybrid, whisper and sharding fields come
+``n_patches`` included; the hybrid, whisper and sharding fields come
 with those families)."""
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ def round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # dense_lm | efficientvit
+    family: str  # dense_lm | moe_lm | efficientvit
     n_layers: int
     d_model: int
     # language models
@@ -28,6 +28,14 @@ class ArchConfig:
     qk_norm: bool = False
     ffn: str = "swiglu"  # swiglu | relu2
     rope_theta: float = 10000.0
+    # MoE (moe_lm): experts per layer, experts a token takes, the expert
+    # FFN width (0: d_ff), a shared SwiGLU expert beside them, and the
+    # dispatch buffer's capacity factor
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    moe_shared_expert: bool = False
+    moe_capacity_factor: float = 1.25
     window: Optional[int] = None  # sliding attention window (None: all)
     kv_cache_dtype: str = "bf16"  # bf16 | int8 (per-row scales, integer
                                   # decode attention)

@@ -1,9 +1,13 @@
-"""Decoder-only transformer LM (twin of ``repro.models.dense_lm`` without
-the MoE variants): qwen1.5-0.5b (QKV bias, MHA), qwen3-14b (qk_norm,
-GQA), granite-3-8b (GQA), minitron-4b (GQA, squared-ReLU FFN) and
-internvl2-2b (GQA; its stub frontend's patch embeddings enter
-:func:`forward` and :func:`prefill` as ``prefix_embeds``, ahead of the
-tokens).
+"""Decoder-only transformer LM (twin of ``repro.models.dense_lm``):
+qwen1.5-0.5b (QKV bias, MHA), qwen3-14b (qk_norm, GQA), granite-3-8b
+(GQA), minitron-4b (GQA, squared-ReLU FFN), internvl2-2b (GQA; its stub
+frontend's patch embeddings enter :func:`forward` and :func:`prefill` as
+``prefix_embeds``, ahead of the tokens) and the MoE variants
+(``cfg.moe_experts > 0``, family ``moe_lm``): llama4-scout (16 experts,
+top-1, a shared expert) and dbrx (16 experts, top-4).  An MoE layer's
+FFN is ``nn.moe_ffn`` over the layer's tokens flattened to (B * S, D) --
+pad positions of a right-padded prefill included, taking capacity as in
+JAX -- plus the shared expert's SwiGLU.
 
 Layer parameters are stacked along a leading L axis, as in the JAX
 package, and run by a Python loop over :func:`layer_params` slices (JAX
@@ -64,8 +68,9 @@ def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     truncated-normal embedding, zero biases, unit norms), other numbers.
     On ``device="meta"`` every leaf is shape-only (the port's
     ``jax.eval_shape`` of init)."""
-    if cfg.family != "dense_lm":
-        raise NotImplementedError(f"{cfg.family!r}: only dense_lm is ported")
+    if cfg.family not in ("dense_lm", "moe_lm"):
+        raise NotImplementedError(f"{cfg.family!r}: only dense_lm and "
+                                  "moe_lm are ported")
     device = torch.device(device)
     g = nn.generator(seed, device)
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
@@ -91,15 +96,25 @@ def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     if cfg.qk_norm:
         attn.update(q_gamma=fill(1.0, (cfg.head_dim,)),
                     k_gamma=fill(1.0, (cfg.head_dim,)))
-    if cfg.ffn == "relu2":
-        mlp = {"w1": stacked((D, F)), "w2": stacked((F, D))}
+    layers = {"ln1": fill(1.0, (D,)), "ln2": fill(1.0, (D,)), "attn": attn}
+    if cfg.moe_experts:  # router (L, D, E), experts (L, E, D, Fm) ...
+        E, Fm = cfg.moe_experts, cfg.moe_d_ff or F
+        layers["moe"] = {
+            "router": stacked((D, E)),
+            "experts": {"w1": stacked((E, D, Fm)), "w3": stacked((E, D, Fm)),
+                        "w2": stacked((E, Fm, D))}}
+        if cfg.moe_shared_expert:
+            layers["shared"] = {"w1": stacked((D, Fm)),
+                                "w3": stacked((D, Fm)),
+                                "w2": stacked((Fm, D))}
+    elif cfg.ffn == "relu2":
+        layers["mlp"] = {"w1": stacked((D, F)), "w2": stacked((F, D))}
     else:  # swiglu
-        mlp = {"w1": stacked((D, F)), "w3": stacked((D, F)),
-               "w2": stacked((F, D))}
+        layers["mlp"] = {"w1": stacked((D, F)), "w3": stacked((D, F)),
+                         "w2": stacked((F, D))}
     return {
         "embed": nn.trunc_normal((cfg.padded_vocab, D), g, device),
-        "layers": {"ln1": fill(1.0, (D,)), "ln2": fill(1.0, (D,)),
-                   "attn": attn, "mlp": mlp},
+        "layers": layers,
         "final_norm": torch.ones((D,), device=device),
         "lm_head": nn.lecun_normal((D, cfg.padded_vocab), g, device),
     }
@@ -140,7 +155,21 @@ def _qkv(cfg: ArchConfig, lp, x, positions):
     return q, k, v
 
 
+def moe_config(cfg: ArchConfig) -> nn.MoEConfig:
+    return nn.MoEConfig(num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                        d_model=cfg.d_model, d_ff=cfg.moe_d_ff or cfg.d_ff,
+                        capacity_factor=cfg.moe_capacity_factor)
+
+
 def _ffn(cfg: ArchConfig, lp, x):
+    if cfg.moe_experts:
+        B, S, D = x.shape
+        y = nn.moe_ffn(x.reshape(B * S, D), lp["moe"],
+                       moe_config(cfg)).reshape(B, S, D)
+        if cfg.moe_shared_expert:
+            s = lp["shared"]
+            y = y + nn.swiglu(x, s["w1"], s["w3"], s["w2"])
+        return y
     m = lp["mlp"]
     if cfg.ffn == "relu2":
         return nn.dense(torch.square(torch.relu(nn.dense(x, m["w1"]))),

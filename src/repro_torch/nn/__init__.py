@@ -4,9 +4,12 @@ from .attention import (apply_rope, decode_attention, decode_attention_int8,
                         relu_linear_attention, rope_freqs)
 from .layers import (conv2d, dense, dwconv2d, embed, generator, lecun_normal,
                      rms_norm, silu, swiglu, trunc_normal)
+from .moe import (MoEConfig, aux_load_balance_loss, capacity, expert_dense,
+                  expert_ffn, moe_ffn)
 
 __all__ = ["conv2d", "dense", "dwconv2d", "embed", "generator",
            "lecun_normal", "rms_norm", "silu", "swiglu", "trunc_normal",
            "relu_linear_attention", "apply_rope", "rope_freqs",
            "flash_attention", "decode_attention", "decode_attention_int8",
-           "quantize_kv_rows"]
+           "quantize_kv_rows", "MoEConfig", "aux_load_balance_loss",
+           "capacity", "expert_dense", "expert_ffn", "moe_ffn"]

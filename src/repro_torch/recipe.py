@@ -114,9 +114,12 @@ class QuantRecipe:
         toks = self.tokens_per_step
         if toks is None:
             toks = _default_tokens_per_step(cfg, self.calib.batch_size)
+        ctx = ShapeCtx(tokens_per_step=toks,
+                       moe_top_k=max(cfg.moe_top_k, 1),
+                       moe_num_experts=max(cfg.moe_experts, 1))
         return ResolvedRecipe(recipe=self, cfg=cfg, rules=rules,
                               ffn_groups=ffn_groups, overrides=overrides,
-                              shape_ctx=ShapeCtx(tokens_per_step=toks))
+                              shape_ctx=ctx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -351,9 +354,11 @@ def quantize(arch_or_cfg, params, recipe: Union[str, QuantRecipe] = "m2q-w8a8",
         # the deployment shape of the real batches, unless the recipe
         # pins one
         if rec.tokens_per_step is None and calib_batches:
-            resolved = dataclasses.replace(resolved, shape_ctx=ShapeCtx(
-                tokens_per_step=_default_tokens_per_step(
-                    cfg, int(calib_batches[0].shape[0]))))
+            resolved = dataclasses.replace(
+                resolved, shape_ctx=dataclasses.replace(
+                    resolved.shape_ctx,
+                    tokens_per_step=_default_tokens_per_step(
+                        cfg, int(calib_batches[0].shape[0]))))
         wrapped, act_stats = wrap_for_calibration(
             params, rule_matcher(resolved.rules))
         run_calibration(
@@ -410,9 +415,7 @@ def abstract_quantize(arch_or_cfg, params_abs=None,
 # raises.  EXECUTION_FIELDS only steer how JAX executes (scans, remat,
 # sharding) and are dropped.
 FUNCTION_FIELDS = {
-    "norm": "rms", "moe_experts": 0, "moe_top_k": 0, "moe_d_ff": 0,
-    "moe_shared_expert": False, "moe_capacity_factor": 1.25,
-    "block_pattern": (), "lru_width": 0, "conv1d_width": 4,
+    "norm": "rms", "block_pattern": (), "lru_width": 0, "conv1d_width": 4,
     "rwkv_head_dim": 64, "n_enc_layers": 0, "n_audio_ctx": 1500,
     "attn_bf16_mm": False,
 }

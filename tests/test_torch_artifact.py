@@ -215,19 +215,55 @@ def test_apot_ratio_none_needs_the_saved_splits(tmp_path):
     same_numpy(params_to_numpy(back.params), params_to_numpy(qm.params))
 
 
-def test_expert_leaves_raise_by_name_in_both_paths():
-    """MoE expert weights (``nn/moe.py``, not ported): a stacked (L, E, K,
-    N) expert leaf raises the named NotImplementedError in
-    ``quantize_model`` and in its shape-only twin alike."""
+@pytest.mark.parametrize("decision", ["lowbit", "mixed"])
+def test_expert_leaves_raise_by_name_in_both_paths(decision):
+    """MoE expert weights (``nn/moe.py``): the stacked (L, E, K, N)
+    expert leaf both paths refused by name before the MoE port now
+    quantizes in ``quantize_model`` and in its shape-only twin alike --
+    a 4-bit QUniform at 64 tokens a step over one expert, a QExpertM2Q
+    with (L, 1, 1, 1) activation scales under a mixed override -- equal
+    bit for bit to JAX's ``quantize_model`` of the same weights, and the
+    port's twin equal to the concrete leaf and to JAX's twin."""
+    from repro.core import apply as japply
+    from repro.core import policy as jpol
     from repro_torch.core import apply
-    from repro_torch.core.policy import ShapeCtx
-    ctx = ShapeCtx(tokens_per_step=64)
-    for device, fn in (("cpu", apply.quantize_model),
-                       ("meta", apply.abstract_quantize_model)):
-        tree = {"layers": {"moe": {"experts": {
-            "w1": torch.zeros((2, 4, 64, 32), device=device)}}}}
-        with pytest.raises(NotImplementedError, match="experts/w1"):
-            fn(tree, dense_lm.QUANT_RULES, ctx)
+    from repro_torch.core.policy import PathOverride, ShapeCtx
+    w = np.random.default_rng(3).normal(0, 0.1, (2, 4, 64, 32)).astype(
+        np.float32)
+    stats = {f"layers/moe/experts/w1@{i}": 1.5 + i for i in range(2)}
+    over = () if decision == "lowbit" else (
+        (r"experts/", PathOverride(decision="mixed")),)
+    jover = () if decision == "lowbit" else (
+        (r"experts/", jpol.PathOverride(decision="mixed")),)
+    ours, rep = apply.quantize_model(
+        {"layers": {"moe": {"experts": {"w1": torch.from_numpy(w)}}}},
+        dense_lm.QUANT_RULES, ShapeCtx(tokens_per_step=64),
+        act_stats=stats, overrides=over)
+    with _off():
+        theirs, jrep = japply.quantize_model(
+            {"layers": {"moe": {"experts": {"w1": jax.numpy.asarray(w)}}}},
+            jlm.QUANT_RULES, jpol.ShapeCtx(tokens_per_step=64),
+            act_stats=stats, overrides=jover)
+    same_numpy(params_to_numpy(ours), jax_to_numpy(theirs))
+    assert [(r.decision, r.n_uniform, r.n_apot) for r in rep] == \
+        [(r.decision, r.n_uniform, r.n_apot) for r in jrep] == \
+        [(decision, 16 if decision == "mixed" else 0,
+          16 if decision == "mixed" else 0)]
+    leaf = ours["layers"]["moe"]["experts"]["w1"]
+    want_cls = "QUniform" if decision == "lowbit" else "QExpertM2Q"
+    assert type(leaf).__name__ == want_cls
+    if decision == "mixed":
+        assert tuple(leaf.act_scale.shape) == (2, 1, 1, 1)
+    twin = apply.abstract_quantize_model(
+        {"layers": {"moe": {"experts": {"w1": torch.empty(
+            w.shape, device="meta")}}}},
+        dense_lm.QUANT_RULES, ShapeCtx(tokens_per_step=64), overrides=over)
+    jtwin = japply.abstract_quantize_model(
+        {"layers": {"moe": {"experts": {"w1": jax.ShapeDtypeStruct(
+            w.shape, np.float32)}}}},
+        jlm.QUANT_RULES, jpol.ShapeCtx(tokens_per_step=64), overrides=jover)
+    all_meta(twin)
+    assert abstract_tree(twin) == abstract_tree(ours) == abstract_tree(jtwin)
 
 
 # ---------------------------------------------------------------------------

@@ -314,7 +314,8 @@ def test_cfg_fields_split_as_the_jax_package_has_them():
         assert jax_fields[k] == v, k
 
 
-@pytest.mark.parametrize("name", ["efficientvit-b1-r224", "qwen1.5-0.5b"])
+@pytest.mark.parametrize("name", ["efficientvit-b1-r224", "qwen1.5-0.5b",
+                                  "llama4-scout-17b-a16e", "dbrx-132b"])
 def test_cfg_json_equals_the_jax_packages(name):
     jcfg, cfg = JARCHS[name], ARCHS[name]
     want = json.loads(json.dumps(jr._cfg_to_json(jcfg)))
@@ -324,7 +325,7 @@ def test_cfg_json_equals_the_jax_packages(name):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("norm", "layer"), ("moe_experts", 8), ("attn_bf16_mm", True),
+    ("norm", "layer"), ("lru_width", 256), ("attn_bf16_mm", True),
     ("block_pattern", ["rec", "attn"]), ("family", "rwkv"),
     ("from_the_future", 1)])
 def test_cfg_guard_raises_on_what_changes_the_function(field, value):

@@ -1,6 +1,6 @@
-"""The port's EfficientViT and dense-LM configurations equal the JAX
-package's, field for field (the port's ArchConfig carries the vision and
-dense-LM subset of the fields)."""
+"""The port's EfficientViT, dense-LM and MoE-LM configurations equal the
+JAX package's, field for field (the port's ArchConfig carries the vision,
+dense-LM and MoE-LM subset of the fields)."""
 import dataclasses
 
 import pytest
@@ -10,7 +10,8 @@ from repro_torch.configs import registry as treg
 
 NAMES = ["efficientvit-b1-r224", "efficientvit-b2-r224",
          "efficientvit-b1-r256", "efficientvit-b1-r288", "qwen1.5-0.5b",
-         "qwen3-14b", "granite-3-8b", "minitron-4b", "internvl2-2b"]
+         "qwen3-14b", "granite-3-8b", "minitron-4b", "internvl2-2b",
+         "llama4-scout-17b-a16e", "dbrx-132b"]
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -23,7 +24,8 @@ def test_config_equals_jax(name):
 @pytest.mark.parametrize("name", ["efficientvit-b1-r224",
                                   "efficientvit-b2-r224", "qwen1.5-0.5b",
                                   "qwen3-14b", "granite-3-8b",
-                                  "minitron-4b", "internvl2-2b"])
+                                  "minitron-4b", "internvl2-2b",
+                                  "llama4-scout-17b-a16e", "dbrx-132b"])
 def test_reduced_config_equals_jax(name):
     ours, theirs = treg.REDUCED[name], jreg.REDUCED[name]
     for f in dataclasses.fields(ours):

@@ -176,8 +176,9 @@ def test_mixed_lm_tree_round_trips(np_lm_tree):
     ("layers/mlp/w1", "act_scale", lambda a: np.float32(1.0)),
 ])
 def test_mismatched_mixed_lm_fields_raise(np_lm_tree, path, field, bad):
-    """Including a 4-D (L, E, K, N) QExpertM2Q: expert leaves are not
-    ported."""
+    """A field of the wrong shape or dtype raises, a 4-D ``shape`` over
+    a 3-D payload included (an (L, E, K, N) expert leaf needs an (L, E,
+    K, N) payload)."""
     tree = copy.deepcopy(np_lm_tree)
     leaf = _leaf(tree, path)
     leaf[field] = bad(leaf[field])

@@ -1518,10 +1518,11 @@ POOL = [(name, ARCHS[name]) for name in chip_smoke.LM_POOL]
 
 
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G", [5, 4, 3, 2])
+@pytest.mark.parametrize("G", [6, 5, 4, 3, 2])
 def test_decode_attn_kernel_at_the_pool_groups(cuda, G, q_dtype):
     """B 8, T 256, Hkv 8, D 128 at each pool group (5 and 3 the first
-    groups that are not a power of two), ragged lengths (0, 1, T, a slot
+    groups that are not a power of two; 6 dbrx-132b's), ragged lengths
+    (0, 1, T, a slot
     idled past T, served-like lengths): within two p8 codes of the plain
     version, the bf16 store the f32 store rounded once, one launch."""
     lengths = [0, 1, 256, 300] + [int(x) for x in np.random.default_rng(
@@ -1578,3 +1579,111 @@ def test_lm_pool_case_at_reduced_width(cuda, name):
         device="cuda", requests=4, max_new=6, max_len=64)
     assert problems == []
     assert res["served_tokens_max"] < REDUCED[name].vocab_size
+
+
+# ---------------------------------------------------------------------------
+# The MoE LMs (llama4-scout-17b-a16e, dbrx-132b): the per-expert
+# m2q_matmul route, moe_ffn in a CUDA graph, m2q_matmul at dbrx's mixed
+# shapes, int4_matmul at llama4-scout's lm_head, chip_smoke's phase 11 at
+# REDUCED width.
+# ---------------------------------------------------------------------------
+
+
+def _expert_slice(E, K, N, cuda, seed):
+    """A layer slice of a calibrated (L, E, K, N) QExpertM2Q expert leaf:
+    (E, K, N) payload, (1, 1, 1) activation scale."""
+    from repro_torch.core.qtensor import QExpertM2Q
+    w = _randn((E, K, N), seed, cuda, std=K ** -0.5)
+    asn = [select_schemes(w[e]) for e in range(E)]
+    qt = QExpertM2Q.quantize(w, np.stack([a.apot_idx for a in asn]),
+                             np.stack([a.uniform_idx for a in asn]))
+    del w
+    qt.act_scale = torch.full((1, 1, 1), 4.0 / 127, device=cuda)
+    return qt
+
+
+@pytest.mark.parametrize("E,C,K,N", [(4, 16, 512, 384),
+                                     (16, 8, 6144, 10752)])
+def test_per_expert_route_equals_expert_matmul(cuda, E, C, K, N):
+    """``ops.qtensor_expert_matmul`` on the card: E ``m2q_matmul``
+    launches, the (E, C, N) product bit for bit ``QExpertM2Q.
+    expert_matmul``'s (JAX's ``expert_matmul`` arithmetic: exact integer
+    sums) and ``reference_path()``'s, bf16 in and out, with the zero rows
+    an unfilled capacity leaves; (16, 8, 6144, 10752) is dbrx's decode
+    step."""
+    qt = _expert_slice(E, K, N, cuda, seed=E + K)
+    xe = _randn((E, C, K), C, cuda, dtype=torch.bfloat16)
+    xe[:, C - 3:] = 0
+    kernels.reset_counts()
+    y = ops.qtensor_expert_matmul(xe, qt)
+    assert kernels.counts()["m2q_matmul"] == {"launches": E,
+                                              "plain_calls": 0}
+    assert y.dtype == torch.bfloat16 and y.shape == (E, C, N)
+    _equal(y, qt.expert_matmul(xe))
+    with ops.reference_path():
+        _equal(y, ops.qtensor_expert_matmul(xe, qt))
+
+
+@pytest.mark.parametrize("name", [n for n, _, _ in chip_smoke.MOE_CASES])
+def test_moe_ffn_decode_step_replays_equal_to_eager(cuda, name):
+    """``moe_ffn`` of a decode step (8 tokens, bf16) on a mixed MoE layer
+    of the REDUCED config quantized on the card: captured in a CUDA graph
+    (routing, the capacity buffer's scatter-add, E launches a leaf, the
+    gather) and replayed twice, equal to the eager call bit for bit, with
+    launches counted by the replays as by eager calls."""
+    from repro_torch import recipe
+    from repro_torch.configs.registry import REDUCED
+    from repro_torch.models import dense_lm
+    from repro_torch.nn import moe
+    cfg = REDUCED[name].replace(dtype="bfloat16")
+    qm = recipe.quantize(cfg, dense_lm.init(cfg, seed=0, device=cuda),
+                         "m2q-w8a8")
+    lp = dense_lm.layer_params(qm.params["layers"], 1)["moe"]
+    x = _randn((8, cfg.d_model), 3, cuda, dtype=torch.bfloat16)
+    mcfg = dense_lm.moe_config(cfg)
+    with torch.no_grad():
+        kernels.reset_counts()
+        want = moe.moe_ffn(x, lp, mcfg)
+        eager = kernels.counts()["m2q_matmul"]["launches"]
+        assert eager == 3 * cfg.moe_experts
+        graph, y = chip_smoke.capture(lambda: moe.moe_ffn(x, lp, mcfg))
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            _equal(y, want)
+
+
+MOE_M2Q_SHAPES = sorted({c[1:] for calls in chip_smoke.moe_m2q_calls(
+    ARCHS["dbrx-132b"].replace(n_layers=1), chip_smoke.TOKEN_BATCH,
+    chip_smoke.POOL_PREFILL_LEN, "dbrx-132b").values() for c in calls})
+
+
+@pytest.mark.parametrize("M,K,N", MOE_M2Q_SHAPES)
+def test_m2q_kernel_equals_plain_at_dbrxs_mixed_shapes(cuda, M, K, N):
+    """dbrx-132b at 256 tokens a step: attention slices at the decode step
+    (M 8) and a prefill group (8 x 64), each expert's w1 / w3 / w2 at
+    their capacities (8 and 160 rows), the lm_head (8, 6144, 100352), bit
+    for bit."""
+    test_m2q_kernel_equals_plain_at_the_mixed_lm_shapes(cuda, M, K, N)
+
+
+def test_int4_kernel_at_llama4_scouts_lm_head(cuda):
+    """llama4-scout-17b-a16e's lm_head at the decode batch (M 8, K 5120,
+    N 202112), within the f32 summation bound."""
+    name = "llama4-scout-17b-a16e"
+    test_int4_kernel_at_the_pool_lm_heads(cuda, name, ARCHS[name])
+
+
+@pytest.mark.parametrize("name", [n for n, _, _ in chip_smoke.MOE_CASES])
+def test_moe_case_at_reduced_width(cuda, name, tmp_path):
+    """chip_smoke's phase 11 case on the card at REDUCED width (the mixed
+    path through the taxonomy overrides): the artifact round trip, graph
+    tokens equal eager, launches as the tree routes them (E a leaf and
+    layer for the experts), the teacher-forced bound."""
+    from repro_torch.configs.registry import REDUCED
+    cfg = REDUCED[name].replace(kv_cache_dtype="int8")
+    res, problems, _, qm = chip_smoke.moe_case(
+        torch, cfg, device="cuda", requests=4, max_new=6, max_len=64,
+        artifacts=tmp_path)
+    assert problems == [] and chip_smoke.leaf_problems(qm, mixed=True) == []
+    assert res["served_tokens_max"] < cfg.vocab_size
