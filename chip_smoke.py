@@ -33,7 +33,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
    5120, N 202112), ``m2q_matmul`` at dbrx's mixed decode step and
    prefill group -- attention slices at M 8 / 512, each expert's w1, w3
    (K 6144, N 10752) and w2 (K 10752, N 6144) at its capacity of 8 / 160
-   rows, the lm_head (8, 6144, 100352)), with kernel / plain /
+   rows, the lm_head (8, 6144, 100352)); and at the recurrent LMs'
+   shapes (phase 12): ``int4_matmul`` at rwkv6-3b's and
+   recurrentgemma-9b's lm_heads (M 8, K x N = 2560 x 65536, 4096 x
+   256000), ``m2q_matmul`` at the mixed rwkv's decode step -- seven
+   layer slices of 32 layers, (8, 2560, 2560) x 6 and (8, 8960, 2560),
+   and the lm_head (8, 2560, 65536) -- and a prefill group of 2 x 64
+   tokens (``rwkv_m2q_calls``), with kernel / plain /
    library device times (CUDA graphs
    timed by CUDA events) and the card's least time for the same work
    (m2q_matmul, int8_matmul and int4_matmul also per path: their shapes
@@ -188,7 +194,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    int4_matmul once a step and a prefill group), teacher-forced kernel
    logits within 5e-2 of max |logit| of ``reference_path()``'s; prints
    init and quantize seconds, peak allocated bytes, the graphed decode
-   step and tokens/s; (c) internvl2-2b's stub frontend: a prefill of 256
+   step with its torch.profiler trace (busy ms, the costliest kernels)
+   and tokens/s; (c) internvl2-2b's stub frontend: a prefill of 256
    patch embeddings ahead of 4 prompts, then 8 decode steps, kernels
    against plain versions within the same bound; (b) minitron-4b again
    at 64 tokens a step, the mixed LM with its relu2 group (161
@@ -199,11 +206,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
    llama4-scout-17b-a16e (4 of 48 layers; 16 experts top-1 and a shared
    expert, G 5, vocab 202048 -> 202112) under m2q-w8a8 at the decode
    shape (every leaf 4-bit, the experts (L, 16, K, N/2) QUniform leaves:
-   decode_attn_int8 4 and int4_matmul 1 a decode step), and dbrx-132b (2
+   decode_attn_int8 4 and int4_matmul 1 a decode step), and dbrx-132b (1
    of 40 layers; 16 experts top-4, G 6) at 256 tokens a step (64 an
    expert: the experts (L, 16, K, N) QExpertM2Q leaves, attention and the
-   lm_head mixed: 105 m2q_matmul -- 16 a leaf and layer for the experts,
-   4 attention slices a layer, the lm_head -- and 2 decode_attn_int8 a
+   lm_head mixed: 53 m2q_matmul -- 16 a leaf and layer for the experts,
+   4 attention slices a layer, the lm_head -- and 1 decode_attn_int8 a
    decode step), one at a time: ``init`` on the card (seed 0),
    ``quantize(..., release=True)``, the leaves checked, the artifact
    saved and loaded on the card (leaf for leaf bit-identical), then the
@@ -213,6 +220,30 @@ Phases, each fatal on failure (nonzero exit, no result line):
    of ``reference_path()``'s); prints peaks, init / quantize / save /
    load seconds, the graphed decode step, tokens/s and each model's
    full-depth 4-bit tree bytes from ``abstract_quantize``.
+
+12. the recurrent LMs -- at their published widths (``RECURRENT_CASES``):
+   rwkv6-3b at full depth (32 layers, 40 heads of 64, vocab 65536) under
+   m2q-w8a8 at the decode shape (all 4-bit: int4_matmul 1 a decode step
+   and a prefill group) and at 64 tokens a step (mixed: 225 m2q_matmul
+   a step and a group -- 7 ``QExpertM2Q`` slices of 32 layers, cw_k
+   perm-folded, a mixed lm_head), and recurrentgemma-9b cut to 8 of 38
+   layers (rec, rec, attn twice and two tail recurrent layers; G 16,
+   window 2048, vocab 256000) under w4-weights-only (a calibrating
+   recipe fails in the reference): ``recurrent_case`` = ``init`` on the
+   card, ``quantize(..., release=True)``, ``leaf_problems``, then 8
+   greedy requests of 8, 32 and 64 prompt tokens and 16 new tokens
+   through ``Engine(max_batch=8, max_len=256)``, whose exact-length
+   buckets take three prefill groups a pass, eager and graphed (tokens
+   equal, none >= vocab, launches as ``tree_launches`` counts them, 0
+   plain calls, teacher-forced logits within 5e-2 of max |logit| of
+   ``reference_path()``'s and of the eager ``forward``'s at the same
+   positions); recurrentgemma also one request of 2040 prompt tokens
+   and 16 new ones at ``max_len=2304`` through a one-slot engine (its
+   2048-row ring wraps during decode; its eager prefill timed alone),
+   and its full-depth 4-bit tree bytes from ``abstract_quantize``.
+   Prints peaks, init / quantize seconds, the graphed decode step (and,
+   as phases 10-11 do, a torch.profiler trace of it: busy ms, kernels a
+   step, the six costliest kernels) and tokens/s beside the card.
 
 It then prints the card's name and power limit again, one JSON line with
 every kernel's numbers and, last, the ``{"ok": true, "device": ...}``
@@ -2767,23 +2798,26 @@ def kernel_of(leaf):
 
 def tree_launches(qm, steps: int, groups: int) -> Counter:
     """The kernel launches of ``steps`` decode steps and ``groups``
-    prefill groups, worked out from the quantized tree: each layer
-    matmul whose layer slice a kernel takes once per layer, an MoE
-    expert leaf whose layer slice ``m2q_matmul`` takes once per expert
-    and layer, a kernel-run lm_head once, in every step and group; with
-    an int8 cache, decode_attn_int8 once per layer and step."""
+    prefill groups, worked out from the quantized tree: each stacked
+    layer matmul (a leaf of 3 or more dimensions: (L, K, N), or an MoE
+    expert leaf (L, E, K, N)) whose layer slice a kernel takes once per
+    layer of its stack (recurrentgemma's ``rec`` and ``attn`` stacks
+    hold different counts), an expert leaf whose layer slice
+    ``m2q_matmul`` takes once per expert and layer, a kernel-run lm_head
+    once, in every step and group; with an int8 cache, decode_attn_int8
+    once per layer and step."""
     from repro_torch.core.qtensor import slice_layer
     from repro_torch.kernels import ops
     cfg = qm.cfg
     per_pass = Counter()
     for r in qm.report:
         leaf = _get(qm.params, r.path)
-        if r.path.startswith("layers/"):
+        if len(r.shape) >= 3:
             layer = slice_layer(leaf, 0)
             if ops.expert_kernel_supported(layer):
-                per_pass["m2q_matmul"] += cfg.n_layers * cfg.moe_experts
+                per_pass["m2q_matmul"] += r.shape[0] * cfg.moe_experts
             else:
-                per_pass[kernel_of(layer)] += cfg.n_layers
+                per_pass[kernel_of(layer)] += r.shape[0]
         elif r.path != "embed":  # the embedding is a row gather
             per_pass[kernel_of(leaf)] += 1
     per_pass.pop(None, None)
@@ -2810,17 +2844,22 @@ def pool_quantize(torch, cfg, kind: str, device="cuda"):
     under m2q-w8a8 -- at the decode deployment shape (``kind``
     ``"decode"``: 2 tokens a step, from the calibration batch), at 64
     tokens a step (``"mixed"``) or at ``kind`` tokens a step (an int) --
-    with the float tree handed over (``release=True``: each float leaf
-    leaves the card once its QTensor exists).  Returns (qm, {init_s,
-    quantize_s, init_peak_bytes, quantize_peak_bytes})."""
+    or under the preset ``kind`` names (``"w4-weights-only"``), with the
+    float tree handed over (``release=True``: each float leaf leaves the
+    card once its QTensor exists).  Returns (qm, {init_s, quantize_s,
+    init_peak_bytes, quantize_peak_bytes})."""
     from repro_torch import recipe
-    from repro_torch.models import dense_lm
-    rec = recipe.PRESETS["m2q-w8a8"]
-    if kind != "decode":
-        rec = rec.replace(tokens_per_step=64 if kind == "mixed" else kind)
+    from repro_torch.models import get_model
+    if kind in recipe.PRESETS:
+        rec = recipe.PRESETS[kind]
+    else:
+        rec = recipe.PRESETS["m2q-w8a8"]
+        if kind != "decode":
+            rec = rec.replace(tokens_per_step=64 if kind == "mixed"
+                              else kind)
     _sync_peak(torch, device, reset=True)
     t0 = time.perf_counter()
-    params = dense_lm.init(cfg, seed=0, device=device)
+    params = get_model(cfg).init(cfg, seed=0, device=device)
     init_peak = _sync_peak(torch, device, reset=True)
     t1 = time.perf_counter()
     qm = recipe.quantize(cfg, params, rec, release=True)
@@ -2833,9 +2872,12 @@ def pool_quantize(torch, cfg, kind: str, device="cuda"):
 
 def pool_serve(torch, qm, device="cuda",
                requests: int = POOL_REQUESTS, max_new: int = POOL_NEW,
-               max_len: int = TOKEN_MAX_LEN):
-    """Serve ``requests`` greedy requests of ``max_new`` tokens through
-    the token Engine (``max_batch`` 8, int8 KV), eagerly (one pass) and
+               max_len: int = TOKEN_MAX_LEN, prompts=None,
+               max_batch: int = TOKEN_BATCH):
+    """Serve ``requests`` greedy requests of ``max_new`` tokens
+    (``prompts``, or :func:`pool_requests`') through the token Engine
+    (``max_batch`` 8; an int8 KV cache where the config has one),
+    eagerly (one pass) and
     from its CUDA graphs (two passes: the first captures the decode step,
     the second is timed; on the CPU every pass runs eagerly), and hold
     the run: graph tokens equal eager tokens, every token below
@@ -2846,22 +2888,25 @@ def pool_serve(torch, qm, device="cuda",
     teacher-forced kernel logits of two requests within
     TEACHER_FORCED_BOUND of max |logit| of ``reference_path()``'s, a
     served token never further below the teacher-forced argmax than
-    that.  Returns (figures,
-    problems, kernel launches)."""
+    that; for a model without ``RAGGED_PREFILL`` (the recurrent
+    families, whose prefill and decode carry a state), those logits also
+    within the bound of the model's eager ``forward`` over prompt +
+    forced tokens at the same positions.  Returns (figures, problems,
+    kernel launches)."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.kernels import ops
     from repro_torch.launch.daemon import (TEACHER_FORCED_BOUND,
                                            teacher_forced_logits)
-    from repro_torch.models import dense_lm
     cfg = qm.cfg
     on_card = torch.device(device).type == "cuda"
     field = "launches" if on_card else "plain_calls"
-    prompts = pool_requests(cfg, requests)
+    if prompts is None:
+        prompts = pool_requests(cfg, requests)
     problems, res, served, launches = [], {}, {}, Counter()
     for graphs, passes in ((False, ("eager",)),
                            (True, ("graph warm", "graph"))):
-        engine = qm.serve(max_batch=TOKEN_BATCH, max_len=max_len, seed=0,
+        engine = qm.serve(max_batch=max_batch, max_len=max_len, seed=0,
                           graphs=graphs)
         for mode in passes:
             s0 = (engine.stats.steps, engine.stats.prefill_batches)
@@ -2907,7 +2952,7 @@ def pool_serve(torch, qm, device="cuda",
                            for m in ("eager", "graph")}
 
     # teacher-forced logits, kernels vs plain versions: two requests
-    pick = [0, 1]
+    pick = [0, 1][:len(prompts)]
     steps = max_new - 1
     forced = np.array([served["eager"][i][:steps] for i in pick]).T
     with torch.no_grad():
@@ -2931,14 +2976,32 @@ def pool_serve(torch, qm, device="cuda",
     if not margins["largest_gap"] <= bound:
         problems.append(f"a served token sits {margins['largest_gap']} below "
                         f"the teacher-forced argmax (bound {bound})")
+    if not getattr(qm.model, "RAGGED_PREFILL", False):
+        fdiff = ftop = 0.0
+        for j, i in enumerate(pick):
+            full = np.concatenate([prompts[i], forced[:, j]])[None]
+            fw = qm.forward(full)[0, len(prompts[i]) - 1:, :cfg.vocab_size]
+            fdiff = max(fdiff, float((got[:, j] - fw.float()).abs().max()))
+            ftop = max(ftop, float(fw.float().abs().max()))
+            del fw
+        fbound = TEACHER_FORCED_BOUND * ftop
+        res.update(forward_max_abs_diff=fdiff, forward_logits_max_abs=ftop,
+                   forward_bound=fbound)
+        if not fdiff <= fbound:
+            problems.append(f"teacher-forced logits differ from the eager "
+                            f"forward's by {fdiff} (bound {fbound})")
 
-    # the batch-8 decode step at the served cache's lengths, in a graph
+    # the batch-8 decode step at the served cache's lengths, in a graph,
+    # and traced eagerly: device busy ms and the kernels that take it
     if on_card:
-        tok = torch.zeros((TOKEN_BATCH, 1), dtype=torch.int64, device=device)
+        tok = torch.zeros((max_batch, 1), dtype=torch.int64, device=device)
         with torch.no_grad():
             res["decode_step_graph_ms"] = graph_ms(
-                lambda: dense_lm.decode_step(cfg, qm.params, cache, tok),
+                lambda: qm.model.decode_step(cfg, qm.params, cache, tok),
                 iters=2, reps=3)
+            res["decode_step_trace"] = device_profile(
+                lambda: qm.model.decode_step(cfg, qm.params, cache, tok),
+                iters=2, top=6)
         res["decode_lengths"] = cache["lengths"].tolist()
     res["peak_bytes_serving"] = _sync_peak(torch, device, reset=True)
     return res, problems, launches
@@ -3067,7 +3130,7 @@ def run_lm_pool(torch, out_dir, card) -> Counter:
 # recipe: None is the decode shape).  Published widths; the depth is cut
 # because the f32 trees do not fit the card at full depth (llama4-scout
 # 8.81 GB a layer + 8.28 GB of embed and head; dbrx 12.9 GB a layer).
-MOE_CASES = (("llama4-scout-17b-a16e", 4, None), ("dbrx-132b", 2, 256))
+MOE_CASES = (("llama4-scout-17b-a16e", 4, None), ("dbrx-132b", 1, 256))
 
 
 def moe_m2q_calls(cfg, batch: int, prefill_len: int, label: str):
@@ -3112,10 +3175,11 @@ def tree_bytes(tree) -> int:
 
 
 def leaf_problems(qm, mixed: bool) -> list:
-    """The MoE tree's leaves as the recipe must make them: at the decode
-    shape every leaf a 4-bit QUniform (the experts (L, E, K, N) with axis
-    3); mixed, every leaf but the embedding mixed, the experts
-    QExpertM2Q of 4-D payload with (L, 1, 1, 1) activation scales."""
+    """An LM tree's leaves as the recipe must make them (the MoE LMs,
+    the recurrent ones): at the decode shape, or weights-only, every
+    leaf a 4-bit QUniform (MoE experts (L, E, K, N) with axis 3); mixed,
+    every leaf but the embedding mixed, MoE experts QExpertM2Q of 4-D
+    payload with (L, 1, 1, 1) activation scales."""
     from repro_torch.core.qtensor import QExpertM2Q, QUniform
     cfg = qm.cfg
     L, E = cfg.n_layers, cfg.moe_experts
@@ -3208,6 +3272,147 @@ def run_moe(torch, out_dir, card) -> Counter:
     return total
 
 
+# ---- phase 12: the recurrent families --------------------------------------
+# (name, layers served (None: the published depth), pool_quantize's kind).
+# rwkv6-3b at full depth (3.1 B parameters, 12.3 GB f32) at the decode
+# shape (all 4-bit) and at 64 tokens a step (the mixed LM);
+# recurrentgemma-9b at its published width, 8 of 38 layers (rec, rec,
+# attn twice, then the two tail recurrent layers of 38's pattern; 15.5 GB
+# f32), under w4-weights-only: a calibrating recipe fails in the
+# reference (its forward reshapes the stacked rec leaves).
+RECURRENT_CASES = (("rwkv6-3b", None, "decode"), ("rwkv6-3b", None, "mixed"),
+                   ("recurrentgemma-9b", 8, "w4-weights-only"))
+# three prompt lengths: the exact-length buckets take a pass for each
+RECURRENT_LENGTHS = (8, 32, 64)
+# the request that crosses recurrentgemma's 2048-token window: its ring
+# (W = min(window, max_len) = 2048 rows) wraps during decode
+WINDOW_PROMPT = 2040
+WINDOW_MAX_LEN = 2304
+RWKV_MIXED = ("tm/wr", "tm/wk", "tm/wv", "tm/wg", "tm/wo", "cm/cw_r",
+              "cm/cw_v")
+
+
+def recurrent_requests(cfg, n: int = POOL_REQUESTS,
+                       lengths=RECURRENT_LENGTHS):
+    """``n`` seeded prompts whose lengths cycle through ``lengths``."""
+    import numpy as np
+    rng = np.random.default_rng(12)
+    return [rng.integers(0, cfg.vocab_size, lengths[i % len(lengths)],
+                         dtype=np.int32) for i in range(n)]
+
+
+def rwkv_m2q_calls(cfg, batch: int, group: tuple, label: str):
+    """m2q_matmul's calls (path, M, K, N) in one decode step and one
+    prefill group (``group``: its prompts and their length) of the mixed
+    rwkv (64 tokens a step): the seven stacked ``QExpertM2Q`` matmuls of
+    every layer (``RWKV_MIXED``; cw_k is perm-folded: ``x @ dequant``),
+    then the lm_head on the last position of each prompt."""
+    D, F = cfg.d_model, cfg.d_ff
+    shapes = {p: (F if p == "cm/cw_v" else D, D) for p in RWKV_MIXED}
+
+    def layers(M):
+        return [(f"layers/{p}@{i}", M, *shapes[p])
+                for i in range(cfg.n_layers) for p in RWKV_MIXED]
+    n, length = group
+    return {f"{label} decode step": layers(batch) + [
+                ("lm_head", batch, D, cfg.padded_vocab)],
+            f"{label} prefill group": layers(n * length) + [
+                ("lm_head", n, D, cfg.padded_vocab)]}
+
+
+def recurrent_case(torch, cfg, kind, device="cuda",
+                   requests: int = POOL_REQUESTS, max_new: int = POOL_NEW,
+                   max_len: int = TOKEN_MAX_LEN, window_prompt=None,
+                   window_max_len=None, check_leaves: bool = False):
+    """One recurrent LM: :func:`pool_quantize` (``init`` on ``device``,
+    seed 0, the float tree released leaf by leaf; with ``check_leaves``
+    the tree held to :func:`leaf_problems`, at full width: the decode
+    shape and w4-weights-only all 4-bit, 64 tokens a step mixed), then
+    :func:`pool_serve` of ``requests`` prompts of
+    ``RECURRENT_LENGTHS`` (one exact-length prefill group a length, the
+    forward check on); with ``window_prompt``, one more request of that
+    many prompt tokens at ``window_max_len`` through an engine of one
+    slot (recurrentgemma: the ring wraps), its eager prefill timed
+    alone.  Returns (figures, problems, kernel launches)."""
+    import numpy as np
+    qm, res = pool_quantize(torch, cfg, kind, device)
+    res["leaves"] = {r.path: f"{type(_get(qm.params, r.path)).__name__} "
+                     f"{r.decision} {tuple(r.shape)}" for r in qm.report}
+    res["quantized_bytes"] = tree_bytes(qm.params)
+    problems = leaf_problems(qm, mixed=kind == "mixed") if check_leaves \
+        else []
+    served, more, launches = pool_serve(
+        torch, qm, device, requests, max_new, max_len,
+        prompts=recurrent_requests(cfg, requests))
+    problems += more
+    res.update(served)
+    res["prefill_groups"] = served["eager_groups"]
+    if window_prompt:
+        wl = window_max_len or window_prompt + max_new
+        prompt = recurrent_requests(cfg, 1, (window_prompt,))
+        cache = qm.model.init_cache(cfg, 1, wl, dtype=torch.float32,
+                                    device=device)
+        _sync_peak(torch, device, reset=False)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            qm.model.prefill(cfg, qm.params, cache, torch.as_tensor(
+                np.asarray(prompt[0], np.int64)[None], device=device))
+        _sync_peak(torch, device, reset=False)
+        prefill_s = time.perf_counter() - t0
+        del cache
+        w, more, wlaunch = pool_serve(torch, qm, device, 1, max_new, wl,
+                                      prompts=prompt, max_batch=1)
+        w.update(prompt_tokens=window_prompt, max_len=wl,
+                 ring_rows=min(cfg.window, wl), eager_prefill_s=prefill_s)
+        res["window"] = w
+        problems += [f"window request: {p}" for p in more]
+        launches.update(wlaunch)
+    del qm
+    return res, problems, launches
+
+
+def run_recurrent(torch, out_dir, card) -> Counter:
+    """Phase 12: each of ``RECURRENT_CASES`` at its published width through
+    :func:`recurrent_case` on the card, its leaves checked, one model at
+    a time, recurrentgemma
+    with the window request and beside its full-depth 4-bit tree bytes
+    from ``abstract_quantize``.  Any problem fails the run.  Returns the
+    kernel launches."""
+    from repro_torch import recipe
+    from repro_torch.configs.registry import ARCHS
+    t0 = time.perf_counter()
+    gc.collect()  # what earlier phases left: their peaks are not ours
+    torch.cuda.empty_cache()
+    total = Counter()
+    out = {"allocated_at_start": torch.cuda.memory_allocated()}
+    for name, layers, kind in RECURRENT_CASES:
+        cfg = ARCHS[name]
+        if layers is not None:
+            cfg = cfg.replace(n_layers=layers)
+        res, problems, launches = recurrent_case(
+            torch, cfg, kind, check_leaves=True,
+            window_prompt=WINDOW_PROMPT if cfg.window else None,
+            window_max_len=WINDOW_MAX_LEN)
+        res["layers"] = f"{cfg.n_layers} of {ARCHS[name].n_layers}"
+        if layers is not None:
+            res["full_depth_4bit_bytes"] = tree_bytes(
+                recipe.abstract_quantize(name, recipe=kind))
+        total.update(launches)
+        key = f"{name} {kind}"
+        out[key] = res
+        print(f"phase 12 {key}:", json.dumps(res), flush=True)
+        if problems:
+            fail(f"phase 12 {key}: " + "; ".join(problems)[:2000])
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    out["card"] = card
+    print(f"phase 12: {out['phase_s']:.1f} s; {card}", flush=True)
+    (out_dir / "chip_smoke_recurrent.json").write_text(
+        json.dumps(out, indent=1))
+    return total
+
+
 def main() -> None:
     import torch  # the card check needs torch before anything else
 
@@ -3252,9 +3457,13 @@ def main() -> None:
     # the MoE LMs at phase 11's depth
     moe_lms = [(name, ARCHS[name].replace(n_layers=layers))
                for name, layers, _ in MOE_CASES]
+    # the recurrent LMs' lm_heads (phase 12): rwkv6-3b 2560 x 65536,
+    # recurrentgemma-9b 4096 x 256000
+    recurrent = [(name, ARCHS[name]) for name in ("rwkv6-3b",
+                                                  "recurrentgemma-9b")]
     pool_heads = {f"{name} lm_head": [("lm_head", TOKEN_BATCH, c.d_model,
                                        c.padded_vocab)]
-                  for name, c in pool + moe_lms[:1]}
+                  for name, c in pool + moe_lms[:1] + recurrent}
     rng = np.random.default_rng(0)
     tallies = [check_m2q(torch, rng, {
                    "m2q-w8a8": m2q_calls,
@@ -3262,7 +3471,10 @@ def main() -> None:
                    **token_m2q_calls(ARCHS["minitron-4b"], TOKEN_BATCH,
                                      POOL_PREFILL_LEN, "minitron-4b mixed"),
                    **moe_m2q_calls(moe_lms[1][1], TOKEN_BATCH,
-                                   POOL_PREFILL_LEN, "dbrx-132b")}),
+                                   POOL_PREFILL_LEN, "dbrx-132b"),
+                   **rwkv_m2q_calls(recurrent[0][1], TOKEN_BATCH,
+                                    (2, RECURRENT_LENGTHS[-1]),
+                                    "rwkv6-3b mixed")}),
                check_dwconv(torch, rng, dw_calls),
                check_attn(torch, rng, attn_calls),
                check_scales(torch, rng, attn_calls),
@@ -3316,11 +3528,14 @@ def main() -> None:
 
         # ---- 11. the MoE LMs, each pass from zeroed counters ---------------
         launches.update(run_moe(torch, out_dir, card))
+
+        # ---- 12. the recurrent LMs, each pass from zeroed counters --------
+        launches.update(run_recurrent(torch, out_dir, card))
     finally:
         import shutil
         shutil.rmtree(ARTIFACTS, ignore_errors=True)
 
-    # ---- 12. results ----------------------------------------------------
+    # ---- results --------------------------------------------------------
     replaces = {"m2q_matmul": "src/repro/kernels/m2q_matmul.py:80",
                 "dwconv_w4": "src/repro/kernels/dwconv_w4.py:107",
                 "relu_attn": "src/repro/kernels/relu_attn.py:74",

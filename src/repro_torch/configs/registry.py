@@ -1,9 +1,9 @@
-"""Architecture registry: the EfficientViT, dense-LM and MoE-LM entries
-of ``repro.configs.registry`` (the recurrent and whisper families are not
-ported yet)."""
+"""Architecture registry: the EfficientViT, dense-LM, MoE-LM and
+recurrent (rwkv, recurrentgemma) entries of ``repro.configs.registry``
+(whisper is not ported yet)."""
 from . import (dbrx_132b, efficientvit_b1, efficientvit_b2, granite3_8b,
                internvl2_2b, llama4_scout_17b_a16e, minitron_4b, qwen3_14b,
-               qwen15_05b)
+               qwen15_05b, recurrentgemma_9b, rwkv6_3b)
 
 _MODULES = {
     "qwen1.5-0.5b": qwen15_05b,
@@ -13,6 +13,8 @@ _MODULES = {
     "internvl2-2b": internvl2_2b,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
     "dbrx-132b": dbrx_132b,
+    "rwkv6-3b": rwkv6_3b,
+    "recurrentgemma-9b": recurrentgemma_9b,
     "efficientvit-b1-r224": efficientvit_b1,
     "efficientvit-b2-r224": efficientvit_b2,
 }

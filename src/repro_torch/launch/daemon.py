@@ -11,8 +11,9 @@ interactive request token by token:
       --reduced --requests 8 --stream [--device cpu]
 
 ``--arch`` takes the port's LMs: qwen1.5-0.5b, qwen3-14b, granite-3-8b,
-minitron-4b and internvl2-2b (text only), and the MoE
-llama4-scout-17b-a16e and dbrx-132b.
+minitron-4b and internvl2-2b (text only), the MoE llama4-scout-17b-a16e
+and dbrx-132b, and the recurrent rwkv6-3b and recurrentgemma-9b (the
+latter with ``--no-quant`` only, as in ``launch.serve``).
 
 ``--smoke`` is the fast path: one streamed request with a tight timeout,
 clean drain, exact outcome reconciliation -- exits non-zero on any of
@@ -247,23 +248,37 @@ def serve_supervised(args) -> int:
 
 def teacher_forced_logits(cfg, params, prompts, forced, max_len: int):
     """(steps + 1, B, vocab) f32 logits: the B ``prompts`` prefilled into
-    one batch-B f32 cache, then ``forced`` ((steps, B) token ids) fed
-    back one decode step at a time, on the parameters' device."""
+    one batch-B f32 cache (one ragged prefill; a recurrent family, whose
+    state must not see padding, one prompt at a time into its row), then
+    ``forced`` ((steps, B) token ids) fed back one decode step at a time,
+    on the parameters' device."""
     from ..core.tree import device_of
     from ..models import get_model
+    from ..serving.engine import write_slots
     model = get_model(cfg)
     dev = device_of(params)
-    lens = [len(p) for p in prompts]
-    toks = np.zeros((len(prompts), max(lens)), np.int64)
-    for i, p in enumerate(prompts):
-        toks[i, :len(p)] = p
     cache = model.init_cache(cfg, len(prompts), max_len,
                              dtype=torch.float32, device=dev)
     out = []
     with torch.no_grad():
-        lg, cache = model.prefill(
-            cfg, params, cache, torch.from_numpy(toks).to(dev),
-            lengths=torch.tensor(lens, dtype=torch.int32, device=dev))
+        if getattr(model, "RAGGED_PREFILL", False):
+            lens = [len(p) for p in prompts]
+            toks = np.zeros((len(prompts), max(lens)), np.int64)
+            for i, p in enumerate(prompts):
+                toks[i, :len(p)] = p
+            lg, cache = model.prefill(
+                cfg, params, cache, torch.from_numpy(toks).to(dev),
+                lengths=torch.tensor(lens, dtype=torch.int32, device=dev))
+        else:
+            rows = []
+            for i, p in enumerate(prompts):
+                one = model.init_cache(cfg, 1, max_len, dtype=torch.float32,
+                                       device=dev)
+                lg, one = model.prefill(cfg, params, one, torch.as_tensor(
+                    np.asarray(p, np.int64)[None], device=dev))
+                write_slots(cache, [i], one)
+                rows.append(lg)
+            lg = torch.cat(rows)
         out.append(lg[:, 0, :cfg.vocab_size].float())
         for t in np.asarray(forced, np.int64).reshape(-1, len(prompts)):
             lg, cache = model.decode_step(

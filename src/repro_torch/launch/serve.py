@@ -7,8 +7,11 @@ token engine.
 
 ``--arch`` takes the port's LMs: the dense qwen1.5-0.5b, qwen3-14b,
 granite-3-8b, minitron-4b and internvl2-2b (served as text: the token
-engine takes no patch prefix, as in the JAX package) and the MoE
-llama4-scout-17b-a16e and dbrx-132b.
+engine takes no patch prefix, as in the JAX package), the MoE
+llama4-scout-17b-a16e and dbrx-132b, and the recurrent rwkv6-3b and
+recurrentgemma-9b (served through exact-length prefill buckets;
+recurrentgemma-9b only with ``--no-quant``: the CLI's m2q-w8a8 recipe
+calibrates, which that family cannot do in the reference either).
 
 The engine runs on ``--device`` (the card by default).  ``--mesh``
 (sharded execution) is not ported: it waits for the port's sharding

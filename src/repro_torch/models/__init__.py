@@ -1,11 +1,12 @@
-"""Model zoo (EfficientViT and the decoder-only LM, dense or MoE, so
-far)."""
-from . import dense_lm, efficientvit
+"""Model zoo: EfficientViT, the decoder-only LM (dense or MoE) and the
+recurrent LMs (RWKV6, RecurrentGemma)."""
+from . import dense_lm, efficientvit, recurrentgemma, rwkv
 from .config import ArchConfig
 
 # moe_lm shares the dense_lm implementation, as in the JAX package
 FAMILIES = {"efficientvit": efficientvit, "dense_lm": dense_lm,
-            "moe_lm": dense_lm}
+            "moe_lm": dense_lm, "rwkv": rwkv,
+            "recurrentgemma": recurrentgemma}
 
 
 def get_model(cfg: ArchConfig):

@@ -1,7 +1,8 @@
-"""Architecture config (the vision, dense-LM and MoE-LM subset of
-``repro.models.config``'s ``ArchConfig``, the VLM stub frontend's
-``n_patches`` included; the hybrid, whisper and sharding fields come
-with those families)."""
+"""Architecture config (the vision, dense-LM, MoE-LM and recurrent
+subset of ``repro.models.config``'s ``ArchConfig``, the VLM stub
+frontend's ``n_patches`` included; the whisper and sharding fields come
+with those, and ``block_pattern`` never: JAX's recurrentgemma takes its
+pattern from the layer index and never reads it)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +16,7 @@ def round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # dense_lm | moe_lm | efficientvit
+    family: str  # dense_lm | moe_lm | rwkv | recurrentgemma | efficientvit
     n_layers: int
     d_model: int
     # language models
@@ -37,6 +38,12 @@ class ArchConfig:
     moe_shared_expert: bool = False
     moe_capacity_factor: float = 1.25
     window: Optional[int] = None  # sliding attention window (None: all)
+    # recurrentgemma: the RG-LRU width (0: d_model) and the temporal
+    # conv's width
+    lru_width: int = 0
+    conv1d_width: int = 4
+    # rwkv: the time-mix head width
+    rwkv_head_dim: int = 64
     kv_cache_dtype: str = "bf16"  # bf16 | int8 (per-row scales, integer
                                   # decode attention)
     # vlm stub frontend: patch embeddings prepended to the tokens

@@ -76,13 +76,7 @@ def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
 
     def stacked(shape):
-        # filled layer by layer (the draws torch.stack of L draws would
-        # take, in the same order) so the tree never holds a leaf twice
-        out = torch.empty((L,) + shape, dtype=torch.float32, device=device)
-        if device.type != "meta":  # meta: shape only, as nn.lecun_normal
-            for i in range(L):
-                out[i] = nn.lecun_normal(shape, g, device)
-        return out
+        return nn.stacked(L, shape, nn.lecun_normal, g, device)
 
     def fill(value, shape):
         return torch.full((L,) + shape, value, dtype=torch.float32,

@@ -58,6 +58,20 @@ def lecun_normal(shape, generator: torch.Generator,
     return w / math.sqrt(max(fan_in, 1))
 
 
+def stacked(n: int, shape, draw, generator: torch.Generator,
+            device=None) -> torch.Tensor:
+    """``n`` draws of ``draw(shape, generator, device)`` stacked along a
+    new leading axis, filled one slice at a time (the draws, in the order
+    ``torch.stack`` of ``n`` draws would take them) so the tree never
+    holds a leaf twice; shape-only on the meta device."""
+    out = torch.empty((n,) + tuple(shape), dtype=torch.float32,
+                      device=device)
+    if not _meta(device):
+        for i in range(n):
+            out[i] = draw(shape, generator, device)
+    return out
+
+
 def dense(x: torch.Tensor, w, b=None) -> torch.Tensor:
     """y = x @ w (+ b); w may be float, CalibTensor or a QTensor leaf."""
     if isinstance(w, CalibTensor):
@@ -92,6 +106,11 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation (``jax.nn.gelu(x, approximate=True)``)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def swiglu(x: torch.Tensor, w1, w3, w2, b1=None, b3=None,

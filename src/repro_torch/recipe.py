@@ -345,6 +345,14 @@ def quantize(arch_or_cfg, params, recipe: Union[str, QuantRecipe] = "m2q-w8a8",
 
     act_stats: Dict[str, float] = {}
     n_calib = 0
+    if rec.policy.quantize_activations and cfg.family == "recurrentgemma":
+        raise NotImplementedError(
+            f"recipe {rec.name!r} calibrates activations, which "
+            f"{cfg.family!r} cannot do in the reference either: its "
+            "forward reshapes the stacked 'rec' leaves into (rec, rec, "
+            "attn) groups, and JAX's calibration forward raises "
+            "AttributeError: 'CalibTensor' object has no attribute "
+            "'reshape'; use a weights-only recipe (w4-weights-only)")
     if rec.policy.quantize_activations:
         if calib_batches is None:
             calib_batches = synth_calib_batches(cfg, rec.calib)
@@ -410,14 +418,15 @@ def abstract_quantize(arch_or_cfg, params_abs=None,
 # ---------------------------------------------------------------------------
 
 # The JAX package's ArchConfig fields the port's lacks, with their JAX
-# defaults.  FUNCTION_FIELDS change what the model computes: a value other
-# than the default names a model the port cannot run, and loading it
-# raises.  EXECUTION_FIELDS only steer how JAX executes (scans, remat,
-# sharding) and are dropped.
+# defaults.  FUNCTION_FIELDS change what the model computes (whisper's
+# encoder, layer norms, bf16 attention dots) or may one day
+# (``block_pattern``, which no JAX model reads): a value other than the
+# default names a model the port cannot run, and loading it raises.
+# EXECUTION_FIELDS only steer how JAX executes (scans, remat, sharding)
+# and are dropped.
 FUNCTION_FIELDS = {
-    "norm": "rms", "block_pattern": (), "lru_width": 0, "conv1d_width": 4,
-    "rwkv_head_dim": 64, "n_enc_layers": 0, "n_audio_ctx": 1500,
-    "attn_bf16_mm": False,
+    "norm": "rms", "block_pattern": (), "n_enc_layers": 0,
+    "n_audio_ctx": 1500, "attn_bf16_mm": False,
 }
 EXECUTION_FIELDS = {"causal_skip": False, "act_sharding": "",
                     "remat_policy": "full"}

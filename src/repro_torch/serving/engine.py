@@ -3,13 +3,18 @@
 ``mesh=``).
 
 Slot-based: a fixed decode batch of ``max_batch`` slots, each holding one
-request's KV cache rows.  Waiting requests are admitted into free slots by
-one ragged prefill per group (prompts right-padded to a power-of-two
-length, at least 8, at most ``max_len``); every :meth:`Engine.step`
-decodes one token for all live slots, and a finished request frees its
-slot at once.  Admission runs on the shared scheduler core in admission
-mode: with the default ``max_delay_ms=0.0`` waiting requests are admitted
-whenever a slot is free; a positive delay coalesces prefills.
+request's KV cache rows (or recurrent state).  Waiting requests are
+admitted into free slots by one ragged prefill per group (prompts
+right-padded to a power-of-two length, at least 8, at most ``max_len``)
+where the model takes per-row lengths (``RAGGED_PREFILL``); a recurrent
+family's state must not see padding, so its candidates are bucketed by
+exact prompt length, one bucket a pass, the rest admitted on the next
+pass, each prefilled unpadded and without ``lengths``.  Every
+:meth:`Engine.step` decodes one token for all live slots, and a
+finished request frees its slot at once.  Admission runs on the shared
+scheduler core in admission mode: with the default ``max_delay_ms=0.0``
+waiting requests are admitted whenever a slot is free; a positive delay
+coalesces prefills.
 
 Device-resident decode: the pending-token vector, per-slot temperatures,
 the output buffer, the emitted counts and a sticky per-slot non-finite
@@ -78,6 +83,19 @@ from .scheduler import TIMED_OUT, FlushPolicy, Handle, OverloadPolicy, \
     Scheduler
 
 
+def write_slots(cache: dict, slots: List[int], group_cache: dict) -> None:
+    """Copy an (n, ...) prefill cache into ``cache``'s slots, in place (the
+    batch axis is 1 for the stacked (L, B, ...) rows and states)."""
+    idx = torch.as_tensor(slots, dtype=torch.int64,
+                          device=cache["lengths"].device)
+    for name, dst in cache.items():
+        src = group_cache[name]
+        if dst.ndim == 1:  # lengths (B,)
+            dst[idx] = src
+        else:
+            dst[:, idx] = src
+
+
 @dataclasses.dataclass
 class Request:
     uid: int
@@ -123,10 +141,7 @@ class Engine:
                 "(coalesce prefills), not None")
         self.cfg = cfg
         self.model = get_model(cfg)
-        if not getattr(self.model, "RAGGED_PREFILL", False):
-            raise NotImplementedError(
-                f"{cfg.family!r}: exact-length prefill buckets (recurrent "
-                "families) are not ported")
+        self._ragged = bool(getattr(self.model, "RAGGED_PREFILL", False))
         self.params = params
         self.device = device_of(params)
         self.B = max_batch
@@ -271,17 +286,6 @@ class Engine:
             bad |= ~rows.all(dim=1)
         return bad
 
-    def _write_slots(self, slots: List[int], group_cache: dict) -> None:
-        """Copy an (n, ...) prefill cache into the engine cache's slots
-        (the batch axis is 1 for the stacked (L, B, ...) rows)."""
-        idx = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
-        for name, dst in self.cache.items():
-            src = group_cache[name]
-            if dst.ndim == 1:  # lengths (B,)
-                dst[idx] = src
-            else:
-                dst[:, idx] = src
-
     # -- admission -----------------------------------------------------------
     def _admit(self) -> None:
         # free slots and the due-check are recomputed on every pass: a
@@ -296,8 +300,15 @@ class Engine:
             reason = self.scheduler.due()
             if reason is None:
                 return
-            group = self.scheduler.pop(self.scheduler.peek(len(free)),
-                                       reason)
+            cands = self.scheduler.peek(len(free))
+            if not self._ragged:
+                # exact-length bucket: recurrent states must not see
+                # padding; one bucket a pass, the rest re-enter next pass
+                by_len = {}
+                for h in cands:
+                    by_len.setdefault(len(h.payload.prompt), []).append(h)
+                cands = next(iter(by_len.values()), [])
+            group = self.scheduler.pop(cands, reason)
             if not group:
                 continue  # whole group cancelled/expired while queued
             try:
@@ -363,9 +374,11 @@ class Engine:
     def _prefill_group(self, gslots: List[int], handles: List[Handle]):
         greqs = [h.payload for h in handles]
         lens = np.asarray([len(r.prompt) for r in greqs], np.int32)
-        # a power-of-two padded length (8..max_len) bounds the distinct
-        # prefill shapes; lengths mask the pad columns
-        pmax = pow2_bucket(int(lens.max()), 8, self.T)
+        pmax = int(lens.max())
+        if self._ragged:
+            # a power-of-two padded length (8..max_len) bounds the
+            # distinct prefill shapes; lengths mask the pad columns
+            pmax = pow2_bucket(pmax, 8, self.T)
         toks = np.zeros((len(greqs), pmax), np.int64)
         for i, r in enumerate(greqs):
             toks[i, : len(r.prompt)] = r.prompt
@@ -378,15 +391,16 @@ class Engine:
                if self.faults is not None else None)
         if act is not None:
             act.fire()  # raises and delays land before any state changes
+        kw = ({"lengths": torch.from_numpy(lens).to(dev)} if self._ragged
+              else {})
         logits, sc = self.model.prefill(
-            self.cfg, self.params, sc, torch.from_numpy(toks).to(dev),
-            lengths=torch.from_numpy(lens).to(dev))
+            self.cfg, self.params, sc, torch.from_numpy(toks).to(dev), **kw)
         first = self._sample(logits[:, -1], temps,
                              draw=any(t > 0 for t in temps_h))
         bad = self._row_nonfinite(logits[:, -1])
         if act is not None and act.poison:
             bad[0] = True  # the group's first request fails alone
-        self._write_slots(gslots, sc)
+        write_slots(self.cache, gslots, sc)
         idx = torch.as_tensor(gslots, dtype=torch.int64, device=dev)
         self._pending[idx] = first
         self._temps[idx] = temps

@@ -325,15 +325,15 @@ def test_cfg_json_equals_the_jax_packages(name):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("norm", "layer"), ("lru_width", 256), ("attn_bf16_mm", True),
-    ("block_pattern", ["rec", "attn"]), ("family", "rwkv"),
+    ("norm", "layer"), ("n_enc_layers", 32), ("attn_bf16_mm", True),
+    ("block_pattern", ["rec", "attn"]), ("family", "whisper"),
     ("from_the_future", 1)])
 def test_cfg_guard_raises_on_what_changes_the_function(field, value):
     d = json.loads(json.dumps(jr._cfg_to_json(
         JARCHS["qwen1.5-0.5b"])))
     d[field] = value
     with pytest.raises(tr.UnsupportedConfigError, match=field if field !=
-                       "family" else "rwkv"):
+                       "family" else "whisper"):
         tr._cfg_from_json(d)
 
 

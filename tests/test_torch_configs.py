@@ -1,6 +1,6 @@
-"""The port's EfficientViT, dense-LM and MoE-LM configurations equal the
-JAX package's, field for field (the port's ArchConfig carries the vision,
-dense-LM and MoE-LM subset of the fields)."""
+"""The port's EfficientViT, dense-LM, MoE-LM and recurrent configurations
+equal the JAX package's, field for field (the port's ArchConfig carries
+the vision, dense-LM, MoE-LM and recurrent subset of the fields)."""
 import dataclasses
 
 import pytest
@@ -11,7 +11,8 @@ from repro_torch.configs import registry as treg
 NAMES = ["efficientvit-b1-r224", "efficientvit-b2-r224",
          "efficientvit-b1-r256", "efficientvit-b1-r288", "qwen1.5-0.5b",
          "qwen3-14b", "granite-3-8b", "minitron-4b", "internvl2-2b",
-         "llama4-scout-17b-a16e", "dbrx-132b"]
+         "llama4-scout-17b-a16e", "dbrx-132b", "rwkv6-3b",
+         "recurrentgemma-9b"]
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -25,7 +26,8 @@ def test_config_equals_jax(name):
                                   "efficientvit-b2-r224", "qwen1.5-0.5b",
                                   "qwen3-14b", "granite-3-8b",
                                   "minitron-4b", "internvl2-2b",
-                                  "llama4-scout-17b-a16e", "dbrx-132b"])
+                                  "llama4-scout-17b-a16e", "dbrx-132b",
+                                  "rwkv6-3b", "recurrentgemma-9b"])
 def test_reduced_config_equals_jax(name):
     ours, theirs = treg.REDUCED[name], jreg.REDUCED[name]
     for f in dataclasses.fields(ours):

@@ -1687,3 +1687,54 @@ def test_moe_case_at_reduced_width(cuda, name, tmp_path):
         artifacts=tmp_path)
     assert problems == [] and chip_smoke.leaf_problems(qm, mixed=True) == []
     assert res["served_tokens_max"] < cfg.vocab_size
+
+
+# ---------------------------------------------------------------------------
+# The recurrent LMs (rwkv6-3b, recurrentgemma-9b): int4_matmul at their
+# lm_heads, m2q_matmul at the mixed rwkv's shapes, chip_smoke's phase 12
+# at REDUCED width.
+# ---------------------------------------------------------------------------
+
+RECURRENT = [(n, ARCHS[n]) for n in ("rwkv6-3b", "recurrentgemma-9b")]
+
+
+@pytest.mark.parametrize("name,cfg", RECURRENT, ids=[n for n, _ in RECURRENT])
+def test_int4_kernel_at_the_recurrent_lm_heads(cuda, name, cfg):
+    """rwkv6-3b's (8, 2560, 65536) and recurrentgemma-9b's (8, 4096,
+    256000) lm_heads on the narrow plan, within the f32 summation
+    bound."""
+    test_int4_kernel_at_the_pool_lm_heads(cuda, name, cfg)
+
+
+RWKV_M2Q_SHAPES = sorted({c[1:] for calls in chip_smoke.rwkv_m2q_calls(
+    ARCHS["rwkv6-3b"].replace(n_layers=1), chip_smoke.TOKEN_BATCH,
+    (2, chip_smoke.RECURRENT_LENGTHS[-1]), "rwkv6-3b mixed").values()
+    for c in calls})
+
+
+@pytest.mark.parametrize("M,K,N", RWKV_M2Q_SHAPES)
+def test_m2q_kernel_equals_plain_at_rwkvs_mixed_shapes(cuda, M, K, N):
+    """rwkv6-3b at 64 tokens a step: its seven mixed layer slices at the
+    decode step (M 8) and a prefill group of 2 x 64 tokens, and its
+    lm_head (M 8 and 2, K 2560, N 65536), bit for bit."""
+    test_m2q_kernel_equals_plain_at_the_mixed_lm_shapes(cuda, M, K, N)
+
+
+@pytest.mark.parametrize("name,kind", [
+    (name, kind) for name, _, kind in chip_smoke.RECURRENT_CASES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recurrent_case_at_reduced_width(cuda, name, kind, dtype):
+    """chip_smoke's phase 12 case on the card at REDUCED width (f32, and
+    bf16 activations): three exact-length prefill groups, graph tokens
+    equal eager, launches as the tree routes them, teacher-forced logits
+    within the bound of the plain versions' and of the forward's;
+    recurrentgemma also a request past its window of 8 that wraps the
+    ring inside the decode graph."""
+    from repro_torch.configs.registry import REDUCED
+    cfg = REDUCED[name].replace(dtype=dtype)
+    res, problems, _ = chip_smoke.recurrent_case(
+        torch, cfg, kind, device="cuda", max_new=6,
+        window_prompt=cfg.window + 3 if cfg.window else None)
+    assert problems == []
+    assert res["served_tokens_max"] < cfg.vocab_size
+    assert res["prefill_groups"] == len(chip_smoke.RECURRENT_LENGTHS)
