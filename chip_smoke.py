@@ -194,8 +194,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    int4_matmul once a step and a prefill group), teacher-forced kernel
    logits within 5e-2 of max |logit| of ``reference_path()``'s; prints
    init and quantize seconds, peak allocated bytes, the graphed decode
-   step with its torch.profiler trace (busy ms, the costliest kernels)
-   and tokens/s; (c) internvl2-2b's stub frontend: a prefill of 256
+   step (qwen3-14b's also with its torch.profiler trace: busy ms, the
+   costliest kernels) and tokens/s; (c) internvl2-2b's stub frontend: a prefill of 256
    patch embeddings ahead of 4 prompts, then 8 decode steps, kernels
    against plain versions within the same bound; (b) minitron-4b again
    at 64 tokens a step, the mixed LM with its relu2 group (161
@@ -242,8 +242,28 @@ Phases, each fatal on failure (nonzero exit, no result line):
    2048-row ring wraps during decode; its eager prefill timed alone),
    and its full-depth 4-bit tree bytes from ``abstract_quantize``.
    Prints peaks, init / quantize seconds, the graphed decode step (and,
-   as phases 10-11 do, a torch.profiler trace of it: busy ms, kernels a
-   step, the six costliest kernels) and tokens/s beside the card.
+   as phase 11 does, a torch.profiler trace of it: busy ms, kernels a
+   step, the six costliest kernels; not the window request's) and
+   tokens/s beside the card.
+
+13. whisper -- whisper-large-v3 at its published width and depth (32
+   encoder + 32 decoder layers, d 1280, 20 heads of 64, vocab 51866 ->
+   51968, 1500 frames) under w4-weights-only (a calibrating recipe fails
+   in the reference), through ``whisper_case``: ``init`` on the card
+   (seed 0), ``quantize(..., release=True)``, every leaf 4-bit, the
+   artifact saved and loaded bit for bit, then 8 greedy prompts of 16
+   tokens over seeded (8, 1500, 1280) frames through the model's own
+   ``prefill(..., frames=)`` and 32 ``decode_step`` calls, eagerly and
+   with the step in a CUDA graph (tokens equal; the token Engine
+   prefills without frames, so it fails a whisper request in both
+   packages); the decode logits within 5e-2 of max |logit| of the
+   teacher-forced ``forward(tokens, frames=)``, no id >= vocab, no kernel
+   launched (no whisper leaf reaches one, as in the reference) and no
+   plain call.  Prints peaks, quantize / save / load seconds and the
+   artifact's bytes, ``encode`` ms at batch 8, prefill seconds, the
+   decode step eager and graphed, tokens/s both ways, one traced step
+   and its split into the dequantize chain, self attention and cross
+   attention (``whisper_split_ms``).
 
 It then prints the card's name and power limit again, one JSON line with
 every kernel's numbers and, last, the ``{"ok": true, "device": ...}``
@@ -2772,6 +2792,9 @@ POOL_PREFIX_STEPS = 8
 # one prefill group of the pool's traffic: 8 prompts of 8-64 tokens,
 # padded to 64
 POOL_PREFILL_LEN = 64
+# the pool case whose decode step is traced (the others are graph-timed
+# only): the largest, whose breakdown PERF.md cites
+TRACED_POOL = (("qwen3-14b", "decode"),)
 
 
 def pool_requests(cfg, n: int = POOL_REQUESTS):
@@ -2873,7 +2896,7 @@ def pool_quantize(torch, cfg, kind: str, device="cuda"):
 def pool_serve(torch, qm, device="cuda",
                requests: int = POOL_REQUESTS, max_new: int = POOL_NEW,
                max_len: int = TOKEN_MAX_LEN, prompts=None,
-               max_batch: int = TOKEN_BATCH):
+               max_batch: int = TOKEN_BATCH, trace: bool = True):
     """Serve ``requests`` greedy requests of ``max_new`` tokens
     (``prompts``, or :func:`pool_requests`') through the token Engine
     (``max_batch`` 8; an int8 KV cache where the config has one),
@@ -2891,8 +2914,9 @@ def pool_serve(torch, qm, device="cuda",
     that; for a model without ``RAGGED_PREFILL`` (the recurrent
     families, whose prefill and decode carry a state), those logits also
     within the bound of the model's eager ``forward`` over prompt +
-    forced tokens at the same positions.  Returns (figures, problems,
-    kernel launches)."""
+    forced tokens at the same positions.  On the card the batch-8 decode
+    step is graph-timed, and with ``trace`` traced by torch.profiler.
+    Returns (figures, problems, kernel launches)."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.kernels import ops
@@ -2999,9 +3023,10 @@ def pool_serve(torch, qm, device="cuda",
             res["decode_step_graph_ms"] = graph_ms(
                 lambda: qm.model.decode_step(cfg, qm.params, cache, tok),
                 iters=2, reps=3)
-            res["decode_step_trace"] = device_profile(
-                lambda: qm.model.decode_step(cfg, qm.params, cache, tok),
-                iters=2, top=6)
+            if trace:
+                res["decode_step_trace"] = device_profile(
+                    lambda: qm.model.decode_step(cfg, qm.params, cache,
+                                                 tok), iters=2, top=6)
         res["decode_lengths"] = cache["lengths"].tolist()
     res["peak_bytes_serving"] = _sync_peak(torch, device, reset=True)
     return res, problems, launches
@@ -3102,7 +3127,8 @@ def run_lm_pool(torch, out_dir, card) -> Counter:
         problems = [f"{r.path} is not 4-bit at the decode shape"
                     for r in qm.report if kind == "decode"
                     and (r.decision != "lowbit" or r.bits != 4.0)]
-        served, more, launches = pool_serve(torch, qm)
+        served, more, launches = pool_serve(
+            torch, qm, trace=(name, kind) in TRACED_POOL)
         problems += more
         res.update(served)
         total.update(launches)
@@ -3361,7 +3387,8 @@ def recurrent_case(torch, cfg, kind, device="cuda",
         prefill_s = time.perf_counter() - t0
         del cache
         w, more, wlaunch = pool_serve(torch, qm, device, 1, max_new, wl,
-                                      prompts=prompt, max_batch=1)
+                                      prompts=prompt, max_batch=1,
+                                      trace=False)
         w.update(prompt_tokens=window_prompt, max_len=wl,
                  ring_rows=min(cfg.window, wl), eager_prefill_s=prefill_s)
         res["window"] = w
@@ -3411,6 +3438,268 @@ def run_recurrent(torch, out_dir, card) -> Counter:
     (out_dir / "chip_smoke_recurrent.json").write_text(
         json.dumps(out, indent=1))
     return total
+
+
+# ---- phase 13: the encoder-decoder (whisper) --------------------------------
+# whisper-large-v3 at its published width and depth (32 encoder and 32
+# decoder layers, d 1280, 20 heads of 64, vocab 51866 -> 51968, 1500
+# frames; 1.58 B parameters, 6.31 GB f32) under w4-weights-only (a
+# calibrating recipe fails in the reference: its encode scans the wrapped
+# encoder leaves).  The token Engine prefills without frames, so it
+# fails a whisper request in both packages; the model's own prefill /
+# decode_step serve it here.
+WHISPER = "whisper-large-v3"
+WHISPER_BATCH = 8
+WHISPER_PROMPT = 16
+WHISPER_STEPS = 32
+WHISPER_MAX_LEN = 64
+
+
+def whisper_inputs(torch, cfg, batch: int, prompt_len: int, device):
+    """(frames (batch, n_audio_ctx, d_model) standard normal, prompts
+    (batch, prompt_len) int64), from numpy's generator seeded with 0."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    frames = rng.standard_normal((batch, cfg.n_audio_ctx, cfg.d_model),
+                                 dtype=np.float32)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
+    return (torch.from_numpy(frames).to(device),
+            torch.from_numpy(prompts).to(device))
+
+
+def whisper_greedy(torch, cfg, params, frames, prompts, steps: int,
+                   max_len: int, graphs: bool, cache_dtype=None):
+    """``prefill(..., frames=)`` of the prompts, then ``steps`` greedy
+    ``decode_step`` calls (argmax over the first ``vocab_size`` logits,
+    as the token Engine takes them), eagerly or -- ``graphs`` on the card
+    -- each step a replay of one CUDA graph that writes the cache in
+    place, advances ``lengths`` and feeds its argmax back, with no host
+    read between steps.  Returns (tokens (B, 1 + steps), logits (B, 1 +
+    steps, vocab_size) f32, {prefill_s, decode_s, pass_s[, capture_s]});
+    the cache holds ``cache_dtype`` rows (None: bf16, JAX's default)."""
+    from repro_torch.models import whisper
+    on_card = frames.device.type == "cuda"
+    V = cfg.vocab_size
+    res = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cache = whisper.init_cache(cfg, prompts.shape[0], max_len,
+                               dtype=cache_dtype or torch.bfloat16,
+                               device=frames.device)
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg, cache = whisper.prefill(cfg, params, cache, prompts,
+                                    frames=frames)
+        lgv = lg[:, -1, :V].float()
+        tok = lgv.argmax(-1)[:, None]
+        sync()
+        res["prefill_s"] = time.perf_counter() - t0
+        logits, toks = [lgv], [tok]
+        t1 = time.perf_counter()
+        if graphs and on_card:
+            static_tok = tok.clone()
+            lengths = cache["lengths"].clone()
+
+            def step():
+                out, new = whisper.decode_step(cfg, params, cache,
+                                               static_tok)
+                cache["lengths"].copy_(new["lengths"])
+                v = out[:, -1, :V].float()
+                static_tok.copy_(v.argmax(-1)[:, None])
+                return v
+
+            graph, static_lg = capture(step)
+            # the warm-ups advanced the state: back to the prefill's
+            cache["lengths"].copy_(lengths)
+            static_tok.copy_(tok)
+            sync()
+            res["capture_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            for _ in range(steps):
+                graph.replay()
+                logits.append(static_lg.clone())
+                toks.append(static_tok.clone())
+        else:
+            for _ in range(steps):
+                out, cache = whisper.decode_step(cfg, params, cache, tok)
+                lgv = out[:, -1, :V].float()
+                tok = lgv.argmax(-1)[:, None]
+                logits.append(lgv)
+                toks.append(tok)
+        sync()
+    res["decode_s"] = time.perf_counter() - t1
+    res["pass_s"] = res["prefill_s"] + res["decode_s"]
+    return torch.cat(toks, 1), torch.stack(logits, 1), res
+
+
+def whisper_split_ms(torch, qm, frames, max_len: int) -> dict:
+    """The graphed device ms of what one batch-8 decode step repeats in
+    every decoder layer, times the layer count: the dequantize chain (each
+    stacked decoder leaf's layer slice, plus the tied head's whole
+    embedding once), self attention over ``max_len`` cache rows and cross
+    attention over the ``n_audio_ctx`` memory rows."""
+    from repro_torch import nn
+    from repro_torch.core.qtensor import slice_layer
+    cfg, L = qm.cfg, qm.cfg.n_layers
+    B = frames.shape[0]
+    deq = sum(graph_ms(lambda: slice_layer(_get(qm.params, r.path),
+                                           0).dequant(torch.bfloat16),
+                       iters=5, reps=3)
+              for r in qm.report if r.path.startswith("dec_layers/"))
+    emb = graph_ms(lambda: qm.params["embed"].dequant(torch.bfloat16),
+                   iters=5, reps=3)
+    gen = torch.Generator(device=frames.device).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=frames.device,
+                           dtype=torch.bfloat16)
+    q = rand(B, 1, cfg.n_heads, cfg.head_dim)
+    k, v = (rand(B, max_len, cfg.n_kv_heads, cfg.head_dim) for _ in "kv")
+    xk, xv = (rand(B, cfg.n_audio_ctx, cfg.n_kv_heads, cfg.head_dim)
+              for _ in "kv")
+    lengths = torch.full((B,), WHISPER_PROMPT + WHISPER_STEPS,
+                         dtype=torch.int32, device=frames.device)
+    full = torch.full((B,), cfg.n_audio_ctx, dtype=torch.int32,
+                      device=frames.device)
+    return {"dequantize_ms": L * deq + emb, "embed_dequantize_ms": emb,
+            "self_attention_ms": L * graph_ms(
+                lambda: nn.decode_attention(q, k, v, lengths), iters=5,
+                reps=3),
+            "cross_attention_ms": L * graph_ms(
+                lambda: nn.decode_attention(q, xk, xv, full), iters=5,
+                reps=3)}
+
+
+def whisper_case(torch, cfg, device="cuda", batch: int = WHISPER_BATCH,
+                 prompt_len: int = WHISPER_PROMPT,
+                 steps: int = WHISPER_STEPS,
+                 max_len: int = WHISPER_MAX_LEN, artifacts: Path = ARTIFACTS):
+    """whisper on ``device``: :func:`pool_quantize` under
+    w4-weights-only (``init`` seed 0, the float tree released leaf by
+    leaf; every leaf held to 4-bit), the artifact saved and loaded
+    (:func:`round_trip`: bit-identical), then :func:`whisper_greedy` of
+    ``batch`` prompts of ``prompt_len`` tokens over seeded frames, once
+    eagerly and once from a CUDA graph of the decode step (on the CPU
+    eagerly again): graph tokens equal eager tokens, no id >= vocab, the
+    decode logits within TEACHER_FORCED_BOUND of max |logit| of the eager
+    teacher-forced ``forward(tokens, frames=)``, and the kernel launches
+    what :func:`tree_launches` counts for the tree (none: no whisper leaf
+    reaches a kernel) with 0 plain calls.  On the card also times
+    ``encode`` and the decode step (eager and graphed), traces one step
+    and splits it (:func:`whisper_split_ms`).  Returns (figures,
+    problems)."""
+    from repro_torch import kernels
+    from repro_torch.launch.daemon import TEACHER_FORCED_BOUND
+    from repro_torch.models import whisper
+    on_card = torch.device(device).type == "cuda"
+    qm, res = pool_quantize(torch, cfg, "w4-weights-only", device)
+    problems = leaf_problems(qm, mixed=False)
+    res["quantized_bytes"] = tree_bytes(qm.params)
+    loaded, res["artifact"] = round_trip(torch, qm, cfg.name, device,
+                                         artifacts)
+    del qm
+    qm = loaded
+    frames, prompts = whisper_inputs(torch, cfg, batch, prompt_len, device)
+    runs = {}
+    for mode, graphs in (("eager", False), ("graph", True)):
+        kernels.reset_counts()
+        toks, logits, figs = whisper_greedy(torch, cfg, qm.params, frames,
+                                            prompts, steps, max_len, graphs)
+        counts = {k: c for k, c in kernels.counts().items()
+                  if c["launches"] or c["plain_calls"]}
+        want = tree_launches(qm, steps, 1)
+        if {k: c["launches"] for k, c in counts.items()} != dict(want) \
+                or any(c["plain_calls"] for c in counts.values()):
+            problems.append(f"{mode}: kernel counts {counts}, expected "
+                            f"launches {dict(want)} and no plain call")
+        runs[mode] = toks, logits
+        figs["tokens_per_s"] = toks.numel() / figs["pass_s"]
+        res[mode] = figs
+    res["peak_bytes_serving"] = _sync_peak(torch, device, reset=True)
+    toks, logits = runs["eager"]
+    if not torch.equal(runs["graph"][0], toks):
+        problems.append("graph tokens differ from the eager ones")
+    res["served_tokens_max"] = int(toks.max())
+    if res["served_tokens_max"] >= cfg.vocab_size:
+        problems.append(f"token {res['served_tokens_max']} >= vocab "
+                        f"{cfg.vocab_size}")
+    with torch.no_grad():
+        full = torch.cat([prompts, toks[:, :steps]], 1)
+        fw = whisper.forward(cfg, qm.params, full, frames=frames)
+        fw = fw[:, prompt_len - 1:, :cfg.vocab_size].float()
+    diff, top = float((logits - fw).abs().max()), float(fw.abs().max())
+    bound = TEACHER_FORCED_BOUND * top
+    res.update(forward_max_abs_diff=diff, forward_logits_max_abs=top,
+               forward_bound=bound,
+               graph_max_abs_diff=float((runs["graph"][1] - logits)
+                                        .abs().max()),
+               same_argmax=float((fw.argmax(-1) == toks).float().mean()))
+    del fw, runs
+    if not diff <= bound:
+        problems.append(f"decode logits differ from the teacher-forced "
+                        f"forward's by {diff} (bound {bound})")
+    if on_card:
+        params = qm.params
+        with torch.no_grad():
+            res["encode_ms"] = cuda_ms(
+                lambda: whisper.encode(cfg, params, frames), iters=3,
+                warmup=1)
+            cache = whisper.init_cache(cfg, batch, max_len, device=device)
+            _, cache = whisper.prefill(cfg, params, cache, prompts,
+                                       frames=frames)
+            cache["lengths"] += steps
+            tok = toks[:, -1:].clone()
+
+            def step():
+                return whisper.decode_step(cfg, params, cache, tok)
+            res["decode_step_eager_ms"] = cuda_ms(step, iters=5, warmup=1)
+            res["decode_step_graph_ms"] = graph_ms(step, iters=2, reps=3)
+            res["decode_step_trace"] = device_profile(step, iters=2, top=6)
+            res["decode_step_split_ms"] = whisper_split_ms(
+                torch, qm, frames, max_len)
+            del cache
+        res["cross_cache_bytes"] = 2 * cfg.n_layers * batch \
+            * cfg.n_audio_ctx * cfg.kv_dim * 2
+    return res, problems
+
+
+def run_whisper(torch, out_dir, card) -> Counter:
+    """Phase 13: :func:`whisper_case` of whisper-large-v3 at its published
+    width and depth on the card, beside the full 4-bit tree's bytes from
+    ``abstract_quantize``; any problem fails the run.  Returns the kernel
+    launches (none)."""
+    from repro_torch import kernels, recipe
+    from repro_torch.configs.registry import ARCHS
+    t0 = time.perf_counter()
+    gc.collect()  # what earlier phases left: their peaks are not ours
+    torch.cuda.empty_cache()
+    out = {"allocated_at_start": torch.cuda.memory_allocated()}
+    cfg = ARCHS[WHISPER]
+    kernels.reset_counts()
+    res, problems = whisper_case(torch, cfg)
+    launches = Counter({k: c["launches"]
+                        for k, c in kernels.counts().items()})
+    res["layers"] = f"{cfg.n_enc_layers} + {cfg.n_layers}"
+    res["abstract_4bit_bytes"] = tree_bytes(recipe.abstract_quantize(
+        WHISPER, recipe="w4-weights-only"))
+    if res["abstract_4bit_bytes"] != res["quantized_bytes"]:
+        problems.append(f"the 4-bit tree holds {res['quantized_bytes']} "
+                        f"bytes, its shape-only twin "
+                        f"{res['abstract_4bit_bytes']}")
+    out[WHISPER] = res
+    print(f"phase 13 {WHISPER}:", json.dumps(res), flush=True)
+    if problems:
+        fail(f"phase 13 {WHISPER}: " + "; ".join(problems)[:2000])
+    out["phase_s"] = time.perf_counter() - t0
+    out["card"] = card
+    print(f"phase 13: {out['phase_s']:.1f} s; {card}", flush=True)
+    (out_dir / "chip_smoke_whisper.json").write_text(
+        json.dumps(out, indent=1))
+    return launches
 
 
 def main() -> None:
@@ -3531,6 +3820,9 @@ def main() -> None:
 
         # ---- 12. the recurrent LMs, each pass from zeroed counters --------
         launches.update(run_recurrent(torch, out_dir, card))
+
+        # ---- 13. whisper, from zeroed counters ------------------------------
+        launches.update(run_whisper(torch, out_dir, card))
     finally:
         import shutil
         shutil.rmtree(ARTIFACTS, ignore_errors=True)

@@ -1,2 +1,2 @@
 """Model configurations (EfficientViT-B1 and B2; the dense, MoE and
-recurrent LMs)."""
+recurrent LMs; whisper)."""

@@ -1,8 +1,9 @@
-"""Architecture config (the vision, dense-LM, MoE-LM and recurrent
-subset of ``repro.models.config``'s ``ArchConfig``, the VLM stub
-frontend's ``n_patches`` included; the whisper and sharding fields come
-with those, and ``block_pattern`` never: JAX's recurrentgemma takes its
-pattern from the layer index and never reads it)."""
+"""Architecture config (the vision, dense-LM, MoE-LM, recurrent and
+encoder-decoder subset of ``repro.models.config``'s ``ArchConfig``, the
+VLM stub frontend's ``n_patches`` included; the sharding and execution
+fields come with those, and ``block_pattern`` never: JAX's
+recurrentgemma takes its pattern from the layer index and never reads
+it)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,7 +17,8 @@ def round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # dense_lm | moe_lm | rwkv | recurrentgemma | efficientvit
+    family: str  # dense_lm | moe_lm | rwkv | recurrentgemma | whisper |
+                 # efficientvit
     n_layers: int
     d_model: int
     # language models
@@ -29,6 +31,7 @@ class ArchConfig:
     qk_norm: bool = False
     ffn: str = "swiglu"  # swiglu | relu2
     rope_theta: float = 10000.0
+    norm: str = "rms"  # rms | layer
     # MoE (moe_lm): experts per layer, experts a token takes, the expert
     # FFN width (0: d_ff), a shared SwiGLU expert beside them, and the
     # dispatch buffer's capacity factor
@@ -44,6 +47,10 @@ class ArchConfig:
     conv1d_width: int = 4
     # rwkv: the time-mix head width
     rwkv_head_dim: int = 64
+    # encoder-decoder (whisper): n_layers = decoder layers; the encoder's
+    # layers (0: n_layers) and its frames
+    n_enc_layers: int = 0
+    n_audio_ctx: int = 1500
     kv_cache_dtype: str = "bf16"  # bf16 | int8 (per-row scales, integer
                                   # decode attention)
     # vlm stub frontend: patch embeddings prepended to the tokens

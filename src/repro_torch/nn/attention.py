@@ -62,9 +62,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q (B, S, Hq, D), k/v (B, T, Hkv, D) -> (B, S, Hq, D) in q's dtype.
 
     JAX chunks this into an online softmax so 32k-token prefills never
-    hold an (S, T) score matrix; the port's token path prefills at most
-    ``max_len`` tokens, so one pass over the whole score matrix computes
-    the same function (up to f32 summation order)."""
+    hold an (S, T) score matrix; the port computes the same function (up
+    to f32 summation order) in one pass over the whole f32 score matrix
+    (B, Hkv, G, S, T), as large as the caller's shapes make it: a token
+    prefill's at most ``max_len`` x ``max_len`` a head, whisper's encoder
+    1500 x 1500 a head (1.44 GB a layer at batch 8 and 20 heads), its
+    cross attention S x 1500."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv

@@ -1,5 +1,6 @@
 """Layer primitives (twin of ``repro.nn.layers``): initializers, dense,
-embedding gathers, norms, activations, and NHWC convolutions.
+embedding gathers and the tied head, norms, activations, and NHWC
+convolutions.
 
 Every weight consumer dispatches on the leaf type: a float tensor runs the
 float op, a :class:`CalibTensor` records its input's max-abs first, and a
@@ -86,6 +87,20 @@ def dense(x: torch.Tensor, w, b=None) -> torch.Tensor:
     return y
 
 
+def tied_head(x: torch.Tensor, table) -> torch.Tensor:
+    """Logits through the embedding table, ``x @ table.T`` (whisper's
+    tied head); a quantized table is dequantized to ``x``'s dtype, a
+    CalibTensor records ``x`` first."""
+    if isinstance(table, CalibTensor):
+        table.record(x)
+        w = table.w
+    elif is_qtensor(table):
+        w = table.dequant(x.dtype)
+    else:
+        w = table
+    return x @ w.T.to(x.dtype)
+
+
 def embed(ids: torch.Tensor, table) -> torch.Tensor:
     """Rows of ``table`` (float, CalibTensor, or an axis-0 QUniform whose
     packed rows are gathered before they are dequantized)."""
@@ -104,6 +119,18 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return (y * gamma.to(torch.float32)).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Mean and (biased) variance over the last axis in f32, cast back to
+    ``x``'s dtype after the affine map."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.to(torch.float32)
+            + beta.to(torch.float32)).to(x.dtype)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
@@ -117,6 +144,11 @@ def swiglu(x: torch.Tensor, w1, w3, w2, b1=None, b3=None,
            b2=None) -> torch.Tensor:
     """SwiGLU FFN: ``(silu(x @ w1) * (x @ w3)) @ w2``."""
     return dense(silu(dense(x, w1, b1)) * dense(x, w3, b3), w2, b2)
+
+
+def geglu(x: torch.Tensor, w1, w3, w2) -> torch.Tensor:
+    """GeGLU FFN: ``(gelu(x @ w1) * (x @ w3)) @ w2``."""
+    return dense(gelu(dense(x, w1)) * dense(x, w3), w2)
 
 
 def _float_conv(x, w, stride: int, groups: int, padding: str):

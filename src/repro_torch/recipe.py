@@ -48,6 +48,19 @@ from .models.config import ArchConfig
 # families whose calibration inputs quantize() can synthesize on its own
 _TOKEN_FAMILIES = ("dense_lm", "moe_lm", "rwkv", "recurrentgemma")
 
+# families whose forward the reference's calibration cannot run (JAX
+# runs it unjitted and unrolled, with CalibTensor leaves), and why
+_UNCALIBRATABLE = {
+    "recurrentgemma": "its forward reshapes the stacked 'rec' leaves into "
+                      "(rec, rec, attn) groups, and JAX's calibration "
+                      "forward raises AttributeError: 'CalibTensor' object "
+                      "has no attribute 'reshape'",
+    "whisper": "its encode runs jax.lax.scan over the stacked enc_layers "
+               "(unroll reaches only the decoder), and JAX's calibration "
+               "forward raises TypeError: a CalibTensor is not a valid JAX "
+               "type",
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class CalibSpec:
@@ -241,14 +254,19 @@ class QuantizedModel:
     def device(self) -> torch.device:
         return device_of(self.params)
 
-    def forward(self, inputs, attn: Optional[str] = None) -> torch.Tensor:
+    def forward(self, inputs, attn: Optional[str] = None,
+                **kw) -> torch.Tensor:
         """One forward pass, tensor or numpy inputs: images (B, res, res,
         3) -> logits, ``attn`` the MSA token mixer; or tokens (B, S) ->
-        (B, S, padded_vocab) logits."""
+        (B, S, padded_vocab) logits, ``kw`` the model's own inputs as
+        JAX's ``forward`` passes them (whisper's ``frames=`` / ``memory=``,
+        internvl2's ``prefix_embeds=``)."""
         x = torch.as_tensor(inputs, device=self.device)
+        kw = {k: None if v is None else torch.as_tensor(v, device=self.device)
+              for k, v in kw.items()}
         with torch.inference_mode():
             return _model_forward(self.cfg, self.model, self.params, x,
-                                  attn)
+                                  attn, **kw)
 
     def serve(self, **engine_kw):
         """The serving engine for this model, by modality: the batched
@@ -316,10 +334,11 @@ class QuantizedModel:
         return out
 
 
-def _model_forward(cfg: ArchConfig, model, params, x, attn: Optional[str]):
+def _model_forward(cfg: ArchConfig, model, params, x, attn: Optional[str],
+                   **kw):
     if cfg.family == "efficientvit":
-        return model.forward(cfg, params, x, attn=attn)
-    return model.forward(cfg, params, x)
+        return model.forward(cfg, params, x, attn=attn, **kw)
+    return model.forward(cfg, params, x, **kw)
 
 
 def quantize(arch_or_cfg, params, recipe: Union[str, QuantRecipe] = "m2q-w8a8",
@@ -345,14 +364,12 @@ def quantize(arch_or_cfg, params, recipe: Union[str, QuantRecipe] = "m2q-w8a8",
 
     act_stats: Dict[str, float] = {}
     n_calib = 0
-    if rec.policy.quantize_activations and cfg.family == "recurrentgemma":
+    if rec.policy.quantize_activations and cfg.family in _UNCALIBRATABLE:
         raise NotImplementedError(
             f"recipe {rec.name!r} calibrates activations, which "
-            f"{cfg.family!r} cannot do in the reference either: its "
-            "forward reshapes the stacked 'rec' leaves into (rec, rec, "
-            "attn) groups, and JAX's calibration forward raises "
-            "AttributeError: 'CalibTensor' object has no attribute "
-            "'reshape'; use a weights-only recipe (w4-weights-only)")
+            f"{cfg.family!r} cannot do in the reference either: "
+            f"{_UNCALIBRATABLE[cfg.family]}; use a weights-only recipe "
+            "(w4-weights-only)")
     if rec.policy.quantize_activations:
         if calib_batches is None:
             calib_batches = synth_calib_batches(cfg, rec.calib)
@@ -418,16 +435,12 @@ def abstract_quantize(arch_or_cfg, params_abs=None,
 # ---------------------------------------------------------------------------
 
 # The JAX package's ArchConfig fields the port's lacks, with their JAX
-# defaults.  FUNCTION_FIELDS change what the model computes (whisper's
-# encoder, layer norms, bf16 attention dots) or may one day
-# (``block_pattern``, which no JAX model reads): a value other than the
-# default names a model the port cannot run, and loading it raises.
-# EXECUTION_FIELDS only steer how JAX executes (scans, remat, sharding)
-# and are dropped.
-FUNCTION_FIELDS = {
-    "norm": "rms", "block_pattern": (), "n_enc_layers": 0,
-    "n_audio_ctx": 1500, "attn_bf16_mm": False,
-}
+# defaults.  FUNCTION_FIELDS change what the model computes (bf16
+# attention dots) or may one day (``block_pattern``, which no JAX model
+# reads): a value other than the default names a model the port cannot
+# run, and loading it raises.  EXECUTION_FIELDS only steer how JAX
+# executes (scans, remat, sharding) and are dropped.
+FUNCTION_FIELDS = {"block_pattern": (), "attn_bf16_mm": False}
 EXECUTION_FIELDS = {"causal_skip": False, "act_sharding": "",
                     "remat_policy": "full"}
 

@@ -315,7 +315,8 @@ def test_cfg_fields_split_as_the_jax_package_has_them():
 
 
 @pytest.mark.parametrize("name", ["efficientvit-b1-r224", "qwen1.5-0.5b",
-                                  "llama4-scout-17b-a16e", "dbrx-132b"])
+                                  "llama4-scout-17b-a16e", "dbrx-132b",
+                                  "whisper-large-v3"])
 def test_cfg_json_equals_the_jax_packages(name):
     jcfg, cfg = JARCHS[name], ARCHS[name]
     want = json.loads(json.dumps(jr._cfg_to_json(jcfg)))
@@ -325,16 +326,29 @@ def test_cfg_json_equals_the_jax_packages(name):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("norm", "layer"), ("n_enc_layers", 32), ("attn_bf16_mm", True),
-    ("block_pattern", ["rec", "attn"]), ("family", "whisper"),
-    ("from_the_future", 1)])
+    ("attn_bf16_mm", True), ("block_pattern", ["rec", "attn"]),
+    ("family", "hyena"), ("from_the_future", 1)])
 def test_cfg_guard_raises_on_what_changes_the_function(field, value):
     d = json.loads(json.dumps(jr._cfg_to_json(
         JARCHS["qwen1.5-0.5b"])))
     d[field] = value
     with pytest.raises(tr.UnsupportedConfigError, match=field if field !=
-                       "family" else "whisper"):
+                       "family" else "hyena"):
         tr._cfg_from_json(d)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("norm", "layer"), ("n_enc_layers", 32), ("n_audio_ctx", 64)])
+def test_cfg_whisper_fields_load_and_round_trip(field, value):
+    """The whisper fields are the port's own: a qwen payload carrying any
+    of them loads with the value, and writes JAX's JSON back."""
+    jcfg = JARCHS["qwen1.5-0.5b"].replace(**{field: value})
+    want = json.loads(json.dumps(jr._cfg_to_json(jcfg)))
+    cfg = tr._cfg_from_json(want)
+    assert getattr(cfg, field) == value
+    assert cfg == ARCHS["qwen1.5-0.5b"].replace(**{field: value})
+    assert json.loads(json.dumps(tr._cfg_to_json(cfg))) == want
+    assert jr._cfg_from_json(tr._cfg_to_json(cfg)) == jcfg
 
 
 def test_cfg_guard_drops_execution_only_knobs():

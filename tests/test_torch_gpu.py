@@ -1738,3 +1738,54 @@ def test_recurrent_case_at_reduced_width(cuda, name, kind, dtype):
     assert problems == []
     assert res["served_tokens_max"] < cfg.vocab_size
     assert res["prefill_groups"] == len(chip_smoke.RECURRENT_LENGTHS)
+
+
+# ---------------------------------------------------------------------------
+# whisper (chip_smoke's phase 13) at REDUCED width.
+# ---------------------------------------------------------------------------
+
+
+def test_whisper_greedy_on_the_card_equals_the_cpus(cuda):
+    """The reduced whisper (f32, an f32 cache) on the card: prefill plus
+    12 greedy decode steps eagerly and with the step in a CUDA graph give
+    the same tokens as the same model on the CPU, and logits within 1e-5
+    of max |logit| of the CPU's."""
+    from repro_torch.configs.registry import REDUCED
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models import whisper
+    cfg = REDUCED["whisper-large-v3"]
+    host = whisper.init(cfg, seed=0, device="cpu")
+    card = params_from_numpy(params_to_numpy(host), "cuda")
+    runs = {}
+    for dev, params, graphs in (("cpu", host, False), ("eager", card, False),
+                                ("graph", card, True)):
+        device = "cpu" if dev == "cpu" else "cuda"
+        frames, prompts = chip_smoke.whisper_inputs(torch, cfg, 2, 5, device)
+        toks, logits, _ = chip_smoke.whisper_greedy(
+            torch, cfg, params, frames, prompts, 12, 24, graphs,
+            cache_dtype=torch.float32)
+        runs[dev] = toks.cpu(), logits.cpu()
+    for dev in ("eager", "graph"):
+        assert torch.equal(runs[dev][0], runs["cpu"][0]), dev
+        want = runs["cpu"][1]
+        tol = 1e-5 * float(want.abs().max())
+        torch.testing.assert_close(runs[dev][1], want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_case_at_reduced_width(cuda, dtype, tmp_path):
+    """chip_smoke's phase 13 case on the card at REDUCED width (f32, and
+    bf16 activations): every leaf 4-bit, the artifact bit for bit, graph
+    tokens equal eager, no kernel launched, decode logits within the
+    bound of the teacher-forced forward's, the step timed and split."""
+    from repro_torch.configs.registry import REDUCED
+    cfg = REDUCED["whisper-large-v3"].replace(dtype=dtype)
+    res, problems = chip_smoke.whisper_case(
+        torch, cfg, device="cuda", batch=2, prompt_len=5, steps=8,
+        max_len=16, artifacts=tmp_path)
+    assert problems == []
+    assert res["served_tokens_max"] < cfg.vocab_size
+    assert res["graph_max_abs_diff"] == 0.0
+    assert set(res["decode_step_split_ms"]) == {
+        "dequantize_ms", "embed_dequantize_ms", "self_attention_ms",
+        "cross_attention_ms"}
