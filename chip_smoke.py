@@ -265,6 +265,30 @@ Phases, each fatal on failure (nonzero exit, no result line):
    and its split into the dequantize chain, self attention and cross
    attention (``whisper_split_ms``).
 
+14. training -- qwen1.5-0.5b at its published width and depth (24
+   layers, d 1024, 16 heads of 64, d_ff 2816, vocab 151936; 620 M f32
+   parameters, bf16 compute, per-layer remat) trained on SyntheticLM by
+   ``python -m repro_torch.launch.train`` on the card: 100 steps of 8 x
+   256 tokens, lr 1e-3 (cosine, warmup 10), every step logged; (a) the
+   training run stops after step 4 (publishing it) and a second process
+   resumes from that checkpoint to the end: every step logged once,
+   every loss and grad norm finite, the last 10 steps' mean loss below
+   the first 10's, no straggler; prints the first and last losses, the
+   median step time, tokens/s and the trainer's peak allocated bytes;
+   (b) a straight run of 10 steps whose losses and grad norms must equal
+   the resumed run's exactly, and ``launch.elastic.run_supervised`` on
+   the card at REDUCED width with a hard crash after step 7 (one
+   restart, the replayed step logged twice with equal losses); both run
+   beside (a)'s first part; (c) the final checkpoint's parameters
+   restored, quantized under phase 6's ``token`` and ``token-m2q``
+   recipes (calibrated on held-out SyntheticLM batches), each served
+   to 8 greedy requests on held-out SyntheticLM prompts through
+   ``pool_serve`` (eager and graphed tokens equal, launches as
+   ``tree_launches`` counts them, 0 plain calls, teacher-forced logits
+   within 5e-2 of max |logit| of ``reference_path()``'s); prints the
+   float and both quantized models' cross-entropy on 4 held-out batches.
+   The published steps (7.45 GB each) are removed at the end.
+
 It then prints the card's name and power limit again, one JSON line with
 every kernel's numbers and, last, the ``{"ok": true, "device": ...}``
 line.
@@ -3702,6 +3726,341 @@ def run_whisper(torch, out_dir, card) -> Counter:
     return launches
 
 
+# ---- phase 14: training -----------------------------------------------------
+# qwen1.5-0.5b at its published width and depth (24 layers, d 1024, 16
+# heads of 64, d_ff 2816, vocab 151936; 619.6 M f32 parameters, bf16
+# compute) trained on SyntheticLM by the port's CLI, then quantized
+# under phase 6's two token recipes and served
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_STEPS = 100
+TRAIN_BATCH = 8
+TRAIN_SEQ = 256
+TRAIN_LR = 1e-3
+TRAIN_WARMUP = TRAIN_STEPS // 10
+# the resume check: a straight run of STRAIGHT_STEPS steps beside the
+# training run, which stops after step RESUME_STOP, publishes it, and
+# resumes from that checkpoint to TRAIN_STEPS (the same schedule)
+STRAIGHT_STEPS = 10
+RESUME_STOP = 4
+# held-out SyntheticLM batches: the steps after the training range
+HELD_OUT = 4
+TRAIN_TIMEOUT = 600.0
+# the elastic check at REDUCED width, as tests/test_elastic.py runs it
+ELASTIC = dict(steps=12, batch=2, seq=16, ckpt_every=3, log_every=1,
+               crash_at_step=7, max_restarts=2)
+
+
+def _src_env() -> dict:
+    """This process's environment with ``src`` first on PYTHONPATH: what
+    a ``python -m repro_torch...`` child needs."""
+    import os
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=str(SRC) + (os.pathsep + path
+                                                   if path else ""))
+
+
+def start_train_cli(workdir, name: str, metrics, ckpt_dir=None,
+                    stop_at=None):
+    """Start ``python -m repro_torch.launch.train`` at the full width on
+    the card (the schedule of TRAIN_STEPS steps, every step logged to
+    ``metrics``), stopping cleanly after ``stop_at`` where given; its
+    output goes to ``workdir/<name>.out``.  Returns the running job for
+    :func:`finish_train_cli`."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, "--device", "cuda", "--steps", str(TRAIN_STEPS),
+           "--warmup", str(TRAIN_WARMUP), "--batch", str(TRAIN_BATCH),
+           "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--log-every",
+           "1", "--metrics", str(metrics)]
+    if ckpt_dir is not None:  # only the final (or stop-step) save
+        cmd += ["--ckpt-dir", str(ckpt_dir), "--ckpt-every",
+                str(10 * TRAIN_STEPS)]
+    if stop_at is not None:
+        cmd += ["--stop-at-step", str(stop_at)]
+    log = workdir / f"{name}.out"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=ROOT, env=_src_env())
+    return {"name": name, "proc": proc, "log": log, "t0": time.perf_counter()}
+
+
+def finish_train_cli(job) -> tuple:
+    """Wait (at most TRAIN_TIMEOUT seconds; then kill) for a job of
+    :func:`start_train_cli`.  Returns (exit code, its output, seconds
+    from start to exit)."""
+    proc = job["proc"]
+    try:
+        rc = proc.wait(TRAIN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
+        rc = "killed at its time limit"
+    return rc, job["log"].read_text(), time.perf_counter() - job["t0"]
+
+
+def checked_train_cli(job, result) -> tuple:
+    """(output, seconds) of a finished job; fails the run unless it
+    exited 0."""
+    rc, text, seconds = result
+    if rc != 0:
+        fail(f"phase 14: the {job['name']} run exited {rc}: {text[-2000:]}")
+    return text, seconds
+
+
+def metrics_by_step(path) -> dict:
+    """step -> the metrics records of that step, in the file's order."""
+    by_step = {}
+    for line in Path(path).read_text().splitlines():
+        rec = json.loads(line)
+        by_step.setdefault(rec["step"], []).append(rec)
+    return by_step
+
+
+def training_problems(by_step: dict, steps: int) -> list:
+    """Phase 14 (a)'s gates on a metrics file: every step logged once,
+    every loss and grad_norm finite, the mean loss of the last 10 steps
+    below the first 10's, no straggler."""
+    import math
+    problems = []
+    if sorted(by_step) != list(range(steps)) \
+            or any(len(r) != 1 for r in by_step.values()):
+        problems.append(f"logged steps {sorted(by_step)[:5]}... with "
+                        f"{[s for s, r in by_step.items() if len(r) != 1]} "
+                        "logged more than once; expected each of "
+                        f"0..{steps - 1} once")
+        return problems
+    recs = [by_step[s][0] for s in range(steps)]
+    bad = [r["step"] for r in recs
+           if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]))]
+    if bad:
+        problems.append(f"non-finite loss or grad_norm at steps {bad}")
+    first = sum(r["loss"] for r in recs[:10]) / 10
+    last = sum(r["loss"] for r in recs[-10:]) / 10
+    if not last < first:
+        problems.append(f"the mean loss of the last 10 steps {last} is not "
+                        f"below the first 10's {first}")
+    slow = [r["step"] for r in recs if r["straggler"]]
+    if slow:
+        problems.append(f"straggler steps {slow}")
+    return problems
+
+
+def held_out_batches(torch, cfg, n: int, start: int, batch: int, seq: int):
+    """``n`` SyntheticLM batches (seed 0) at steps ``start`` .. on the card:
+    past the training range, so no step trained on them."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    import numpy as np
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=0))
+    return [{k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in data.batch(start + i).items()} for i in range(n)]
+
+
+def held_out_ce(torch, cfg, logits_of, batches) -> float:
+    """The mean next-token cross-entropy of ``logits_of(tokens)`` over
+    ``batches`` (``train.step.softmax_xent``, the training loss)."""
+    from repro_torch.train.step import softmax_xent
+    total = 0.0
+    with torch.no_grad():
+        for b in batches:
+            logits = logits_of(b["tokens"])
+            total += float(softmax_xent(logits[:, :-1], b["labels"][:, 1:],
+                                        cfg.vocab_size))
+            del logits
+    return total / len(batches)
+
+
+def elastic_case(torch, workdir) -> tuple:
+    """``launch.elastic.run_supervised`` on the card at REDUCED width with
+    a hard crash after step 7, held as tests/test_elastic.py holds it:
+    one restart, the last step published, every step logged, the
+    replayed step twice and each step's losses identical.  Returns
+    (figures, problems)."""
+    import os
+    from repro_torch.ckpt.checkpoint import latest_step
+    from repro_torch.launch.elastic import run_supervised
+    ckpt_dir, metrics = workdir / "elastic_ckpt", workdir / "elastic.jsonl"
+    saved = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = _src_env()["PYTHONPATH"]
+    t0 = time.perf_counter()
+    try:
+        restarts = run_supervised(TRAIN_ARCH, ELASTIC["steps"],
+                                  str(ckpt_dir), str(metrics),
+                                  batch=ELASTIC["batch"], seq=ELASTIC["seq"],
+                                  ckpt_every=ELASTIC["ckpt_every"],
+                                  log_every=ELASTIC["log_every"],
+                                  crash_at_step=ELASTIC["crash_at_step"],
+                                  max_restarts=ELASTIC["max_restarts"],
+                                  device="cuda")
+    finally:
+        if saved is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved
+    res = {"seconds": time.perf_counter() - t0, "restarts": restarts,
+           "latest_step": latest_step(ckpt_dir)}
+    by_step = metrics_by_step(metrics)
+    crash, steps = ELASTIC["crash_at_step"], ELASTIC["steps"]
+    res["logged_twice"] = sorted(s for s, r in by_step.items() if len(r) > 1)
+    problems = []
+    if restarts != 1 or res["latest_step"] != steps - 1:
+        problems.append(f"restarts {restarts}, latest step "
+                        f"{res['latest_step']}")
+    if sorted(by_step) != list(range(steps)) or res["logged_twice"] != [crash]:
+        problems.append(f"steps logged {sorted(by_step)}, twice "
+                        f"{res['logged_twice']}; expected {crash} twice")
+    unequal = [s for s, r in by_step.items()
+               if len({x["loss"] for x in r}) != 1]
+    if unequal:
+        problems.append(f"replayed steps {unequal} logged different losses")
+    return res, problems
+
+
+def run_training(torch, out_dir, card) -> Counter:
+    """Phase 14: (a) qwen1.5-0.5b trained at full width and depth on the
+    card by the train CLI (TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+    tokens, stopped after RESUME_STOP and resumed from its published
+    checkpoint); (b) a straight run of STRAIGHT_STEPS steps whose losses
+    and grad norms must equal the training run's, and the elastic
+    launcher on the card at REDUCED width (:func:`elastic_case`); (c)
+    the final checkpoint's parameters restored, their held-out loss,
+    quantized under phase 6's ``token`` and ``token-m2q`` recipes
+    (calibrated on held-out SyntheticLM batches), each held-out loss,
+    and 8 greedy requests on held-out SyntheticLM prompts served through
+    :func:`pool_serve`.  Returns the kernel launches of (c)."""
+    import shutil
+    import statistics
+    from repro_torch import recipe
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import dense_lm
+    from repro_torch.optim.adamw import AdamW
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ARCHS[TRAIN_ARCH]
+    work = ARTIFACTS / "train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {"card": card, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "lr": TRAIN_LR, "warmup": TRAIN_WARMUP}
+    problems = []
+    try:
+        # (a) + (b): the straight run, the training run's first part and
+        # the elastic case side by side (their start-ups overlap), then
+        # the training run's second part alone (its step times are read)
+        straight, trained, ckpt_dir = (work / "straight.jsonl",
+                                       work / "train.jsonl", work / "ckpt")
+        jobs = [start_train_cli(work, "straight", straight,
+                                stop_at=STRAIGHT_STEPS - 1),
+                start_train_cli(work, "train_part1", trained,
+                                ckpt_dir=ckpt_dir, stop_at=RESUME_STOP)]
+        try:
+            res, probs = elastic_case(torch, work)
+        finally:  # every job ends before anything fails
+            results = [finish_train_cli(j) for j in jobs]
+        (_, out["straight_s"]), (text1, out["train_part1_s"]) = \
+            [checked_train_cli(j, r) for j, r in zip(jobs, results)]
+        out["elastic"] = res
+        problems += [f"(b) elastic: {p}" for p in probs]
+        print("phase 14 (b) elastic:", json.dumps(res), flush=True)
+        job = start_train_cli(work, "train_part2", trained,
+                              ckpt_dir=ckpt_dir)
+        text2, out["train_part2_s"] = checked_train_cli(
+            job, finish_train_cli(job))
+        for what, txt, want in (
+                ("part 1", text1, f"[train] clean early exit at step "
+                                  f"{RESUME_STOP}"),
+                ("part 2", text2, f"[train] resumed from step "
+                                  f"{RESUME_STOP}")):
+            if want not in txt:
+                problems.append(f"(a) {what} printed no {want!r}")
+        summary = [ln for ln in text2.splitlines()
+                   if ln.startswith("[train] arch=")]
+        out["cli_summary"] = summary[-1] if summary else None
+        if summary and "peak_alloc_bytes=" in summary[-1]:
+            out["peak_alloc_bytes"] = int(
+                summary[-1].split("peak_alloc_bytes=")[1].split()[0])
+        by_step = metrics_by_step(trained)
+        problems += [f"(a) {p}" for p in training_problems(by_step,
+                                                           TRAIN_STEPS)]
+        recs = [by_step[s][0] for s in sorted(by_step)]
+        times = [r["step_time_s"] for r in recs[RESUME_STOP + 2:]]
+        out.update(
+            first_loss=recs[0]["loss"], last_loss=recs[-1]["loss"],
+            first10_mean_loss=sum(r["loss"] for r in recs[:10]) / 10,
+            last10_mean_loss=sum(r["loss"] for r in recs[-10:]) / 10,
+            median_step_time_s=statistics.median(times),
+            tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / statistics.median(times),
+            max_grad_norm=max(r["grad_norm"] for r in recs))
+        # (b) exact resume: the straight run's steps against the trained
+        sb = metrics_by_step(straight)
+        diffs = [max(abs(sb[s][0]["loss"] - by_step[s][0]["loss"]),
+                     abs(sb[s][0]["grad_norm"] - by_step[s][0]["grad_norm"]))
+                 for s in range(STRAIGHT_STEPS) if s in sb and s in by_step]
+        out["resume_max_abs_diff"] = max(diffs) if diffs else None
+        out["resume_steps_compared"] = len(diffs)
+        if len(diffs) != STRAIGHT_STEPS or max(diffs) != 0.0:
+            problems.append(f"(b) the straight run's losses and grad norms "
+                            f"differ from the resumed run's: {diffs}")
+        print("phase 14 (a):", json.dumps(
+            {k: v for k, v in out.items() if k != "elastic"}), flush=True)
+
+        # (c) the trained model: held-out losses, quantized and served
+        last = ckpt.latest_step(ckpt_dir)
+        t1 = time.perf_counter()
+        meta = dense_lm.init(cfg, device="meta")
+        (params, _), extra = ckpt.restore(ckpt_dir, last,
+                                          (meta, AdamW().init(meta)),
+                                          device="cuda")
+        out["restore_s"] = time.perf_counter() - t1
+        out["restored_step"] = extra["step"]
+        if extra["step"] != TRAIN_STEPS - 1:
+            problems.append(f"(c) the last checkpoint is step "
+                            f"{extra['step']}")
+        shutil.rmtree(work, ignore_errors=True)  # 7.4 GB a published step
+        held = held_out_batches(torch, cfg, HELD_OUT, TRAIN_STEPS,
+                                TRAIN_BATCH, TRAIN_SEQ)
+        ce = {"float": held_out_ce(
+            torch, cfg, lambda t: dense_lm.forward(cfg, params, t), held)}
+        calib = [b["tokens"][:2, :32]
+                 for b in held_out_batches(torch, cfg, 4, TRAIN_STEPS
+                                           + HELD_OUT, TRAIN_BATCH, 32)]
+        prompt_rows = held_out_batches(torch, cfg, 1, TRAIN_STEPS
+                                       + HELD_OUT + 4, TRAIN_BATCH,
+                                       TRAIN_SEQ)[0]["tokens"].cpu().numpy()
+        lengths = [len(p) for p in pool_requests(cfg)]
+        prompts = [row[:n] for row, n in zip(prompt_rows, lengths)]
+        launches = Counter()
+        qcfg = cfg.replace(kv_cache_dtype="int8")
+        for name in ("token", "token-m2q"):
+            t1 = time.perf_counter()
+            qm = recipe.quantize(qcfg, params, token_recipe(name),
+                                 calib_batches=calib)
+            torch.cuda.synchronize()
+            res = {"quantize_s": time.perf_counter() - t1}
+            ce[name] = held_out_ce(torch, cfg, qm.forward, held)
+            served, probs, ln = pool_serve(torch, qm, prompts=prompts,
+                                           trace=False)
+            launches.update(ln)
+            res.update(served)
+            out[name] = res
+            problems += [f"(c) {name}: {p}" for p in probs]
+            print(f"phase 14 (c) {name}:", json.dumps(res), flush=True)
+            del qm
+        out["held_out_ce"] = ce
+        print("phase 14 (c) held-out cross-entropy:", json.dumps(ce),
+              flush=True)
+        del params
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    (out_dir / "chip_smoke_train.json").write_text(json.dumps(out, indent=1))
+    if problems:
+        fail("phase 14: " + "; ".join(problems)[:3000])
+    print(f"phase 14: {out['phase_s']:.1f} s; {card}", flush=True)
+    return launches
+
+
 def main() -> None:
     import torch  # the card check needs torch before anything else
 
@@ -3823,6 +4182,9 @@ def main() -> None:
 
         # ---- 13. whisper, from zeroed counters ------------------------------
         launches.update(run_whisper(torch, out_dir, card))
+
+        # ---- 14. training, then the trained model served -------------------
+        launches.update(run_training(torch, out_dir, card))
     finally:
         import shutil
         shutil.rmtree(ARTIFACTS, ignore_errors=True)

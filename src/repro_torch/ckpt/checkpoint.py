@@ -5,10 +5,12 @@ the other's checkpoints.
 * Layout: ``step_XXXXXXXX/arrays.npz`` with members ``leaf_00000``, ...,
   and ``manifest.json`` = ``{step, extra, leaves: [{key, name, shape,
   dtype, sha256}]}``, leaves in JAX flatten order: dict keys sorted, list
-  items by index, and a QTensor leaf's array fields as its positional
-  children ``<path>/<i>`` (``core.qtensor.CHILDREN``; a None child writes
-  nothing and the other indices do not shift).  ``dtype`` is numpy's name
-  of the array's type; the SHA256 is over its C-contiguous bytes.
+  items by index, a NamedTuple's fields as ``.<name>`` (an optimizer
+  state's ``1/.count``, ``1/.m/...``), and a QTensor leaf's array fields
+  as its positional children ``<path>/<i>`` (``core.qtensor.CHILDREN``;
+  a None child writes nothing and the other indices do not shift).
+  ``dtype`` is numpy's name of the array's type; the SHA256 is over its
+  C-contiguous bytes.
 * Atomic publish: arrays land in ``step_XXXXXXXX.tmp`` first and are
   fsync'd; the manifest is the publish marker (written inside the tmp dir
   via its own tmp file + ``os.replace``; a dir without one is invisible to
@@ -37,6 +39,7 @@ import os
 import re
 import shutil
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -112,7 +115,14 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def _sha256(arr: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+    """SHA256 of the array's C-contiguous bytes, hashed in place."""
+    flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    return hashlib.sha256(flat).hexdigest()
+
+
+# threads that hash leaves (and read them back) at once: hashlib and
+# zlib's CRC release the GIL on large buffers
+_IO_THREADS = 8
 
 
 def _map_arrays(fn, tree):
@@ -151,14 +161,16 @@ def save(ckpt_dir, step: int, tree, extra: Optional[dict] = None) -> Path:
             shutil.rmtree(stale)
     tmp.mkdir()
     manifest = {"step": step, "extra": extra or {}, "leaves": []}
+    leaves = [(key, _to_numpy(leaf)) for key, leaf in _leaf_paths(tree)]
+    with ThreadPoolExecutor(_IO_THREADS) as pool:
+        digests = list(pool.map(_sha256, [arr for _, arr in leaves]))
     arrays = {}
-    for i, (key, leaf) in enumerate(_leaf_paths(tree)):
-        arr = _to_numpy(leaf)
+    for i, ((key, arr), digest) in enumerate(zip(leaves, digests)):
         name = f"leaf_{i:05d}"
         arrays[name] = arr
         manifest["leaves"].append({
             "key": key, "name": name, "shape": list(arr.shape),
-            "dtype": str(arr.dtype), "sha256": _sha256(arr)})
+            "dtype": str(arr.dtype), "sha256": digest})
     np.savez(tmp / "arrays.npz", **arrays)
     _fsync_file(tmp / "arrays.npz")
     # the manifest is the publish marker: atomic even within the tmp dir,
@@ -267,34 +279,41 @@ def restore(ckpt_dir, step: int, template, device="cuda",
     d = _step_dir(ckpt_dir, step)
     manifest = json.loads((d / _MANIFEST).read_text())
     by_key = {rec["key"]: rec for rec in manifest["leaves"]}
-    wanted = {key for key, _ in _leaf_paths(template)}
-    extra_keys = sorted(set(by_key) - wanted)
+    wanted = dict(_leaf_paths(template))
+    extra_keys = sorted(set(by_key) - set(wanted))
     if extra_keys:
         raise KeyError(f"checkpoint holds leaves the template lacks: "
                        f"{extra_keys[:5]}")
     device = torch.device(device)
 
-    with np.load(d / "arrays.npz") as data:
-        def load(key, tpl):
-            if key not in by_key:
-                raise KeyError(f"checkpoint missing leaf {key!r}")
-            rec = by_key[key]
+    def load(key):
+        tpl = wanted[key]
+        if key not in by_key:
+            raise KeyError(f"checkpoint missing leaf {key!r}")
+        rec = by_key[key]
+        # a zip reader of its own: one ZipFile is not safe across threads
+        with np.load(d / "arrays.npz") as data:
             arr = data[rec["name"]]
-            if verify:
-                actual = _sha256(arr)
-                if actual != rec["sha256"]:
-                    raise ChecksumMismatchError(key, rec["sha256"], actual)
-            want = _numpy_dtype(tpl.dtype)
-            if str(arr.dtype) != rec["dtype"] or arr.dtype != want:
-                raise TypeError(
-                    f"dtype mismatch for {key!r}: file {arr.dtype}, "
-                    f"manifest {rec['dtype']}, template {want}")
-            if tuple(arr.shape) != tuple(rec["shape"]) \
-                    or tuple(arr.shape) != tuple(tpl.shape):
-                raise ValueError(
-                    f"shape mismatch for {key!r}: ckpt {arr.shape} vs "
-                    f"template {tuple(tpl.shape)}")
-            return torch.from_numpy(np.array(arr, order="C")).to(device)
+        if verify:
+            actual = _sha256(arr)
+            if actual != rec["sha256"]:
+                raise ChecksumMismatchError(key, rec["sha256"], actual)
+        want = _numpy_dtype(tpl.dtype)
+        if str(arr.dtype) != rec["dtype"] or arr.dtype != want:
+            raise TypeError(
+                f"dtype mismatch for {key!r}: file {arr.dtype}, "
+                f"manifest {rec['dtype']}, template {want}")
+        if tuple(arr.shape) != tuple(rec["shape"]) \
+                or tuple(arr.shape) != tuple(tpl.shape):
+            raise ValueError(
+                f"shape mismatch for {key!r}: ckpt {arr.shape} vs "
+                f"template {tuple(tpl.shape)}")
+        return torch.from_numpy(np.require(arr, requirements="C")
+                                ).to(device)
 
-        tree = _map_arrays(load, template)
-    return tree, manifest["extra"]
+    # leaves read, verified and moved a few at a time; the first failure
+    # in flatten order raises
+    with ThreadPoolExecutor(_IO_THREADS) as pool:
+        loaded = dict(zip(wanted, pool.map(load, wanted)))
+    return _map_arrays(lambda key, _: loaded[key], template), \
+        manifest["extra"]

@@ -22,6 +22,11 @@ with its class under ``"qtensor"`` and its fields by the JAX leaf's names:
 * ``{"qtensor": "QAPoT", "codes" (K, N) uint8, "scale" (1, N) f32,
   "act_scale", "shape"}``
 
+An optimizer state crosses as ``{"count": int32 0-d array, "m": tree,
+"v": tree}`` (or any object with those three attributes, as the JAX
+package's ``AdamWState``), the moment trees as float trees
+(:func:`opt_state_from_numpy` / :func:`opt_state_to_numpy`).
+
 ``act_scale`` may be None.  Anything else, and any field whose dtype or
 shape disagrees with the leaf it claims to be, raises.  The whole
 dense-LM tree crosses this way (float norms, biases and qk_norm's
@@ -222,3 +227,27 @@ def params_to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return _np(tree)
     raise TypeError(f"unknown leaf kind {type(tree).__name__}")
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """A numpy optimizer state -- ``{"count", "m", "v"}``, or an object
+    with those attributes -- -> the port's ``AdamWState`` on ``device``:
+    ``count`` an int32 0-d tensor, ``m`` / ``v`` through
+    :func:`params_from_numpy`."""
+    from .optim.adamw import AdamWState
+    get = state.get if isinstance(state, dict) else \
+        (lambda k: getattr(state, k))
+    count = np.asarray(get("count"))
+    if count.dtype != np.int32 or count.shape != ():
+        raise TypeError(f"count must be an int32 scalar, got {count.dtype} "
+                        f"of shape {count.shape}")
+    return AdamWState(
+        count=torch.from_numpy(count.copy()).to(device),
+        m=params_from_numpy(get("m"), device, "m"),
+        v=params_from_numpy(get("v"), device, "v"))
+
+
+def opt_state_to_numpy(state) -> dict:
+    """The inverse of :func:`opt_state_from_numpy`."""
+    return {"count": _np(state.count), "m": params_to_numpy(state.m),
+            "v": params_to_numpy(state.v)}

@@ -1,13 +1,28 @@
-"""Parameter trees: nested dicts/lists whose leaves are tensors or QTensor
-leaves.  Paths are the JAX package's strings (dict keys and list indices
-joined by '/', e.g. ``stages/3/0/msa/w_qkv``), visited in the order JAX
-flattens them (dict keys sorted), so ``QUANT_RULES``, calibration stores
-and layer reports match across the two packages."""
+"""Parameter trees: nested dicts/lists/tuples whose leaves are tensors or
+QTensor leaves.  Paths are the JAX package's strings (dict keys and list
+indices joined by '/', e.g. ``stages/3/0/msa/w_qkv``; a NamedTuple's
+fields by ``.<name>``, as ``jax.tree_util`` names a ``GetAttrKey``, e.g.
+``1/.m/embed`` in a ``(params, AdamWState)`` tree), visited in the order
+JAX flattens them (dict keys sorted, NamedTuple fields in declaration
+order), so ``QUANT_RULES``, calibration stores, layer reports and
+checkpoint keys match across the two packages."""
 from __future__ import annotations
 
 from typing import Any, Callable, Iterable, Iterator, Tuple
 
 import torch
+
+
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
+def _children(tree):
+    """(key, child) pairs of a tuple or list: a NamedTuple's fields as
+    ``.<name>``, any other sequence's items by index."""
+    if _is_namedtuple(tree):
+        return [(f".{name}", getattr(tree, name)) for name in tree._fields]
+    return [(str(i), v) for i, v in enumerate(tree)]
 
 
 def map_with_path(fn: Callable[[str, Any], Any], tree, _path: Tuple = ()):
@@ -16,8 +31,11 @@ def map_with_path(fn: Callable[[str, Any], Any], tree, _path: Tuple = ()):
         return {k: map_with_path(fn, tree[k], _path + (str(k),))
                 for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map_with_path(fn, v, _path + (str(i),))
-                          for i, v in enumerate(tree))
+        children = [map_with_path(fn, v, _path + (k,))
+                    for k, v in _children(tree)]
+        if _is_namedtuple(tree):
+            return type(tree)(*children)
+        return type(tree)(children)
     return fn("/".join(_path), tree)
 
 
@@ -27,8 +45,8 @@ def leaves_with_path(tree, _path: Tuple = ()) -> Iterator[Tuple[str, Any]]:
         for k in sorted(tree):
             yield from leaves_with_path(tree[k], _path + (str(k),))
     elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from leaves_with_path(v, _path + (str(i),))
+        for k, v in _children(tree):
+            yield from leaves_with_path(v, _path + (k,))
     else:
         yield "/".join(_path), tree
 

@@ -25,12 +25,14 @@ scatter.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from .. import nn
 from ..core import policy as pol
 from ..core.qtensor import slice_layer
-from ..core.tree import map_with_path
+from ..core.tree import leaves_with_path, map_with_path, unflatten
 from .config import ArchConfig
 
 # perm-foldable FFN filter groups: (up, gate|None, down) path regexes
@@ -117,6 +119,17 @@ def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
 def layer_params(layers, i: int):
     """Layer ``i`` of the stacked ``params["layers"]`` tree."""
     return map_with_path(lambda _, leaf: slice_layer(leaf, i), layers)
+
+
+def layer_stack(layers, n: int) -> list:
+    """``[layer_params(layers, i) for i in range(n)]``, each float leaf
+    unbound once: one autograd node whose backward stacks the layers'
+    gradients, where ``n`` slices would each write a zero-filled copy of
+    the whole stack in the backward.  The same views either way."""
+    slices = [leaf.unbind(0) if isinstance(leaf, torch.Tensor)
+              else [slice_layer(leaf, i) for i in range(n)]
+              for _, leaf in leaves_with_path(layers)]
+    return [unflatten(layers, [s[i] for s in slices]) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -241,13 +254,21 @@ def _embed(cfg: ArchConfig, params, tokens, prefix_embeds=None):
 
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor,
-            prefix_embeds=None) -> torch.Tensor:
+            prefix_embeds=None, remat: bool = True,
+            remat_policy: str = "full") -> torch.Tensor:
     """tokens (B, S), after ``prefix_embeds`` (B, P, d_model) if given ->
-    logits (B, P + S, padded_vocab) in ``cfg.dtype``."""
+    logits (B, P + S, padded_vocab) in ``cfg.dtype``.  While autograd
+    records, each layer's activations are recomputed in the backward
+    (``remat``; ``remat_policy`` "full" or "dots", JAX's
+    ``cfg.remat_policy``); under ``torch.no_grad()`` it is a plain loop."""
     x = _embed(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(cfg.n_layers):
-        x = block(cfg, layer_params(params["layers"], i), x, positions)
+    for lp in layer_stack(params["layers"], cfg.n_layers):
+        if remat:
+            x = nn.remat(partial(block, cfg), lp, x, positions,
+                         policy=remat_policy)
+        else:
+            x = block(cfg, lp, x, positions)
     x = nn.rms_norm(x, params["final_norm"])
     return nn.dense(x, params["lm_head"])
 

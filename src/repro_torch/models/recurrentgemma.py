@@ -5,7 +5,7 @@ recurrent layers at the tail): recurrentgemma-9b.
 
 The recurrent layers' parameters are one stack (``rec``, in layer order)
 and the attention layers' another (``attn``), each run by slices
-(``dense_lm.layer_params``).  Local attention keeps a ring-buffer KV
+(``dense_lm.layer_stack``).  Local attention keeps a ring-buffer KV
 cache of ``W = min(window, max_len)`` rows, RoPE applied at write time,
 row ``(len - 1) % W`` written by each decode step, attention over
 ``min(len, W)`` rows; the RG-LRU state (f32) and the temporal conv's last
@@ -25,7 +25,7 @@ import torch
 from .. import nn
 from ..core import policy as pol
 from .config import ArchConfig
-from .dense_lm import layer_params
+from .dense_lm import layer_stack
 
 FFN_FOLD_GROUPS = [
     (r"rec/mlp/w1$", r"rec/mlp/w3$", r"rec/mlp/w2$"),
@@ -168,15 +168,15 @@ def _attn_layer(cfg: ArchConfig, lp, x, positions):
 
 def _layers(cfg: ArchConfig, params):
     """(is attention, the layer's parameters, its index in its stack), in
-    layer order."""
-    ri = ai = 0
+    layer order (``dense_lm.layer_stack`` views of the two stacks)."""
+    stacks = {True: layer_stack(params["attn"], n_attn_layers(cfg)),
+              False: layer_stack(params["rec"], n_rec_layers(cfg))}
+    taken = {True: 0, False: 0}
     for i in range(cfg.n_layers):
-        if i % 3 == 2:
-            yield True, layer_params(params["attn"], ai), ai
-            ai += 1
-        else:
-            yield False, layer_params(params["rec"], ri), ri
-            ri += 1
+        is_attn = i % 3 == 2
+        j = taken[is_attn]
+        taken[is_attn] += 1
+        yield is_attn, stacks[is_attn][j], j
 
 
 # ---------------------------------------------------------------------------
@@ -184,9 +184,17 @@ def _layers(cfg: ArchConfig, params):
 # ---------------------------------------------------------------------------
 
 
-def forward(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+def _rec_out(cfg: ArchConfig, lp, x, h0, conv0):
+    return _rec_layer(cfg, lp, x, h0, conv0)[0]
+
+
+def forward(cfg: ArchConfig, params, tokens: torch.Tensor,
+            remat: bool = True) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab) in ``cfg.dtype``, from
-    zero states, the attention windowed."""
+    zero states, the attention windowed.  While autograd records, each
+    layer is rematerialised in the backward (``nn.remat``; JAX
+    checkpoints each (rec, rec, attn) group of its scan); a plain loop
+    under ``torch.no_grad()``."""
     dtype = getattr(torch, cfg.dtype)
     x = nn.embed(tokens, params["embed"]).to(dtype)
     B, S = tokens.shape
@@ -194,12 +202,13 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     R = _lru_width(cfg)
     for is_attn, lp, _ in _layers(cfg, params):
         if is_attn:
-            x = _attn_layer(cfg, lp, x, positions)
+            fn, args = partial(_attn_layer, cfg), (lp, x, positions)
         else:
             h0 = torch.zeros((B, R), device=x.device)
             c0 = torch.zeros((B, cfg.conv1d_width - 1, R), dtype=dtype,
                              device=x.device)
-            x, _, _ = _rec_layer(cfg, lp, x, h0, c0)
+            fn, args = partial(_rec_out, cfg), (lp, x, h0, c0)
+        x = nn.remat(fn, *args) if remat else fn(*args)
     x = nn.rms_norm(x, params["final_norm"])
     return nn.dense(x, params["lm_head"])
 

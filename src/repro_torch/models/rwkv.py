@@ -24,7 +24,7 @@ import torch
 from .. import nn
 from ..core import policy as pol
 from .config import ArchConfig
-from .dense_lm import layer_params
+from .dense_lm import layer_params, layer_stack
 
 FFN_FOLD_GROUPS = [(r"cm/cw_k$", None, r"cm/cw_v$")]
 
@@ -142,15 +142,21 @@ def _embed(cfg: ArchConfig, params, tokens):
     return nn.rms_norm(x, params["ln0"])
 
 
-def forward(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+def _layer_out(cfg: ArchConfig, lp, x, tm_prev, cm_prev, state):
+    return _layer(cfg, lp, x, tm_prev, cm_prev, state)[0]
+
+
+def forward(cfg: ArchConfig, params, tokens: torch.Tensor,
+            remat: bool = True) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab) in ``cfg.dtype``, from
-    zero states."""
+    zero states; each layer rematerialised in the backward while autograd
+    records (``nn.remat``), a plain loop under ``torch.no_grad()``."""
     x = _embed(cfg, params, tokens)
     st = init_cache(cfg, x.shape[0], 0, device=x.device)
-    for i in range(cfg.n_layers):
-        x, _, _, _ = _layer(cfg, layer_params(params["layers"], i), x,
-                            st["tm_prev"][i], st["cm_prev"][i],
-                            st["state"][i])
+    layer = partial(_layer_out, cfg)
+    for i, lp in enumerate(layer_stack(params["layers"], cfg.n_layers)):
+        args = (lp, x, st["tm_prev"][i], st["cm_prev"][i], st["state"][i])
+        x = nn.remat(layer, *args) if remat else layer(*args)
     x = nn.rms_norm(x, params["final_norm"])
     return nn.dense(x, params["lm_head"])
 

@@ -22,13 +22,16 @@ host, so it captures in a CUDA graph.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
 from .. import nn
 from ..core import policy as pol
 from .config import ArchConfig
-from .dense_lm import _layer_cache, _write_rows, decode_rows, layer_params
+from .dense_lm import (_layer_cache, _write_rows, decode_rows, layer_params,
+                       layer_stack)
 
 QUANT_RULES = [
     (r"embed", pol.KIND_EMBEDDING),
@@ -163,8 +166,8 @@ def encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tensor:
     dtype = getattr(torch, cfg.dtype)
     pos = torch.from_numpy(_sinusoid(frames.shape[1], cfg.d_model))
     x = frames.to(dtype) + pos.to(device=frames.device, dtype=dtype)[None]
-    for i in range(cfg.n_enc_layers or cfg.n_layers):
-        lp = layer_params(params["enc_layers"], i)
+    for lp in layer_stack(params["enc_layers"], cfg.n_enc_layers
+                          or cfg.n_layers):
         h = _ln(x, lp, "ln1")
         x = x + _mha(cfg, lp["self"], h, h, causal=False)
         x = x + _mlp(lp["mlp"], _ln(x, lp, "ln2"))
@@ -189,22 +192,27 @@ def _head(params, x):
 # ---------------------------------------------------------------------------
 
 
+def _dec_layer(cfg: ArchConfig, lp, x, memory):
+    h = _ln(x, lp, "ln1")
+    x = x + _mha(cfg, lp["self"], h, h, causal=True)
+    x = x + _mha(cfg, lp["cross"], _ln(x, lp, "lnx"), memory, causal=False)
+    return x + _mlp(lp["mlp"], _ln(x, lp, "ln2"))
+
+
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, frames=None,
-            memory=None) -> torch.Tensor:
+            memory=None, remat: bool = True) -> torch.Tensor:
     """Teacher-forced decode over the whole target: tokens (B, S) and
     ``frames`` (or the encoder ``memory``) -> logits (B, S,
-    padded_vocab) in ``cfg.dtype``."""
+    padded_vocab) in ``cfg.dtype``.  While autograd records, each decoder
+    layer is rematerialised in the backward (``nn.remat``), as JAX
+    checkpoints its decoder scan; a plain loop under ``torch.no_grad()``."""
     if memory is None:
         memory = encode(cfg, params, frames)
     S = tokens.shape[1]
     x = _embed(cfg, params, tokens, torch.arange(S, device=tokens.device))
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["dec_layers"], i)
-        h = _ln(x, lp, "ln1")
-        x = x + _mha(cfg, lp["self"], h, h, causal=True)
-        x = x + _mha(cfg, lp["cross"], _ln(x, lp, "lnx"), memory,
-                     causal=False)
-        x = x + _mlp(lp["mlp"], _ln(x, lp, "ln2"))
+    layer = partial(_dec_layer, cfg)
+    for lp in layer_stack(params["dec_layers"], cfg.n_layers):
+        x = nn.remat(layer, lp, x, memory) if remat else layer(lp, x, memory)
     return _head(params, x)
 
 

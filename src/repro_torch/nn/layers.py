@@ -8,10 +8,12 @@ QTensor leaf runs the quantized path (the kernels via ``kernels.ops``).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from ..core.calibrate import CalibTensor
 from ..core.qtensor import QUniform, is_qtensor
@@ -71,6 +73,37 @@ def stacked(n: int, shape, draw, generator: torch.Generator,
         for i in range(n):
             out[i] = draw(shape, generator, device)
     return out
+
+
+# matmuls without batch dims (x @ w over a (B, S, D) x folds to one mm):
+# what JAX's ``dots_with_no_batch_dims_saveable`` policy keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, *args, policy: str = "full"):
+    """``fn(*args)`` with its activations recomputed in the backward (the
+    port's ``jax.checkpoint``: ``torch.utils.checkpoint``, non-reentrant)
+    while autograd records; a plain call under ``torch.no_grad()``, so
+    inference never pays for it.  ``policy``: ``"full"`` keeps only the
+    inputs; ``"dots"`` also keeps the outputs of matmuls without batch
+    dims (``aten.mm`` / ``addmm``: the layer projections, not attention's
+    batched einsums), as JAX's ``dots_with_no_batch_dims_saveable``."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    if policy == "full":
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if policy == "dots":
+        return _ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat policy {policy!r}: 'full' or 'dots'")
 
 
 def dense(x: torch.Tensor, w, b=None) -> torch.Tensor:

@@ -1789,3 +1789,94 @@ def test_whisper_case_at_reduced_width(cuda, dtype, tmp_path):
     assert set(res["decode_step_split_ms"]) == {
         "dequantize_ms", "embed_dequantize_ms", "self_attention_ms",
         "cross_attention_ms"}
+
+
+# ---- training (chip_smoke phase 14) -----------------------------------------
+
+
+def test_train_step_on_the_card_equals_the_cpus(cuda):
+    """One train step of the reduced qwen1.5-0.5b (f32): the card's loss
+    and gradients against the CPU's (1e-3 of each leaf's max |g|), and
+    the AdamW update on the card's own gradients against the CPU's
+    update of the same gradients."""
+    from repro_torch.configs.registry import REDUCED
+    from repro_torch.core.tree import leaves_with_path, map_with_path
+    from repro_torch.models import dense_lm
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import make_grad_fn
+    cfg = REDUCED["qwen1.5-0.5b"]
+    params = dense_lm.init(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 32)).astype(np.int32))
+    batch = {"tokens": toks, "labels": toks}
+    on_card = map_with_path(lambda _, t: t.to(cuda), params)
+    for mb in (1, 2):
+        grad_fn = make_grad_fn(cfg, dense_lm, mb)
+        lc, g_cpu = grad_fn(params, batch)
+        lg, gg = grad_fn(on_card, {k: v.to(cuda) for k, v in batch.items()})
+        assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+        cpu = dict(leaves_with_path(g_cpu))
+        for k, g in leaves_with_path(gg):
+            tol = 1e-3 * float(cpu[k].abs().max())
+            assert float((g.cpu() - cpu[k]).abs().max()) <= tol, k
+    opt = AdamW(lr=cosine_schedule(1e-3, 2, 10))
+    p1, s1, n1 = opt.update(gg, opt.init(on_card), on_card)
+    g_cpu = map_with_path(lambda _, t: t.cpu(), gg)
+    p2, s2, n2 = opt.update(g_cpu, opt.init(params), params)
+    assert abs(float(n1) - float(n2)) <= 1e-6 * float(n2)
+    for (k, a), (_, b) in zip(leaves_with_path((p1, s1)),
+                              leaves_with_path((p2, s2))):
+        torch.testing.assert_close(a.cpu().double(), b.double(), rtol=1e-6,
+                                   atol=1e-6 * float(b.abs().max()), msg=k)
+
+
+def test_optimizer_state_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A (params, AdamWState) tree on the card saved and restored onto the
+    card bit for bit, the NamedTuple rebuilt and keyed ``1/.count``..."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.registry import REDUCED
+    from repro_torch.core.tree import leaves_with_path, map_with_path
+    from repro_torch.models import dense_lm
+    from repro_torch.optim.adamw import AdamW, AdamWState
+    cfg = REDUCED["qwen1.5-0.5b"]
+    params = dense_lm.init(cfg, seed=0, device=cuda)
+    state = AdamW().init(params)
+    state = AdamWState(state.count + 5,
+                       map_with_path(lambda _, t: t + 1, state.m), state.v)
+    ckpt.save(tmp_path, 5, (params, state), {"step": 5})
+    saver = ckpt.AsyncCheckpointer(tmp_path / "async")
+    saver.save_async(5, (params, state), {"step": 5})
+    saver.wait()
+    meta = dense_lm.init(cfg, device="meta")
+    for d in (tmp_path, tmp_path / "async"):
+        (p2, s2), extra = ckpt.restore(d, 5, (meta, AdamW().init(meta)),
+                                       device=cuda)
+        assert extra == {"step": 5} and isinstance(s2, AdamWState)
+        assert s2.count.dtype == torch.int32 and int(s2.count) == 5
+        keys = []
+        for (k, a), (_, b) in zip(leaves_with_path((params, state)),
+                                  leaves_with_path((p2, s2))):
+            keys.append(k)
+            assert b.device.type == "cuda"
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
+        assert "1/.count" in keys and "1/.m/embed" in keys
+
+
+def test_training_resumes_exactly_on_the_card(cuda, tmp_path):
+    """The reduced qwen trained on the card, straight and with a stop and
+    a resume from its checkpoint: equal losses, parameters and state."""
+    from repro_torch.configs.registry import REDUCED
+    from repro_torch.core.tree import leaves_with_path
+    from repro_torch.train.loop import TrainConfig, train
+    cfg = REDUCED["qwen1.5-0.5b"].replace(dtype="bfloat16")
+    kw = dict(global_batch=4, seq_len=32, lr=1e-3, ckpt_every=100)
+    pa, sa, full = train(cfg, TrainConfig(
+        steps=12, ckpt_dir=str(tmp_path / "a"), **kw), device=cuda)
+    train(cfg, TrainConfig(steps=12, stop_at_step=5,
+                           ckpt_dir=str(tmp_path / "b"), **kw), device=cuda)
+    pb, sb, rest = train(cfg, TrainConfig(
+        steps=12, ckpt_dir=str(tmp_path / "b"), **kw), device=cuda)
+    assert rest["losses"] == full["losses"][6:]
+    for (k, a), (_, b) in zip(leaves_with_path((pa, sa)),
+                              leaves_with_path((pb, sb))):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
