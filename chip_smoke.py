@@ -241,10 +241,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    and 16 new ones at ``max_len=2304`` through a one-slot engine (its
    2048-row ring wraps during decode; its eager prefill timed alone),
    and its full-depth 4-bit tree bytes from ``abstract_quantize``.
-   Prints peaks, init / quantize seconds, the graphed decode step (and,
-   as phase 11 does, a torch.profiler trace of it: busy ms, kernels a
-   step, the six costliest kernels; not the window request's) and
-   tokens/s beside the card.
+   Prints peaks, init / quantize seconds, the graphed decode step and
+   tokens/s beside the card (the MoE and recurrent decode steps are no
+   longer traced: the run's time went to phase 15).
 
 13. whisper -- whisper-large-v3 at its published width and depth (32
    encoder + 32 decoder layers, d 1280, 20 heads of 64, vocab 51866 ->
@@ -268,8 +267,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
 14. training -- qwen1.5-0.5b at its published width and depth (24
    layers, d 1024, 16 heads of 64, d_ff 2816, vocab 151936; 620 M f32
    parameters, bf16 compute, per-layer remat) trained on SyntheticLM by
-   ``python -m repro_torch.launch.train`` on the card: 100 steps of 8 x
-   256 tokens, lr 1e-3 (cosine, warmup 10), every step logged; (a) the
+   ``python -m repro_torch.launch.train`` on the card: 50 steps of 8 x
+   256 tokens (100 until PR 31), lr 1e-3 (cosine, warmup 5), every step
+   logged; (a) the
    training run stops after step 4 (publishing it) and a second process
    resumes from that checkpoint to the end: every step logged once,
    every loss and grad norm finite, the last 10 steps' mean loss below
@@ -288,6 +288,18 @@ Phases, each fatal on failure (nonzero exit, no result line):
    within 5e-2 of max |logit| of ``reference_path()``'s); prints the
    float and both quantized models' cross-entropy on 4 held-out batches.
    The published steps (7.45 GB each) are removed at the end.
+15. kernel dispatch and autotuning -- the port's autotune cache is a
+   fresh file under ``chiprun_out`` from the top of the run, and phases
+   4-14 run inside ``autotune.no_tuning()`` (their plans stay
+   ``launch_plan``'s); :func:`autotune_case`: (a) the offline sweep's CI
+   set walked on the card, (b) every shape re-tuned into the cache, each
+   candidate checked against the plain version, and one lazy tune at
+   an eager call (none inside a capture), (c) ``autotune_sweep
+   --smoke`` on the cache in a child process, (d) B1 m2q-w8a8 and
+   uniform8 at batch 8 from the warmed cache against an empty cache,
+   and qwen token-m2q, (e) the dispatch axes: all off (no launch), a
+   tripped conv axis in ``Supervisor.health()``.  Prints one line per
+   tuned shape; each phase's wall seconds go to ``chip_smoke_phases.json``.
 
 It then prints the card's name and power limit again, one JSON line with
 every kernel's numbers and, last, the ``{"ok": true, "device": ...}``
@@ -384,7 +396,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def capture(fn, iters: int = 1):
     """(graph, output of the last call): ``iters`` calls of ``fn``
-    captured in a CUDA graph after three warm-up calls on a side stream."""
+    captured in a CUDA graph after three warm-up calls on a side stream.
+    The capture is begun by hand, after what ``torch.cuda.graph`` does
+    first (a synchronize, the allocator's cache emptied) but its full
+    garbage collection: this script captures hundreds of graphs (three a
+    kernel row in phase 3), and each collection walks the whole process;
+    the phases collect at their own boundaries instead."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -392,17 +409,24 @@ def capture(fn, iters: int = 1):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     graph = torch.cuda.CUDAGraph()
     # no garbage collection inside the capture: freeing an engine of an
     # earlier path (engines sit in reference cycles) would free its CUDA
     # graphs, a CUDA call that invalidates this capture
     gc.disable()
     try:
-        with torch.cuda.graph(graph):
-            for _ in range(iters):
-                y = fn()
+        with torch.cuda.stream(side):
+            graph.capture_begin()
+            try:
+                for _ in range(iters):
+                    y = fn()
+            finally:
+                graph.capture_end()
     finally:
         gc.enable()
+    torch.cuda.current_stream().wait_stream(side)
     return graph, y
 
 
@@ -737,15 +761,6 @@ def check_scales(torch, rng, calls) -> Tally:
     return tally
 
 
-def f32_dot_bound(torch, x, w_hat):
-    """Per-element limit for two f32 dots of x (M, K) and W (K, N) summed
-    in different orders: each is within K * 2^-24 * (|x| @ |W|) of the
-    exact dot, so they differ by at most K * 2^-23 * (|x| @ |W|); one more
-    2^-23 covers an epilogue scale multiply rounded on each side."""
-    K = x.shape[1]
-    return ((K + 1) * 2.0 ** -23) * (x.abs().double() @ w_hat.abs().double())
-
-
 def _int_mm_fits(M, K, N) -> bool:
     """torch._int_mm's shape rules on CUDA: M > 16, K and N multiples of
     8."""
@@ -833,7 +848,8 @@ def check_weights_only(torch, rng, name, calls_by_path) -> Tally:
                           lambda: torch.matmul(x, w_deq),
                           M * K * 2 + w_bytes + M * N * 4,
                           2.0 * M * K * N / BF16_FLOPS_PER_S * 1e3,
-                          err_bound=f32_dot_bound(torch, x.float(), w_hat),
+                          err_bound=int4_matmul.f32_dot_bound(x.float(),
+                                                              w_hat),
                           path=path if len(calls_by_path) > 1 else None)
             tally.rows[-1]["launch"] = int4_matmul.launch_plan(M, K, N)
             del w_hat, w_deq, qt, args
@@ -2106,7 +2122,7 @@ def run_runtime(torch, out_dir, card):
 # ---- phase 9: supervised serving -------------------------------------------
 # the top-level keys of Supervisor.health() over a daemon without a
 # journal: the JAX package's (tests/test_torch_supervisor.py holds this set
-# against it); the port's trip_latches value is {"axes": None}
+# against it); the port's trip_latches value is {"axes": trip_counts()}
 HEALTH_KEYS = frozenset({
     "state", "ready", "restarts", "last_recovery_s", "replayed",
     "supervised_outstanding", "unix_time", "trip_latches", "stats",
@@ -2527,7 +2543,7 @@ def supervised_vision(vis, n_images: int = N_IMAGES, max_batch: int = BATCH):
     counts = kernels.counts()
     m2q, dw, attn = main_path_calls(cfg, 1)
     # the MSA mixer runs int8 (relu_attn and its scales) on the card, f32
-    # einsums on the CPU (ops.default_attn)
+    # einsums on the CPU (the attn axis's backend default)
     n_attn = len(attn) if builds.cuda else 0
     per_fwd = {"m2q_matmul": len(m2q), "dwconv_w4": len(dw),
                "relu_attn": n_attn, "relu_attn_scales": n_attn}
@@ -2782,7 +2798,8 @@ def run_supervised(torch, out_dir, card):
         trip_latches=final["trip_latches"])
     if (rc != 0 or not serving or torn or set(final) != HEALTH_KEYS
             or any(s["restarts"] for s in snaps) or final["restarts"]
-            or final["trip_latches"] != {"axes": None}
+            or final["trip_latches"] != {"axes": {
+                "dense": 0, "conv": 0, "attn": 0}}
             or final["stats"]["completed"] != 8
             or not counts["int4_matmul"]["launches"]):
         fail(f"phase 9 (e): rc {rc}, {json.dumps(res['health_file'])}")
@@ -3280,7 +3297,8 @@ def moe_case(torch, cfg, tokens_per_step=None, device="cuda",
                                          artifacts)
     del qm
     served, problems, launches = pool_serve(torch, loaded, device,
-                                            requests, max_new, max_len)
+                                            requests, max_new, max_len,
+                                            trace=False)
     res.update(served)
     return res, problems, launches, loaded
 
@@ -3393,7 +3411,7 @@ def recurrent_case(torch, cfg, kind, device="cuda",
         else []
     served, more, launches = pool_serve(
         torch, qm, device, requests, max_new, max_len,
-        prompts=recurrent_requests(cfg, requests))
+        prompts=recurrent_requests(cfg, requests), trace=False)
     problems += more
     res.update(served)
     res["prefill_groups"] = served["eager_groups"]
@@ -3732,7 +3750,7 @@ def run_whisper(torch, out_dir, card) -> Counter:
 # compute) trained on SyntheticLM by the port's CLI, then quantized
 # under phase 6's two token recipes and served
 TRAIN_ARCH = "qwen1.5-0.5b"
-TRAIN_STEPS = 100
+TRAIN_STEPS = 50
 TRAIN_BATCH = 8
 TRAIN_SEQ = 256
 TRAIN_LR = 1e-3
@@ -4061,6 +4079,392 @@ def run_training(torch, out_dir, card) -> Counter:
     return launches
 
 
+# ---- phase 15: kernel dispatch and autotuning ------------------------------
+# main() points the port's autotune cache at a fresh file under the run's
+# out dir before phase 1, so phases 1-14 start from an empty cache (their
+# eager forwards tune lazily; their engines' steps never do).  Phase 15
+# walks the sweep's CI set (autotune_sweep.CI_CONFIGS x CI_RECIPES at
+# published widths), re-tunes every shape it finds into that file with
+# each candidate checked against its plain version, runs the sweep's
+# --smoke gate on it in a child process, serves from it, and drives the
+# dispatch axes.
+AUTOTUNE_CACHE = "chip_smoke_autotune_cache.json"
+AUTOTUNE_SMOKE_TIMEOUT = 600.0
+
+
+def _graph_tokens(qm, prompts, max_new: int, max_len: int) -> list:
+    """One greedy pass of ``prompts`` through a graphed token Engine
+    (eager on the CPU): each request's tokens."""
+    engine = qm.serve(max_batch=TOKEN_BATCH, max_len=max_len, seed=0)
+    handles = [engine.submit(p, max_new_tokens=max_new) for p in prompts]
+    engine.run()
+    return [h.handle.result() for h in handles]
+
+
+def _lazy_tuning(torch, device, problems) -> dict:
+    """One eager ``m2q_matmul_op`` at a shape no phase launches (M = 24):
+    on the card every candidate is timed and the winner persisted; on the
+    CPU nothing is.  Then the same op at M = 40 captured in a CUDA graph
+    (card only; its warm-up call inside ``no_tuning``): no probe, nothing
+    persisted."""
+    from repro_torch.kernels import autotune, m2q_matmul, ops
+    g = torch.Generator(device="cpu").manual_seed(24)
+    K, N = 256, 96
+    w = (torch.randint(-128, 128, (K, N), generator=g, dtype=torch.int8),
+         torch.rand(N, generator=g) * 1e-2, torch.zeros(N), torch.zeros(N))
+    sa = torch.tensor(0.02)
+    x24, x40 = (torch.randn(M, K, generator=g).to(torch.bfloat16)
+                for M in (24, 40))
+    sa, x24, x40, *w = (t.to(device) for t in (sa, x24, x40, *w))
+    on_card = torch.device(device).type == "cuda"
+
+    def cached(M):
+        return autotune.cached_plan("m2q_matmul", (M, K, N, torch.bfloat16),
+                                    device) is not None
+
+    autotune.reset_probe_count()
+    ops.m2q_matmul_op(x24, sa, *w)
+    res = {"eager_probes": autotune.tuning_probe_count(),
+           "eager_persisted": cached(24)}
+    want = len(m2q_matmul.candidate_plans(24, K, N)) if on_card else 0
+    if res["eager_probes"] != want or res["eager_persisted"] != on_card:
+        problems.append(f"(b) lazy tuning at an eager call: {res}")
+    if on_card:
+        with autotune.no_tuning():
+            ops.m2q_matmul_op(x40, sa, *w)
+        torch.cuda.synchronize()
+        autotune.reset_probe_count()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            ops.m2q_matmul_op(x40, sa, *w)
+        res.update(capture_probes=autotune.tuning_probe_count(),
+                   capture_persisted=cached(40))
+        del graph
+        if res["capture_probes"] or res["capture_persisted"]:
+            problems.append(f"(b) tuning inside a capture: {res}")
+    return res
+
+
+def forward_sums(cfg, rows) -> dict:
+    """Per VisionEngine bucket (batch 1, 2, 4, 8): each tuned kernel's
+    ``launch_plan`` ms and tuned ms (phase 15's rows) summed over one B1
+    forward's launches (:func:`main_path_calls`; int8_matmul runs the
+    uniform8 forward's dense calls), and the launches whose plan moved."""
+    by = {(r["kernel"], tuple(r["dims"])): r for r in rows}
+    out = {}
+    for b in (1, 2, 4, 8):
+        m2q, dw, attn = main_path_calls(cfg, b)
+        dense = [c[1:] for c in m2q]
+        calls = {"m2q_matmul": dense, "int8_matmul": dense,
+                 "dwconv_w4": [c[1:] for c in dw], "relu_attn": attn}
+        for kernel, dims in calls.items():
+            hit = [by.get((kernel, tuple(d) + ("bfloat16",))) for d in dims]
+            if not all(hit):
+                continue
+            out.setdefault(f"batch {b}", {})[kernel] = {
+                "launches": len(hit),
+                "launch_plan_ms": sum(r["launch_plan_ms"] for r in hit),
+                "tuned_ms": sum(r["tuned_ms"] for r in hit),
+                "moved": sum(r["tuned"] != r["launch_plan"] for r in hit)}
+    return out
+
+
+def autotune_case(torch, device="cuda", reduced: bool = False):
+    """Phase 15 on ``device`` (the CI set at published widths, or REDUCED
+    for the CPU tests): (a) discover the shapes of B1 R224 under m2q-w8a8
+    and uniform8 at VisionEngine's buckets and of qwen1.5-0.5b under its
+    token recipes at the engine's decode batch and one prefill group;
+    (b) tune every one into the run's cache (each candidate checked
+    against the plain version; on the CPU launch_plan's plans are
+    committed); (c) ``autotune_sweep --smoke`` on that cache in a child
+    process; (d) serve the B1 recipes at batch 8 from it -- zero probes,
+    logits bit-equal to an engine on an empty cache (launch_plan's plans)
+    and graph equal to eager -- and qwen token-m2q through
+    :func:`pool_serve`, its graphed tokens equal to an empty cache's;
+    (e) the dispatch axes: all off launches no kernel, its logits within
+    ``OFF_BOUND`` of the f32-attention kernel engine's and each quantized
+    matmul bit-equal on the all-off forward's own inputs; a tripped conv
+    axis shows in ``Supervisor.health()`` and routes the convs to the
+    plain path until ``reset_trip_latch()``.  Returns (figures, problems,
+    kernel launches, per-shape rows)."""
+    import os
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.analysis import traces
+    from repro_torch.core import qtensor
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.launch import autotune_sweep as sw
+    from repro_torch.nn import layers
+    from repro_torch.serving.daemon import ServingDaemon
+    from repro_torch.serving.supervisor import Supervisor
+
+    on_card = torch.device(device).type == "cuda"
+    field = "launches" if on_card else "plain_calls"
+    cache = os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
+    empty = cache + ".empty.json"
+    res, problems, launches, rows = {}, [], Counter(), []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(key, t0):
+        sync()
+        res[key] = time.perf_counter() - t0
+
+    # (a) the CI set: every deployment quantized once, then walked
+    t0 = time.perf_counter()
+    with autotune.no_tuning():
+        deps = {label: qm for arch in sw.CI_CONFIGS
+                for label, qm in traces.registry_deployments(
+                    arch, recipes=sw.CI_RECIPES, device=device,
+                    reduced=reduced)}
+    reqs, per_trace = traces.walk(
+        spec for label, qm in deps.items()
+        for spec in traces.model_trace_specs(qm, label))
+    timed("discover_s", t0)
+    res["shapes"] = len(reqs)
+    res["tunable_shapes"] = sum(r.tunable for r in reqs)
+    res["per_trace"] = per_trace
+
+    # (b) every tunable shape tuned (force_tune: one already cached is
+    # tuned again), each candidate checked against the plain version
+    autotune.reset_probe_count()
+    t0 = time.perf_counter()
+    sw.warm(reqs, cache, device, force_tune=True, rows=rows,
+            progress=lambda *a: None)
+    timed("warm_s", t0)
+    res["probes"] = autotune.tuning_probe_count()
+    res["candidates_checked"] = sum(r["candidates"] for r in rows)
+    # a miss at an eager launch tunes (on the card) and persists; inside a
+    # capture it takes launch_plan's plan, times nothing, persists nothing
+    res["lazy"] = _lazy_tuning(torch, device, problems)
+
+    # (c) the CI gate in a child process, on the same file
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.autotune_sweep",
+           "--smoke", "--cache", cache, "--device", str(device)]
+    proc = subprocess.run(cmd + (["--reduced"] if reduced else []),
+                          cwd=ROOT, env=_src_env(), capture_output=True,
+                          text=True, timeout=AUTOTUNE_SMOKE_TIMEOUT)
+    timed("smoke_s", t0)
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    res["smoke"] = {"rc": proc.returncode, "last_line": tail[0]}
+    if proc.returncode != 0 or "0 tuning probes" not in tail[0]:
+        problems.append(f"(c) --smoke rc {proc.returncode}: "
+                        f"{proc.stdout[-800:]} {proc.stderr[-800:]}")
+
+    # (d) served from the warmed cache against launch_plan's plans
+    t0 = time.perf_counter()
+    arch = sw.CI_CONFIGS[0]
+    images = np.random.default_rng(15).normal(0, 1, (
+        BATCH, deps[f"{arch}/m2q-w8a8"].cfg.img_res,
+        deps[f"{arch}/m2q-w8a8"].cfg.img_res, 3)).astype(np.float32)
+    autotune.reset_probe_count()
+    served = {}
+    for name in sw.CI_RECIPES:
+        qm = deps[f"{arch}/{name}"]
+        for label, path, graphs in (("graph", cache, True),
+                                    ("eager", cache, False),
+                                    ("launch_plan graph", empty, True)):
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = path
+            try:
+                eng = qm.serve(max_batch=BATCH, graphs=graphs)
+                kernels.reset_counts()
+                served[name, label] = eng.classify(images)
+                counts = kernels.counts()
+            finally:
+                os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cache
+            launches.update({k: c["launches"] for k, c in counts.items()})
+            got = {k: c[field] for k, c in counts.items() if c[field]}
+            if label == "graph":
+                want = got
+            elif got != want:
+                problems.append(f"(d) {name} {label}: {field} {got}, the "
+                                f"warmed graph engine's {want}")
+            if on_card and (any(c["plain_calls"] for c in counts.values())
+                            or not got):
+                problems.append(f"(d) {name} {label}: counts {counts}")
+            gap = np.abs(served[name, label] - served[name, "graph"])
+            if gap.max() != 0:
+                problems.append(f"(d) {name}: {label} logits differ from "
+                                f"the warmed graph engine's by {gap.max()}")
+        if not np.all(np.isfinite(served[name, "graph"])):
+            problems.append(f"(d) {name}: non-finite logits")
+    res["per_forward"] = forward_sums(deps[f"{arch}/m2q-w8a8"].cfg, rows)
+    res["serve_probes"] = autotune.tuning_probe_count()
+    if res["serve_probes"]:
+        problems.append(f"(d) {res['serve_probes']} probes while serving "
+                        "from the warmed cache")
+    lm = deps[f"{sw.CI_CONFIGS[1]}/m2q-w8a8@{traces.LM_PREFILL_TOKENS}"]
+    figs, probs, ln = pool_serve(torch, lm, device, trace=False)
+    launches.update(ln)
+    problems += [f"(d) token-m2q: {p}" for p in probs]
+    prompts = pool_requests(lm.cfg)
+    tokens = {}
+    for label, path in (("warmed", cache), ("launch_plan", empty)):
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = path
+        try:
+            tokens[label] = _graph_tokens(lm, prompts, POOL_NEW,
+                                          TOKEN_MAX_LEN)
+        finally:
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cache
+    if tokens["warmed"] != tokens["launch_plan"]:
+        problems.append("(d) token-m2q: tokens from the warmed cache "
+                        "differ from launch_plan's")
+    res["token_m2q"] = {k: figs[k] for k in (
+        "teacher_forced_max_abs_diff", "teacher_forced_bound",
+        "tokens_per_s") if k in figs}
+    timed("serve_s", t0)
+
+    # (e) the dispatch axes on the m2q-w8a8 B1
+    t0 = time.perf_counter()
+    qm = deps[f"{arch}/m2q-w8a8"]
+    off = ops.DispatchConfig(dense=False, conv=False, attn=False)
+    logits = {}
+    for label, cfg in (("off", off), ("f32 attention",
+                                      ops.DispatchConfig(attn=False))):
+        eng = qm.serve(max_batch=BATCH, dispatch=cfg)
+        kernels.reset_counts()
+        logits[label] = eng.classify(images)
+        counts = kernels.counts()
+        res[f"{label} counts"] = {k: c[field] for k, c in counts.items()
+                                  if c[field]}
+        if label == "off" and (any(c["launches"] for c in counts.values())
+                               or counts["dwconv_w4"]["plain_calls"]):
+            problems.append(f"(e) dispatch off: counts {counts}")
+    diff = float(np.abs(logits["off"] - logits["f32 attention"]).max())
+    top = float(np.abs(logits["f32 attention"]).max())
+    res["off_vs_f32_attention"] = {"max_abs_diff": diff, "max_abs": top,
+                                   "bound": OFF_BOUND * top}
+    if not diff <= OFF_BOUND * top:
+        problems.append(f"(e) dispatch-off logits differ from the "
+                        f"f32-attention engine's by {diff} (max {top})")
+    # each quantized matmul of the all-off forward, fed the activation
+    # that forward gave it: the kernel path returns the plain path's bits;
+    # and that eager forward is the all-off engine's, bit for bit
+    seen, plain = [], layers.qmatmul
+    layers.qmatmul = lambda x, w: seen.append((x, w)) or plain(x, w)
+    try:
+        with ops.dispatch(off):
+            eager_off = qm.forward(images).float().cpu().numpy()
+    finally:
+        layers.qmatmul = plain
+    if not np.array_equal(eager_off, logits["off"]):
+        problems.append("(e) the all-off engine's logits differ from the "
+                        "all-off eager forward's by "
+                        f"{np.abs(eager_off - logits['off']).max()}")
+    checked = 0
+    with torch.inference_mode():
+        for x, w in seen:
+            if ops.kernel_supported(w):
+                checked += 1
+                if not torch.equal(ops.qtensor_matmul(x, w),
+                                   qtensor.qmatmul(x, w)):
+                    problems.append(f"(e) a {type(w).__name__} matmul "
+                                    f"{tuple(x.shape)} differs between "
+                                    "the kernel and the plain path")
+    res["matmuls_bit_equal"] = checked
+    if not checked:
+        problems.append("(e) no quantized matmul was checked")
+    # the conv axis tripped: health reports it; convs take the plain path
+    eng = qm.serve(max_batch=BATCH)
+    sup = Supervisor(lambda: ServingDaemon(eng))
+    ops.trip_axis("conv")
+    try:
+        res["health_tripped"] = sup.health()["trip_latches"]
+        kernels.reset_counts()
+        tripped = eng.classify(images)
+        counts = {k: c[field] for k, c in kernels.counts().items()
+                  if c[field]}
+    finally:
+        ops.reset_trip_latch()
+    res["tripped counts"] = counts
+    res["health_reset"] = sup.health()["trip_latches"]
+    if res["health_tripped"] != {"axes": {"dense": 0, "conv": 1,
+                                          "attn": 0}} \
+            or res["health_reset"] != {"axes": {"dense": 0, "conv": 0,
+                                                "attn": 0}}:
+        problems.append(f"(e) health: {res['health_tripped']} tripped, "
+                        f"{res['health_reset']} reset")
+    # the head's last matmul is nn.dense (the dense axis): one launch a
+    # forward (on the CPU the plain QTensor path of a calibrated QM2Q leaf
+    # is m2q_matmul's plain version, so every matmul counts there)
+    if "dwconv_w4" in counts or (on_card
+                                 and counts.get("m2q_matmul") != 1):
+        problems.append(f"(e) conv tripped: {field} {counts}")
+    if not np.all(np.isfinite(tripped)):
+        problems.append("(e) conv tripped: non-finite logits")
+    timed("dispatch_s", t0)
+    del deps, qm, lm, eng
+    if on_card:
+        torch.cuda.empty_cache()
+    return res, problems, launches, rows
+
+
+# the dispatch-off forward against the f32-attention kernel forward (both
+# on seed-0 random weights).  Every quantized matmul agrees bit for bit on
+# its input (checked), so what differs is the depthwise conv: off, it is
+# JAX's XLA path's twin, a torch conv over the 4-bit weights dequantized
+# to bf16 (8 significant bits, each weight rounded by up to 2^-9 of
+# itself), against the kernel's f32 weights; each of the 20 convs moves
+# an output by about a bf16 ulp, and an int8 activation quantizer
+# downstream turns a value moved across a rounding boundary into a
+# one-step code change, which the following layers carry to the logits.
+# Measured on an NVIDIA H100 80GB HBM3 at 700.00 W: 0.0664 of a max
+# |logit| of 1.68 (3.95%).  The bound keeps 2.5x headroom over that; it
+# catches what is no rounding (a wrong weight or path moves the logits
+# by their own size), while the launch counts catch wrong routing.
+OFF_BOUND = 1e-1
+
+
+def run_autotune(torch, out_dir, card) -> Counter:
+    """Phase 15 at published widths on the card; fails on any problem.
+    Prints one line per tuned shape and the per-forward sums."""
+    t0 = time.perf_counter()
+    res, problems, launches, rows = autotune_case(torch)
+    res["phase_s"] = time.perf_counter() - t0
+    for row in rows:
+        print("phase 15 shape:", json.dumps(row), flush=True)
+    (out_dir / "chip_smoke_autotune_rows.json").write_text(
+        json.dumps(rows, indent=0))
+    (out_dir / "chip_smoke_autotune.json").write_text(
+        json.dumps(res, indent=1))
+    print("phase 15:", json.dumps(res), flush=True)
+    if problems:
+        fail("phase 15: " + "; ".join(problems)[:3000])
+    print(f"phase 15: {res['phase_s']:.1f} s; {card}", flush=True)
+    return launches
+
+
+class PhaseClock:
+    """Each phase's wall seconds, and the autotuner's probes and tuning
+    seconds within it (the lazy tuning of its eager calls), printed and
+    rewritten to ``chip_smoke_phases.json`` after every phase, so a run
+    that fails still leaves its timeline."""
+
+    def __init__(self, out_dir):
+        from repro_torch.kernels import autotune
+        self.autotune = autotune
+        self.path = out_dir / "chip_smoke_phases.json"
+        self.rows = {}
+        self.t0 = self.t = time.perf_counter()
+        autotune.reset_probe_count()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.rows[name] = {"s": now - self.t, "run_s": now - self.t0,
+                           "probes": self.autotune.tuning_probe_count(),
+                           "tuning_s": self.autotune.tuning_seconds()}
+        self.autotune.reset_probe_count()
+        self.t = now
+        self.path.write_text(json.dumps(self.rows, indent=1))
+        print(f"phase timing {name}: {json.dumps(self.rows[name])}",
+              flush=True)
+
+
 def main() -> None:
     import torch  # the card check needs torch before anything else
 
@@ -4082,12 +4486,20 @@ def main() -> None:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_card.txt").write_text(card + "\n")
+    # the port's autotune cache: a fresh file for this run (phase 15)
+    import os
+    tuned = out_dir / AUTOTUNE_CACHE
+    for stale in (tuned, Path(f"{tuned}.empty.json")):
+        stale.unlink(missing_ok=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(tuned)
+    clock = PhaseClock(out_dir)
 
     # ---- 2. build -------------------------------------------------------
-    from repro_torch.kernels import build
+    from repro_torch.kernels import autotune, build
     t0 = time.perf_counter()
     print(build.build_all(), flush=True)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    clock.lap("2 build")
 
     # ---- 3. kernel checks at the recipe paths' shapes ---------------------
     import numpy as np
@@ -4147,44 +4559,48 @@ def main() -> None:
             print(f"{t.name} per {path} forward: {json.dumps(total)}",
                   flush=True)
     print("kernels:", ", ".join(t.name for t in tallies), flush=True)
+    clock.lap("3 kernel checks")
 
     launches = Counter()
     try:  # fail() exits through here too: no artifact stays behind
-        # ---- 4./5. the recipe paths, each read from zeroed counters -----
-        for name in PATHS:
-            counts = run_path(torch, cfg, name, calls, out_dir,
-                              full=name in ("m2q-w8a8", "uniform8"))
+        # phases 4-14 resolve plans from the (empty) cache or launch_plan
+        # and never tune: their kernels run launch_plan's plans, the ones
+        # phase 3 times (PERF.md, PR 31: what tuning them lazily cost)
+        with autotune.no_tuning():
+            # ---- 4./5. the recipe paths, each read from zeroed counters --
+            for name in PATHS:
+                counts = run_path(torch, cfg, name, calls, out_dir,
+                                  full=name in ("m2q-w8a8", "uniform8"))
+                launches.update({k: c["launches"]
+                                 for k, c in counts.items()})
+            clock.lap("4-5 recipe paths")
+
+            # ---- 6. the token paths, each read from zeroed counters -------
+            for name in ("token", "token-m2q"):
+                counts = run_token_path(torch, out_dir, name)
+                launches.update({k: c["launches"]
+                                 for k, c in counts.items()})
+            clock.lap("6 token paths")
+
+            # ---- 7. the trained proxy's artifact, from zeroed counters ----
+            counts = run_proxy(torch, out_dir)
             launches.update({k: c["launches"] for k, c in counts.items()})
+            clock.lap("7 proxy")
 
-        # ---- 6. the token paths, each read from zeroed counters ----------
-        for name in ("token", "token-m2q"):
-            counts = run_token_path(torch, out_dir, name)
-            launches.update({k: c["launches"] for k, c in counts.items()})
+            # ---- 8.-14., each part from zeroed counters -------------------
+            for name, run in (("8 runtime", run_runtime),
+                              ("9 supervised", run_supervised),
+                              ("10 lm pool", run_lm_pool),
+                              ("11 moe", run_moe),
+                              ("12 recurrent", run_recurrent),
+                              ("13 whisper", run_whisper),
+                              ("14 training", run_training)):
+                launches.update(run(torch, out_dir, card))
+                clock.lap(name)
 
-        # ---- 7. the trained proxy's artifact, read from zeroed counters ---
-        counts = run_proxy(torch, out_dir)
-        launches.update({k: c["launches"] for k, c in counts.items()})
-
-        # ---- 8. the serving runtime, each part from zeroed counters -------
-        launches.update(run_runtime(torch, out_dir, card))
-
-        # ---- 9. supervised serving, each part from zeroed counters --------
-        launches.update(run_supervised(torch, out_dir, card))
-
-        # ---- 10. the dense LM pool, each pass from zeroed counters ---------
-        launches.update(run_lm_pool(torch, out_dir, card))
-
-        # ---- 11. the MoE LMs, each pass from zeroed counters ---------------
-        launches.update(run_moe(torch, out_dir, card))
-
-        # ---- 12. the recurrent LMs, each pass from zeroed counters --------
-        launches.update(run_recurrent(torch, out_dir, card))
-
-        # ---- 13. whisper, from zeroed counters ------------------------------
-        launches.update(run_whisper(torch, out_dir, card))
-
-        # ---- 14. training, then the trained model served -------------------
-        launches.update(run_training(torch, out_dir, card))
+        # ---- 15. kernel dispatch and autotuning -----------------------------
+        launches.update(run_autotune(torch, out_dir, card))
+        clock.lap("15 autotune")
     finally:
         import shutil
         shutil.rmtree(ARTIFACTS, ignore_errors=True)

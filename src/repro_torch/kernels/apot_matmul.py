@@ -50,14 +50,15 @@ def _launch(x, codes, scale, plan: dict = None) -> torch.Tensor:
 
 
 def apot_matmul(x: torch.Tensor, codes: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
+                scale: torch.Tensor, plan: dict = None) -> torch.Tensor:
     """x (M, K) float32/bfloat16; codes (K, N) uint8; scale (N,) f32 ->
-    y (M, N) f32."""
+    y (M, N) f32.  ``plan``: the launch shape on CUDA (``launch_plan``'s
+    when None)."""
     global launches
     if x.device.type == "cpu":
         return apot_matmul_plain(x, codes, scale)
     if x.device.type != "cuda":
         raise ValueError(f"apot_matmul: unsupported device {x.device}")
-    y = _launch(x, codes, scale)
+    y = _launch(x, codes, scale, plan)
     launches += 1
     return y

@@ -118,6 +118,38 @@ def launch_plan(B: int, H: int, W: int, C: int, k: int, stride: int) -> dict:
     return dict(plan, blocks=plan_shape(plan, B, H, W, C, k, stride)["blocks"])
 
 
+PLAN_KEYS = ("cv", "sw", "th", "r")  # what _launch reads of a plan
+
+
+def candidate_plans(B: int, H: int, W: int, C: int, k: int, stride: int,
+                    itemsize: int = 2) -> list:
+    """The plans the autotuner times for one conv, :func:`launch_plan`'s
+    first, then every other plan the kernel takes: r in ``RS``; the
+    strips of a row split into 1, 2, 4, ... even tiles of at most 16
+    strips; 1-8 channel vectors (no more than C has); 1-16 rows (no more
+    than the map has); 32-``MAX_THREADS`` threads; shared memory within
+    ``MAX_SMEM`` (x of ``itemsize`` bytes)."""
+    p = launch_plan(B, H, W, C, k, stride)
+    first = {key: p[key] for key in PLAN_KEYS}
+    out = [first]
+    HO, WO = -(-H // stride), -(-W // stride)
+    for r in RS:
+        strips = -(-WO // r)
+        sws = sorted({-(-strips // n) for n in (1, 2, 4, 8, 16, 32)
+                      if -(-strips // n) <= 16})
+        for sw in sws:
+            for cv in (1, 2, 4, 8):
+                if cv > -(-C // CPT):
+                    continue
+                for th in (1, 2, 4, 8, 16):
+                    q = {"cv": cv, "sw": sw, "th": th, "r": r}
+                    shape = plan_shape(q, B, H, W, C, k, stride, itemsize)
+                    if th <= HO and 32 <= shape["threads"] <= MAX_THREADS \
+                            and shape["smem"] <= MAX_SMEM and q != first:
+                        out.append(q)
+    return out
+
+
 def _launch(x, packed, scale, zero_point, kh, kw, stride,
             out_dtype=torch.float32, plan: dict = None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors; ``plan``: a launch shape other
@@ -165,16 +197,18 @@ def _launch(x, packed, scale, zero_point, kh, kw, stride,
 def dwconv_w4(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
               zero_point: torch.Tensor, kh: int = 3, kw: int = 3,
               stride: int = 1,
-              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              out_dtype: torch.dtype = torch.float32,
+              plan: dict = None) -> torch.Tensor:
     """Depthwise kh x kw conv, SAME padding, stride >= 1 -> (B,HO,WO,C) in
     ``out_dtype`` (f32, the JAX kernel's contract, or bf16: the f32 sum
-    rounded to nearest even)."""
+    rounded to nearest even).  ``plan``: the launch shape on CUDA
+    (:func:`launch_plan`'s when None)."""
     global launches
     if x.device.type == "cpu":
         return dwconv_w4_plain(x, packed, scale, zero_point, kh, kw, stride,
                                out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"dwconv_w4: unsupported device {x.device}")
-    y = _launch(x, packed, scale, zero_point, kh, kw, stride, out_dtype)
+    y = _launch(x, packed, scale, zero_point, kh, kw, stride, out_dtype, plan)
     launches += 1
     return y

@@ -87,6 +87,39 @@ def launch_plan(M: int, K: int, N: int, bf16: bool = True) -> dict:
             "blocks": tiles * splits}
 
 
+PLAN_KEYS = ("bm", "bn", "splits")  # what _launch reads of a plan
+
+
+def candidate_plans(M: int, K: int, N: int, bf16: bool = True) -> list:
+    """The plans the autotuner times for one shape (``apot_matmul``'s
+    too), :func:`launch_plan`'s first: for bf16 x, every narrow tile that
+    holds M tokens (M <= 16) or every ``TILES`` tile (M > 16) under every
+    power-of-two K split up to ``MAX_SPLIT`` that leaves each split at
+    least one step of ``BK``; f32 x has the one FMA plan."""
+    p = launch_plan(M, K, N, bf16)
+    first = {k: p[k] for k in PLAN_KEYS}
+    if not bf16:
+        return [first]
+    tiles = [t for t in NARROW_TILES if t[0] >= M] if M <= 16 else TILES
+    steps = -(-K // BK)
+    out = [first]
+    for bm, bn in tiles:
+        for splits in (1, 2, 4, 8):
+            q = {"bm": bm, "bn": bn, "splits": splits}
+            if splits <= min(steps, MAX_SPLIT) and q != first:
+                out.append(q)
+    return out
+
+
+def f32_dot_bound(x: torch.Tensor, w_hat: torch.Tensor) -> torch.Tensor:
+    """Per-element limit for two f32 dots of x (M, K) and W (K, N) summed
+    in different orders: each is within K * 2^-24 * (|x| @ |W|) of the
+    exact dot, so they differ by at most K * 2^-23 * (|x| @ |W|); one more
+    2^-23 covers an epilogue scale multiply rounded on each side."""
+    K = x.shape[1]
+    return ((K + 1) * 2.0 ** -23) * (x.abs().double() @ w_hat.abs().double())
+
+
 def _launch(x, packed, scale, zero_point, plan: dict = None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors; ``plan``: a launch shape other
     than :func:`launch_plan`'s (same keys; a tile of ``TILES`` or
@@ -106,15 +139,16 @@ def _launch(x, packed, scale, zero_point, plan: dict = None) -> torch.Tensor:
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
-                zero_point: torch.Tensor) -> torch.Tensor:
+                zero_point: torch.Tensor, plan: dict = None) -> torch.Tensor:
     """x (M, K) float32/bfloat16; packed (K, N/2) uint8; scale/zero_point
     (N,) f32, the zero points integral (as ``uniform_quantize`` makes
-    them) -> y (M, N) f32."""
+    them) -> y (M, N) f32.  ``plan``: the launch shape on CUDA
+    (:func:`launch_plan`'s when None)."""
     global launches
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scale, zero_point)
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul: unsupported device {x.device}")
-    y = _launch(x, packed, scale, zero_point)
+    y = _launch(x, packed, scale, zero_point, plan)
     launches += 1
     return y

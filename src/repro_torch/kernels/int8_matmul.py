@@ -19,7 +19,7 @@ import torch
 
 from ..core.quant import int_einsum, quantize_act
 from . import build
-from .m2q_matmul import SMS
+from .m2q_matmul import PLAN_KEYS, SMS, matmul_candidates
 from .m2q_matmul import launch_plan as m2q_launch_plan
 
 launches = 0     # kernel launches (the main path's proof of use)
@@ -64,6 +64,13 @@ def launch_plan(M: int, K: int, N: int) -> dict:
     return p
 
 
+def candidate_plans(M: int, K: int, N: int) -> list:
+    """The plans the autotuner times for one shape, :func:`launch_plan`'s
+    first: ``m2q_matmul``'s tiles and K splits (one template)."""
+    p = launch_plan(M, K, N)
+    return matmul_candidates({k: p[k] for k in PLAN_KEYS}, K)
+
+
 def _launch(x, wq, act_scale, scale, zero_point,
             out_dtype: torch.dtype = torch.float32,
             plan: dict = None) -> torch.Tensor:
@@ -87,16 +94,19 @@ def _launch(x, wq, act_scale, scale, zero_point,
 
 def int8_matmul(x: torch.Tensor, wq: torch.Tensor, act_scale: torch.Tensor,
                 scale: torch.Tensor, zero_point: torch.Tensor,
-                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                out_dtype: torch.dtype = torch.float32,
+                plan: dict = None) -> torch.Tensor:
     """x (M, K) float32/bfloat16; wq (K, N) int8; act_scale 0-d f32;
     scale/zero_point (N,) f32 -> y (M, N) in ``out_dtype`` (f32, the JAX
-    kernel's contract, or bf16: the f32 result rounded to nearest even)."""
+    kernel's contract, or bf16: the f32 result rounded to nearest even).
+    ``plan``: the launch shape on CUDA (:func:`launch_plan`'s when
+    None)."""
     global launches
     if x.device.type == "cpu":
         return int8_matmul_plain(x, wq, act_scale, scale, zero_point,
                                  out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
-    y = _launch(x, wq, act_scale, scale, zero_point, out_dtype)
+    y = _launch(x, wq, act_scale, scale, zero_point, out_dtype, plan)
     launches += 1
     return y

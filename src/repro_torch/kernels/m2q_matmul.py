@@ -77,6 +77,31 @@ def launch_plan(M: int, K: int, N: int) -> dict:
     return {"bm": bm, "bn": bn, "splits": splits, "blocks": tiles * splits}
 
 
+PLAN_KEYS = ("bm", "bn", "splits")  # what _launch reads of a plan
+
+
+def matmul_candidates(first: dict, K: int) -> list:
+    """``first`` (a plan's ``PLAN_KEYS``), then every other tile of
+    ``TILES`` under every power-of-two K split up to ``MAX_SPLIT`` that
+    leaves each split at least one step of ``BK``: the launch shapes
+    ``csrc/m2q_matmul.cu`` builds for both of its entry points."""
+    steps = -(-K // BK)
+    out = [first]
+    for bm, bn in TILES:
+        for splits in (1, 2, 4, 8):
+            p = {"bm": bm, "bn": bn, "splits": splits}
+            if splits <= min(steps, MAX_SPLIT) and p != first:
+                out.append(p)
+    return out
+
+
+def candidate_plans(M: int, K: int, N: int) -> list:
+    """The plans the autotuner times for one shape, :func:`launch_plan`'s
+    first."""
+    p = launch_plan(M, K, N)
+    return matmul_candidates({k: p[k] for k in PLAN_KEYS}, K)
+
+
 def _launch(x, act_scale, payload, u_scale, u_zp, a_scale,
             plan: dict = None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors; ``plan``: a launch shape other
@@ -99,14 +124,15 @@ def _launch(x, act_scale, payload, u_scale, u_zp, a_scale,
 
 def m2q_matmul(x: torch.Tensor, act_scale: torch.Tensor, payload: torch.Tensor,
                u_scale: torch.Tensor, u_zp: torch.Tensor,
-               a_scale: torch.Tensor) -> torch.Tensor:
+               a_scale: torch.Tensor, plan: dict = None) -> torch.Tensor:
     """x (M, K) float32/bfloat16; act_scale 0-d f32; payload (K, N) int8;
-    u_scale/u_zp/a_scale (N,) f32 -> y (M, N) f32."""
+    u_scale/u_zp/a_scale (N,) f32 -> y (M, N) f32.  ``plan``: the launch
+    shape on CUDA (:func:`launch_plan`'s when None)."""
     global launches
     if x.device.type == "cpu":
         return m2q_matmul_plain(x, act_scale, payload, u_scale, u_zp, a_scale)
     if x.device.type != "cuda":
         raise ValueError(f"m2q_matmul: unsupported device {x.device}")
-    y = _launch(x, act_scale, payload, u_scale, u_zp, a_scale)
+    y = _launch(x, act_scale, payload, u_scale, u_zp, a_scale, plan)
     launches += 1
     return y

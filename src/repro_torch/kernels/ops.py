@@ -1,35 +1,61 @@
-"""QTensor-level entry points onto the kernels (twin of the
-``kernel_supported`` / ``qtensor_matmul`` / ``qtensor_dwconv`` /
-``relu_attn_op`` / ``decode_attn_int8_op`` part of ``repro.kernels.ops``).
+"""Kernel dispatch and the entry points onto the kernels (twin of
+``repro.kernels.ops``).
 
-:func:`qtensor_matmul` routes exactly the leaves the JAX package's
-``kernel_supported`` accepts to a kernel: calibrated 2-D ``QM2Q`` and
-layer-sliced ``QExpertM2Q`` -> ``m2q_matmul``; 2-D ``QUniform`` (axis 1)
-at 8 bits with an activation scale -> ``int8_matmul``, at 4 bits ->
-``int4_matmul``; 2-D ``QAPoT`` without an activation scale ->
-``apot_matmul``.  Every other leaf takes its
-plain QTensor ``matmul``, as JAX's ``qmatmul`` does.
-:func:`qtensor_expert_matmul` runs an MoE expert product: a calibrated
-layer slice of a ``QExpertM2Q`` expert leaf goes to ``m2q_matmul`` one
-expert at a time (the kernel takes a 2-D payload, as JAX's
-``kernel_supported`` says).  Each kernel wrapper
-launches the CUDA kernel for CUDA tensors and runs the plain version for
-CPU tensors.  Nothing falls back: a kernel that fails to build or launch
-raises.  The one switch is :func:`reference_path`, an explicit scope in
-which the plain versions run on any device -- the reference a caller
-compares the kernels against.
+Dispatch control is LAYERED (see :class:`DispatchConfig`), in JAX's
+order:
+
+1. a scoped :func:`dispatch` context (programmatic, nestable -- what tests
+   and the serving engines use),
+2. the per-axis trip latch (:func:`trip_axis` / :func:`axis_tripped`): a
+   tripped axis resolves to the plain path process-wide until
+   :func:`reset_trip_latch`; an explicit scope still overrides it.
+   Nothing in the port trips an axis on a failure (there is no
+   ``FallbackGuard``, ROADMAP A5: a kernel that raises fails its batch);
+   only an explicit caller does,
+3. the ``REPRO_TORCH_DISPATCH`` / ``REPRO_TORCH_CONV_DISPATCH`` /
+   ``REPRO_TORCH_ATTN_DISPATCH`` env vars (process-wide defaults; this
+   module is the only place they are read; the JAX package reads its own
+   ``REPRO_PALLAS_*``, so a switch meant for one never steers the other),
+4. the backend default, by the tensor's device: on CUDA every axis is on
+   (as JAX's axes are on a TPU).  On the CPU the dense and conv axes stay
+   on -- a kernel wrapper given a CPU tensor runs its plain version, the
+   route the CPU tests hold against JAX -- and the attn axis is off: the
+   MSA mixer keeps its f32 einsums there, as JAX does on its CPU.
+
+The ``dense`` axis steers QTensor matmuls (``nn.dense``, MoE experts),
+``conv`` the quantized conv paths (PWConvs, the depthwise kernel, the
+im2col stem), ``attn`` the int8 attention kernels (the MSA mixer's
+``relu_attn``, the int8-KV decode attention); conv and attn follow dense
+when unset.  An axis off means the plain QTensor path, the twin of JAX's
+XLA path: ``qmatmul(x, qt)``, the dequantized depthwise conv, the f32 MSA
+einsums, the plain decode chain.  The attn axis changes numerics on the
+MSA (int8 quantization), which is why it has its own switch.
+
+:func:`reference_path` is a different thing: the tests' oracle, a scope
+in which every wrapper runs its plain version on any device.
+
+The ``*_op`` entry points take a ``plan`` or ask :mod:`.autotune` for one
+(cache first, then live tuning at an eager CUDA launch, else the
+wrapper's ``launch_plan``), with a bench closure over their own operands;
+``decode_attn_int8_op`` only notes its shape.  Each wrapper launches the
+CUDA kernel for CUDA tensors and runs its plain version for CPU tensors.
+Nothing falls back: a kernel that fails to build or launch raises.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import math
+import os
+import threading
 from typing import Optional
 
 import torch
 
 from ..core.qtensor import QAPoT, QExpertM2Q, QM2Q, QUniform, qmatmul
 from . import apot_matmul as _apot
+from . import autotune
 from . import decode_attn_int8 as _dec
 from . import dwconv_w4 as _dw
 from . import int4_matmul as _int4
@@ -56,12 +82,181 @@ def reference_path():
         _REFERENCE.reset(token)
 
 
-def default_attn(device: torch.device) -> str:
-    """The MSA token mixer's default numerics: the int8 kernel on CUDA (as
-    the JAX package defaults to its kernel on a TPU), the f32 einsums
-    elsewhere.  int8 changes numerics by quantization error, so
-    strict-parity callers pass ``attn`` explicitly."""
-    return ATTN_INT8 if torch.device(device).type == "cuda" else ATTN_F32
+# ---------------------------------------------------------------------------
+# dispatch scopes, the trip latch, the three axes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchConfig:
+    """Scoped kernel-dispatch switches; ``None`` inherits the next layer.
+
+    Any scoped field beats the env vars, so a scope with ``dense=True``
+    also turns the conv and attn axes on over a ``...=0`` env var (pass
+    ``conv=False`` / ``attn=False`` to keep an axis off).  Enter a scope
+    with :func:`dispatch`, or hand the config to a serving engine
+    (``Engine`` / ``VisionEngine`` / ``QuantizedModel.serve`` take
+    ``dispatch=``), which enters it inside every step and graph capture.
+    A CUDA graph replays the routing it was captured under; the engines
+    key their graphs by the resolved axes (:func:`resolve`)."""
+
+    dense: Optional[bool] = None
+    conv: Optional[bool] = None
+    attn: Optional[bool] = None
+
+    def layered_over(self, base: "DispatchConfig") -> "DispatchConfig":
+        return DispatchConfig(
+            dense=self.dense if self.dense is not None else base.dense,
+            conv=self.conv if self.conv is not None else base.conv,
+            attn=self.attn if self.attn is not None else base.attn)
+
+
+_DISPATCH_SCOPE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_dispatch_scope", default=DispatchConfig())
+
+
+def active_dispatch() -> DispatchConfig:
+    """The currently scoped DispatchConfig (all-None outside any scope)."""
+    return _DISPATCH_SCOPE.get()
+
+
+@contextlib.contextmanager
+def dispatch(config: Optional[DispatchConfig] = None, *,
+             dense: Optional[bool] = None, conv: Optional[bool] = None,
+             attn: Optional[bool] = None):
+    """Scope kernel dispatch (nestable; None inherits).
+
+        with ops.dispatch(dense=True):          # kernels on
+            with ops.dispatch(conv=False):      # ...but plain convs here
+                ...
+
+    Takes a :class:`DispatchConfig`, the fields directly, or both (the
+    fields layer over the config); unset fields fall through to the
+    enclosing scope, then the latch, the env vars and the backend
+    default."""
+    ov = DispatchConfig(dense, conv, attn)
+    if config is not None:
+        ov = ov.layered_over(config)
+    token = _DISPATCH_SCOPE.set(ov.layered_over(_DISPATCH_SCOPE.get()))
+    try:
+        yield
+    finally:
+        _DISPATCH_SCOPE.reset(token)
+
+
+_ENV = {"dense": "REPRO_TORCH_DISPATCH",
+        "conv": "REPRO_TORCH_CONV_DISPATCH",
+        "attn": "REPRO_TORCH_ATTN_DISPATCH"}
+
+
+def _env_flag(name: str) -> Optional[bool]:
+    env = os.environ.get(name)
+    if env is None:
+        return None
+    return env.strip().lower() not in ("", "0", "false")
+
+
+_TRIP_AXES = ("dense", "conv", "attn")
+_TRIP_LATCH = {ax: 0 for ax in _TRIP_AXES}
+_TRIP_LOCK = threading.Lock()
+
+
+def trip_axis(axis: str) -> None:
+    """Latch one dispatch axis onto the plain path (the process-wide
+    default; an explicit :func:`dispatch` scope still wins).  Raises
+    ``ValueError`` for an unknown axis."""
+    if axis not in _TRIP_LATCH:
+        raise ValueError(f"unknown dispatch axis {axis!r}; one of "
+                         f"{_TRIP_AXES}")
+    with _TRIP_LOCK:
+        _TRIP_LATCH[axis] += 1
+
+
+def axis_tripped(axis: str) -> bool:
+    return _TRIP_LATCH.get(axis, 0) > 0
+
+
+def trip_counts() -> dict:
+    """Per-axis trip counters (what ``Supervisor.health()`` reports)."""
+    with _TRIP_LOCK:
+        return dict(_TRIP_LATCH)
+
+
+def reset_trip_latch() -> None:
+    """Clear every axis latch (tests; an operator re-arming kernels)."""
+    with _TRIP_LOCK:
+        for ax in _TRIP_LATCH:
+            _TRIP_LATCH[ax] = 0
+
+
+def _backend_default(axis: str, device) -> bool:
+    if torch.device(device).type == "cuda":
+        return True
+    return axis != "attn"
+
+
+def _axis_enabled(axis: str, device) -> bool:
+    """Scope ``axis`` -> scope ``dense`` -> the ``axis`` latch and env var
+    -> the ``dense`` latch and env var -> the backend default."""
+    scope = _DISPATCH_SCOPE.get()
+    for scoped in (getattr(scope, axis), scope.dense):
+        if scoped is not None:
+            return scoped
+    for ax in dict.fromkeys((axis, "dense")):
+        if axis_tripped(ax):
+            return False
+        env = _env_flag(_ENV[ax])
+        if env is not None:
+            return env
+    return _backend_default(axis, device)
+
+
+def dispatch_enabled(device) -> bool:
+    """Should QTensor matmuls on ``device`` run the kernels?  Scope
+    ``dense`` -> the ``dense`` latch -> ``REPRO_TORCH_DISPATCH`` -> the
+    backend default."""
+    return _axis_enabled("dense", device)
+
+
+def conv_dispatch_enabled(device) -> bool:
+    """Should quantized convs on ``device`` run the kernels (PWConv and
+    the im2col stem -> the matmul kernels, depthwise -> dwconv_w4)?
+    Scope ``conv`` -> scope ``dense`` -> the ``conv`` latch ->
+    ``REPRO_TORCH_CONV_DISPATCH`` -> the dense axis's latch, env var and
+    backend default."""
+    return _axis_enabled("conv", device)
+
+
+def attn_dispatch_enabled(device) -> bool:
+    """Should attention on ``device`` run the int8 kernels (the MSA
+    mixer's default -> relu_attn, int8-KV decode -> decode_attn_int8)?
+    Layered exactly like the conv axis, over ``REPRO_TORCH_ATTN_DISPATCH``.
+    The MSA path quantizes activations the f32 einsums do not, so
+    strict-parity callers pin ``attn``."""
+    return _axis_enabled("attn", device)
+
+
+def resolve(device) -> DispatchConfig:
+    """The three axes as they resolve here for ``device`` (what a CUDA
+    graph captured now bakes in)."""
+    return DispatchConfig(dispatch_enabled(device),
+                          conv_dispatch_enabled(device),
+                          attn_dispatch_enabled(device))
+
+
+@contextlib.contextmanager
+def engine_step(config: Optional[DispatchConfig]):
+    """What a serving engine enters around every step and capture: its
+    dispatch config (if any) and :func:`autotune.no_tuning` -- a step
+    resolves plans from the cache or ``launch_plan``, never by timing."""
+    with (dispatch(config) if config is not None
+          else contextlib.nullcontext()), autotune.no_tuning():
+        yield
+
+
+# ---------------------------------------------------------------------------
+# leaf routing
+# ---------------------------------------------------------------------------
 
 
 def kernel_supported(qt) -> bool:
@@ -80,28 +275,6 @@ def kernel_supported(qt) -> bool:
     return False
 
 
-def _kernel_matmul(x2: torch.Tensor, qt) -> torch.Tensor:
-    """x2 (M, K) through the leaf's kernel (or its plain version inside
-    :func:`reference_path`) -> (M, N): x2's dtype from ``int8_matmul``,
-    which stores it itself, f32 from the others."""
-    ref = _REFERENCE.get()
-    if isinstance(qt, (QM2Q, QExpertM2Q)):
-        # a layer slice's (1, 1) activation scale goes in as one element
-        fn = _m2q.m2q_matmul_plain if ref else _m2q.m2q_matmul
-        return fn(x2, qt.act_scale.reshape(()), qt.payload,
-                  qt.u_scale.reshape(-1), qt.u_zp.reshape(-1),
-                  qt.a_scale.reshape(-1))
-    if isinstance(qt, QAPoT):
-        fn = _apot.apot_matmul_plain if ref else _apot.apot_matmul
-        return fn(x2, qt.codes, qt.scale.reshape(-1))
-    if qt.bits == 8:
-        fn = _int8.int8_matmul_plain if ref else _int8.int8_matmul
-        return fn(x2, qt.payload, qt.act_scale, qt.scale.reshape(-1),
-                  qt.zero_point.reshape(-1), out_dtype=x2.dtype)
-    fn = _int4.int4_matmul_plain if ref else _int4.int4_matmul
-    return fn(x2, qt.payload, qt.scale.reshape(-1), qt.zero_point.reshape(-1))
-
-
 def expert_kernel_supported(qt) -> bool:
     """True when ``m2q_matmul`` computes this expert product expert by
     expert: a layer slice of a calibrated QExpertM2Q expert leaf (an (E,
@@ -110,35 +283,8 @@ def expert_kernel_supported(qt) -> bool:
             and qt.act_scale is not None and qt.act_scale.numel() == 1)
 
 
-def qtensor_expert_matmul(xe: torch.Tensor, qt: QExpertM2Q) -> torch.Tensor:
-    """``y[E, C, N] = xe[E, C, K] @ W[E, K, N]`` in xe's dtype for a layer
-    slice of a QExpertM2Q expert leaf: E ``m2q_matmul`` calls, expert
-    ``e``'s (C, K) rows against its (K, N) payload with the layer's
-    activation scale (the plain version inside :func:`reference_path`);
-    exactly :meth:`QExpertM2Q.expert_matmul`, which an uncalibrated leaf
-    takes."""
-    if not expert_kernel_supported(qt):
-        return qt.expert_matmul(xe)
-    fn = _m2q.m2q_matmul_plain if _REFERENCE.get() else _m2q.m2q_matmul
-    sa = qt.act_scale.reshape(())
-    xe = xe.contiguous()
-    return torch.stack([
-        fn(xe[e], sa, qt.payload[e], qt.u_scale[e].reshape(-1),
-           qt.u_zp[e].reshape(-1), qt.a_scale[e].reshape(-1))
-        for e in range(xe.shape[0])]).to(xe.dtype)
-
-
-def qtensor_matmul(x: torch.Tensor, qt) -> torch.Tensor:
-    """y = x @ W for a 2-D QTensor leaf; x (..., K) -> (..., N) in x.dtype
-    (a cast of the kernel's f32 output, except where it stored x.dtype)."""
-    if not kernel_supported(qt):
-        return qmatmul(x, qt)
-    y = _kernel_matmul(x.reshape(-1, x.shape[-1]).contiguous(), qt)
-    return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
-
-
-def dwconv_supported(qt, x: torch.Tensor, stride: int, groups: int,
-                     padding: str) -> bool:
+def dwconv_kernel_supported(qt, x: torch.Tensor, stride: int, groups: int,
+                            padding: str) -> bool:
     """True when the packed-w4 depthwise kernel computes this conv: a
     weights-only 4-bit QUniform with a depthwise HWIO shape, flattened to
     a (kh*kw, C/2) payload, under SAME padding, at a square window and
@@ -157,27 +303,151 @@ def dwconv_supported(qt, x: torch.Tensor, stride: int, groups: int,
             and qt.payload.shape[0] == kh * kw)
 
 
-def qtensor_dwconv(x: torch.Tensor, qt, stride: int = 1) -> torch.Tensor:
-    """Depthwise conv for a 4-bit QUniform leaf; the kernel stores x.dtype
-    (the f32 sum rounded once, as a cast of the f32 output would)."""
-    kh, kw = int(qt.shape[0]), int(qt.shape[1])
-    fn = _dw.dwconv_w4_plain if _REFERENCE.get() else _dw.dwconv_w4
-    return fn(x.contiguous(), qt.payload, qt.scale.reshape(-1),
-              qt.zero_point.reshape(-1), kh=kh, kw=kw, stride=stride,
-              out_dtype=x.dtype)
+def dwconv_tile_plan(B: int, H: int, W: int, C: int, k: int, stride: int,
+                     dtype=torch.bfloat16, device="cuda") -> dict:
+    """The plan ``dwconv_w4`` launches for this conv at an engine step:
+    the cache's entry, else ``dwconv_w4.launch_plan``'s (JAX's VMEM
+    budget has no twin)."""
+    return (autotune.cached_plan("dwconv_w4", (B, H, W, C, k, stride, dtype),
+                                 device)
+            or _plan_keys(_dw, _dw.launch_plan(B, H, W, C, k, stride)))
+
+
+# ---------------------------------------------------------------------------
+# the autotuned entry points
+# ---------------------------------------------------------------------------
+
+
+def _plan_keys(mod, plan: dict) -> dict:
+    return {k: plan[k] for k in mod.PLAN_KEYS}
+
+
+def _plan(kernel: str, dims: tuple, device, fallback, candidates, launch):
+    """Ask the autotuner for one launch's plan; ``launch(plan)`` runs the
+    kernel uncounted (a probe, not a launch of the main path)."""
+    return autotune.plan_for(
+        kernel, dims, device, fallback=fallback, candidates=candidates,
+        bench=lambda p: autotune.measure(lambda: launch(p)))
+
+
+def m2q_matmul_op(x, act_scale, payload, u_scale, u_zp, a_scale,
+                  plan: Optional[dict] = None) -> torch.Tensor:
+    """Fused permutation-free M2Q matmul: x (M, K) float, payload (K, N)
+    merged int8 bytes, u_scale/u_zp/a_scale (N,) zero-masked -> (M, N)
+    f32.  ``plan``: the launch shape, else the autotuner's."""
+    if _REFERENCE.get():
+        return _m2q.m2q_matmul_plain(x, act_scale, payload, u_scale, u_zp,
+                                     a_scale)
+    M, K = x.shape
+    N = payload.shape[1]
+    if plan is None:
+        plan = _plan(
+            "m2q_matmul", (M, K, N, x.dtype), x.device,
+            lambda: _plan_keys(_m2q, _m2q.launch_plan(M, K, N)),
+            lambda: _m2q.candidate_plans(M, K, N),
+            lambda p: _m2q._launch(x, act_scale, payload, u_scale, u_zp,
+                                   a_scale, p))
+    return _m2q.m2q_matmul(x, act_scale, payload, u_scale, u_zp, a_scale,
+                           plan)
+
+
+def int8_matmul_op(x, wq, act_scale, scale, zero_point,
+                   out_dtype: torch.dtype = torch.float32,
+                   plan: Optional[dict] = None) -> torch.Tensor:
+    """W8A8 matmul: x (M, K) float, activation quantization fused ->
+    (M, N) in ``out_dtype``."""
+    if _REFERENCE.get():
+        return _int8.int8_matmul_plain(x, wq, act_scale, scale, zero_point,
+                                       out_dtype)
+    M, K = x.shape
+    N = wq.shape[1]
+    if plan is None:
+        plan = _plan(
+            "int8_matmul", (M, K, N, x.dtype), x.device,
+            lambda: _plan_keys(_int8, _int8.launch_plan(M, K, N)),
+            lambda: _int8.candidate_plans(M, K, N),
+            lambda p: _int8._launch(x, wq, act_scale, scale, zero_point,
+                                    out_dtype, p))
+    return _int8.int8_matmul(x, wq, act_scale, scale, zero_point, out_dtype,
+                             plan)
+
+
+def int4_matmul_op(x, packed, scale, zero_point,
+                   plan: Optional[dict] = None) -> torch.Tensor:
+    """Weights-only int4 matmul: x (M, K) float -> (M, N) f32."""
+    if _REFERENCE.get():
+        return _int4.int4_matmul_plain(x, packed, scale, zero_point)
+    M, K = x.shape
+    N = 2 * packed.shape[1]
+    bf16 = x.dtype == torch.bfloat16
+    if plan is None:
+        plan = _plan(
+            "int4_matmul", (M, K, N, x.dtype), x.device,
+            lambda: _plan_keys(_int4, _int4.launch_plan(M, K, N, bf16)),
+            lambda: _int4.candidate_plans(M, K, N, bf16),
+            lambda p: _int4._launch(x, packed, scale, zero_point, p))
+    return _int4.int4_matmul(x, packed, scale, zero_point, plan)
+
+
+def apot_matmul_op(x, codes, scale,
+                   plan: Optional[dict] = None) -> torch.Tensor:
+    """Weights-only APoT matmul: x (M, K) float -> (M, N) f32 (int4's
+    plans: one template)."""
+    if _REFERENCE.get():
+        return _apot.apot_matmul_plain(x, codes, scale)
+    M, K = x.shape
+    N = codes.shape[1]
+    bf16 = x.dtype == torch.bfloat16
+    if plan is None:
+        plan = _plan(
+            "apot_matmul", (M, K, N, x.dtype), x.device,
+            lambda: _plan_keys(_int4, _int4.launch_plan(M, K, N, bf16)),
+            lambda: _int4.candidate_plans(M, K, N, bf16),
+            lambda p: _apot._launch(x, codes, scale, p))
+    return _apot.apot_matmul(x, codes, scale, plan)
+
+
+def dwconv_w4_op(x, packed, scale, zero_point, kh: int = 3, kw: int = 3,
+                 stride: int = 1, out_dtype: torch.dtype = torch.float32,
+                 plan: Optional[dict] = None) -> torch.Tensor:
+    """Depthwise conv, SAME padding: x (B, H, W, C) float, packed
+    (kh*kw, C/2) nibbles -> (B, HO, WO, C) in ``out_dtype``."""
+    if _REFERENCE.get():
+        return _dw.dwconv_w4_plain(x, packed, scale, zero_point, kh, kw,
+                                   stride, out_dtype)
+    B, H, W, C = x.shape
+    if plan is None:
+        plan = _plan(
+            "dwconv_w4", (B, H, W, C, kh, stride, x.dtype), x.device,
+            lambda: _plan_keys(_dw, _dw.launch_plan(B, H, W, C, kh, stride)),
+            lambda: _dw.candidate_plans(B, H, W, C, kh, stride,
+                                        x.element_size()),
+            lambda p: _dw._launch(x, packed, scale, zero_point, kh, kw,
+                                  stride, out_dtype, p))
+    return _dw.dwconv_w4(x, packed, scale, zero_point, kh, kw, stride,
+                         out_dtype, plan)
 
 
 def relu_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 eps: float = 1e-6) -> torch.Tensor:
+                 eps: float = 1e-6,
+                 plan: Optional[dict] = None) -> torch.Tensor:
     """Int8 ReLU linear attention with tensor-wide scales: (B,N,H,D) in
     q's dtype (the kernel stores it; the plain version casts its f32
-    result once).  The scales come from their own kernel, or the plain
-    chain inside :func:`reference_path`."""
-    ref = _REFERENCE.get()
-    scales = (_scales.relu_attn_scales_plain if ref
-              else _scales.relu_attn_scales)
-    fn = _attn.relu_attn_plain if ref else _attn.relu_attn
-    return fn(q, k, v, *scales(q, k, v), eps, q.dtype)
+    result once).  The scales come from their own kernel (its
+    ``launch_plan``: JAX has no block choice for them), or the plain chain
+    inside :func:`reference_path`."""
+    if _REFERENCE.get():
+        return _attn.relu_attn_plain(
+            q, k, v, *_scales.relu_attn_scales_plain(q, k, v), eps, q.dtype)
+    scales = _scales.relu_attn_scales(q, k, v)
+    B, N, H, D = q.shape
+    if plan is None:
+        plan = _plan(
+            "relu_attn", (B, N, H, D, q.dtype), q.device,
+            lambda: {"splits": _attn.launch_plan(B, N, H, D)["splits"]},
+            lambda: _attn.candidate_plans(B, N, H, D),
+            lambda p: _attn._launch(q, k, v, *scales, eps, q.dtype, p))
+    return _attn.relu_attn(q, k, v, *scales, eps, q.dtype, plan)
 
 
 def decode_attn_int8_op(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
@@ -187,15 +457,79 @@ def decode_attn_int8_op(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
     """Decode attention over the int8 KV cache: q (B, 1, Hq, D) float,
     k_q/v_q (B, T, Hkv, D) int8 + (B, T, Hkv) f32 row scales, lengths
     (B,) -> (B, 1, Hq, D) in q's dtype (the kernel stores it; the plain
-    version's f32 result is cast once).  Runs per (batch, kv-head)."""
+    version's f32 result is cast once).  Runs per (batch, kv-head).  Its
+    one plan (``decode_attn_int8.PLAN``) is not tuned, as in JAX: the
+    shape is only noted for the sweep."""
     B, _, Hq, D = q.shape
-    Hkv = k_q.shape[2]
+    T, Hkv = k_q.shape[1], k_q.shape[2]
+    ref = _REFERENCE.get()
+    if not ref:
+        autotune.note_shape("decode_attn_int8",
+                            (B, Hq, D, Hkv, T, window or 0))
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qh = q.reshape(B, Hkv, Hq // Hkv, D).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     args = (qh, k_q, v_q, k_scale, v_scale, lens, scale, window)
-    if _REFERENCE.get():
+    if ref:
         out = _dec.decode_attn_int8_plain(*args).to(q.dtype)
     else:
         out = _dec.decode_attn_int8(*args, out_dtype=q.dtype)
     return out.reshape(B, 1, Hq, D)
+
+
+# ---------------------------------------------------------------------------
+# QTensor-level entry points
+# ---------------------------------------------------------------------------
+
+
+def _kernel_matmul(x2: torch.Tensor, qt) -> torch.Tensor:
+    """x2 (M, K) through the leaf's entry point -> (M, N): x2's dtype
+    from ``int8_matmul``, which stores it itself, f32 from the others."""
+    if isinstance(qt, (QM2Q, QExpertM2Q)):
+        # a layer slice's (1, 1) activation scale goes in as one element
+        return m2q_matmul_op(x2, qt.act_scale.reshape(()), qt.payload,
+                             qt.u_scale.reshape(-1), qt.u_zp.reshape(-1),
+                             qt.a_scale.reshape(-1))
+    if isinstance(qt, QAPoT):
+        return apot_matmul_op(x2, qt.codes, qt.scale.reshape(-1))
+    if qt.bits == 8:
+        return int8_matmul_op(x2, qt.payload, qt.act_scale,
+                              qt.scale.reshape(-1), qt.zero_point.reshape(-1),
+                              out_dtype=x2.dtype)
+    return int4_matmul_op(x2, qt.payload, qt.scale.reshape(-1),
+                          qt.zero_point.reshape(-1))
+
+
+def qtensor_expert_matmul(xe: torch.Tensor, qt: QExpertM2Q) -> torch.Tensor:
+    """``y[E, C, N] = xe[E, C, K] @ W[E, K, N]`` in xe's dtype for a layer
+    slice of a QExpertM2Q expert leaf: E ``m2q_matmul`` calls, expert
+    ``e``'s (C, K) rows against its (K, N) payload with the layer's
+    activation scale; exactly :meth:`QExpertM2Q.expert_matmul`, which an
+    uncalibrated leaf takes."""
+    if not expert_kernel_supported(qt):
+        return qt.expert_matmul(xe)
+    sa = qt.act_scale.reshape(())
+    xe = xe.contiguous()
+    return torch.stack([
+        m2q_matmul_op(xe[e], sa, qt.payload[e], qt.u_scale[e].reshape(-1),
+                      qt.u_zp[e].reshape(-1), qt.a_scale[e].reshape(-1))
+        for e in range(xe.shape[0])]).to(xe.dtype)
+
+
+def qtensor_matmul(x: torch.Tensor, qt) -> torch.Tensor:
+    """y = x @ W for a 2-D QTensor leaf; x (..., K) -> (..., N) in x.dtype
+    (a cast of the kernel's f32 output, except where it stored x.dtype).
+    A leaf no kernel takes runs its plain ``qmatmul``, as JAX's does."""
+    if not kernel_supported(qt):
+        return qmatmul(x, qt)
+    y = _kernel_matmul(x.reshape(-1, x.shape[-1]).contiguous(), qt)
+    return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
+
+
+def qtensor_dwconv(x: torch.Tensor, qt, stride: int = 1) -> torch.Tensor:
+    """Depthwise conv for a 4-bit QUniform leaf; the kernel stores x.dtype
+    (the f32 sum rounded once, as a cast of the f32 output would)."""
+    kh, kw = int(qt.shape[0]), int(qt.shape[1])
+    return dwconv_w4_op(x.contiguous(), qt.payload, qt.scale.reshape(-1),
+                        qt.zero_point.reshape(-1), kh=kh, kw=kw,
+                        stride=stride, out_dtype=x.dtype)

@@ -46,6 +46,15 @@ def launch_plan(B: int, N: int, H: int, D: int) -> dict:
             "tokens": -(-N // splits)}
 
 
+def candidate_plans(B: int, N: int, H: int, D: int) -> list:
+    """The plans the autotuner times for one call, :func:`launch_plan`'s
+    first: every cluster size of ``SPLITS`` that leaves each CTA a
+    token."""
+    first = {"splits": launch_plan(B, N, H, D)["splits"]}
+    return [first] + [{"splits": s} for s in SPLITS
+                      if s <= N and s != first["splits"]]
+
+
 def relu_attn_plain(q, k, v, sq, sk, sv, eps: float = 1e-6,
                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch version (twin of ``ref.relu_attn_ref``):
@@ -125,14 +134,16 @@ def _launch(q, k, v, sq, sk, sv, eps, out_dtype=torch.float32,
 
 
 def relu_attn(q, k, v, sq, sk, sv, eps: float = 1e-6,
-              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              out_dtype: torch.dtype = torch.float32,
+              plan: dict = None) -> torch.Tensor:
     """q/k/v (B, N, H, D) float; sq/sk/sv 0-d f32 -> (B, N, H, D) in
-    ``out_dtype`` (float32 or bfloat16)."""
+    ``out_dtype`` (float32 or bfloat16).  ``plan``: the launch on CUDA
+    (:func:`launch_plan`'s when None)."""
     global launches
     if q.device.type == "cpu":
         return relu_attn_plain(q, k, v, sq, sk, sv, eps, out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"relu_attn: unsupported device {q.device}")
-    out = _launch(q, k, v, sq, sk, sv, eps, out_dtype)
+    out = _launch(q, k, v, sq, sk, sv, eps, out_dtype, plan)
     launches += 1
     return out

@@ -140,9 +140,10 @@ def forward(cfg: ArchConfig, params, images: torch.Tensor,
     """images (B, res, res, 3) -> logits (B, n_classes) in ``cfg.dtype``.
 
     ``attn``: the MSA token mixer, ``"int8"`` (the relu_attn kernel) or
-    ``"f32"`` (einsums); None takes the device default
-    (:func:`repro_torch.kernels.ops.default_attn`)."""
-    attn = attn or ops.default_attn(images.device)
+    ``"f32"`` (einsums); None follows the attn dispatch axis
+    (:func:`repro_torch.kernels.ops.attn_dispatch_enabled`)."""
+    attn = attn or (ops.ATTN_INT8 if ops.attn_dispatch_enabled(images.device)
+                    else ops.ATTN_F32)
     x = images.to(getattr(torch, cfg.dtype))
     x = nn.conv2d(x, params["stem"]["w"], stride=2)
     x = nn.silu(nn.rms_norm(x, params["stem"]["ln"]))

@@ -14,6 +14,7 @@ import torch
 
 from ..core.quant import div
 from ..kernels import ops
+from ..kernels.decode_attn_int8 import decode_attn_int8_plain
 
 NEG_INF = -1.0e30
 
@@ -125,9 +126,19 @@ def decode_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
     """Fully integer decode over the int8 cache (int8 QK^T with q
     quantized per row, per-row k scales folded into the scores, softmax
     weights requantized to int8 with the v scales folded in, int8 PV):
-    the ``decode_attn_int8`` kernel, through ``kernels.ops``."""
-    return ops.decode_attn_int8_op(q, k_q, v_q, k_scale, v_scale, lengths,
-                                   window=window, scale=scale)
+    the ``decode_attn_int8`` kernel through ``kernels.ops`` where the attn
+    axis is on, the plain chain (``decode_attn_int8_plain``) where it is
+    off."""
+    if ops.attn_dispatch_enabled(q.device):
+        return ops.decode_attn_int8_op(q, k_q, v_q, k_scale, v_scale,
+                                       lengths, window=window, scale=scale)
+    B, _, Hq, D = q.shape
+    Hkv = k_q.shape[2]
+    out = decode_attn_int8_plain(
+        q.reshape(B, Hkv, Hq // Hkv, D), k_q, v_q, k_scale, v_scale,
+        lengths.to(torch.int32),
+        scale if scale is not None else 1.0 / math.sqrt(D), window)
+    return out.reshape(B, 1, Hq, D).to(q.dtype)
 
 
 def quantize_kv_rows(x: torch.Tensor):

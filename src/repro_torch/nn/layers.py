@@ -4,7 +4,9 @@ convolutions.
 
 Every weight consumer dispatches on the leaf type: a float tensor runs the
 float op, a :class:`CalibTensor` records its input's max-abs first, and a
-QTensor leaf runs the quantized path (the kernels via ``kernels.ops``).
+QTensor leaf runs the quantized path: the kernels via ``kernels.ops`` where
+its dispatch axis is on (``dense`` for matmuls, ``conv`` for convs), the
+leaf's plain QTensor path where it is off.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 from ..core.calibrate import CalibTensor
-from ..core.qtensor import QUniform, is_qtensor
+from ..core.qtensor import QUniform, is_qtensor, qmatmul
 from ..kernels import ops
 from ..kernels.dwconv_w4 import same_padding
 
@@ -112,7 +114,8 @@ def dense(x: torch.Tensor, w, b=None) -> torch.Tensor:
         w.record(x)
         y = x @ w.w.to(x.dtype)
     elif is_qtensor(w):
-        y = ops.qtensor_matmul(x, w)
+        y = (ops.qtensor_matmul(x, w) if ops.dispatch_enabled(x.device)
+             else qmatmul(x, w))
     else:
         y = x @ w.to(x.dtype)
     if b is not None:
@@ -222,8 +225,10 @@ def _qconv2d(x, w, stride: int, groups: int, padding: str):
     """Quantized-conv hot path: a 1x1 stride-1 PWConv is a matmul over
     B*H*W pixel rows; a 4-bit depthwise filter runs the dwconv_w4 kernel;
     any other un-grouped KxK filter (the opt-in int8 stem) is im2col + the
-    same quantized matmul.  ``ops.qtensor_matmul`` picks the leaf's kernel.
-    None when only the dequantized-weight conv applies (e.g. the 8-bit
+    same quantized matmul.  ``ops.qtensor_matmul`` picks the leaf's kernel
+    where the conv axis is on; off, the matmuls take the leaf's plain
+    ``qmatmul`` and a depthwise filter the dequantized-weight conv.  None
+    when only the dequantized-weight conv applies (e.g. the 8-bit
     depthwise filters of ``uniform8``)."""
     shape = tuple(w.shape)
     ints = getattr(w, "payload", None)
@@ -231,14 +236,17 @@ def _qconv2d(x, w, stride: int, groups: int, padding: str):
         ints = getattr(w, "codes", None)
     if len(shape) != 4 or ints is None or ints.ndim != 2:
         return None
+    kernels = ops.conv_dispatch_enabled(x.device)
+    matmul = ops.qtensor_matmul if kernels else qmatmul
     if shape[:2] == (1, 1) and stride == 1 and groups == 1:
-        return ops.qtensor_matmul(x, w)
-    if ops.dwconv_supported(w, x, stride, groups, padding):
+        return matmul(x, w)
+    if kernels and ops.dwconv_kernel_supported(w, x, stride, groups,
+                                               padding):
         return ops.qtensor_dwconv(x, w, stride=stride)
     kh, kw, cin_g, _ = shape
     if groups == 1 and padding in ("SAME", "VALID") \
             and x.shape[-1] == cin_g:
-        return ops.qtensor_matmul(_im2col(x, kh, kw, stride, padding), w)
+        return matmul(_im2col(x, kh, kw, stride, padding), w)
     return None
 
 

@@ -46,7 +46,8 @@ def expert_dense(xe: torch.Tensor, w) -> torch.Tensor:
         w.record(xe)
         return torch.einsum("eck,ekn->ecn", xe, w.w.to(xe.dtype))
     if isinstance(w, QExpertM2Q):
-        return ops.qtensor_expert_matmul(xe, w)
+        return (ops.qtensor_expert_matmul(xe, w)
+                if ops.dispatch_enabled(xe.device) else w.expert_matmul(xe))
     if is_qtensor(w):
         return torch.einsum("eck,ekn->ecn", xe, w.dequant(xe.dtype))
     return torch.einsum("eck,ekn->ecn", xe, w.to(xe.dtype))

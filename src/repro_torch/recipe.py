@@ -268,18 +268,21 @@ class QuantizedModel:
             return _model_forward(self.cfg, self.model, self.params, x,
                                   attn, **kw)
 
-    def serve(self, **engine_kw):
+    def serve(self, dispatch=None, **engine_kw):
         """The serving engine for this model, by modality: the batched
         :class:`~repro_torch.serving.vision.VisionEngine` for the vision
         family (``max_batch``, ``min_bucket``, ``max_delay_ms``, ``attn``,
         ...), the continuous-batching token
         :class:`~repro_torch.serving.engine.Engine` otherwise
-        (``max_batch``, ``max_len``, ``seed``, ``max_delay_ms``, ...)."""
+        (``max_batch``, ``max_len``, ``seed``, ``max_delay_ms``, ...).
+        ``dispatch``: an optional ``kernels.ops.DispatchConfig`` the
+        engine enters inside every step and capture."""
         if self.cfg.family == "efficientvit":
             from .serving.vision import VisionEngine
-            return VisionEngine(self.cfg, self.params, **engine_kw)
+            return VisionEngine(self.cfg, self.params, dispatch=dispatch,
+                                **engine_kw)
         from .serving.engine import Engine
-        return Engine(self.cfg, self.params, **engine_kw)
+        return Engine(self.cfg, self.params, dispatch=dispatch, **engine_kw)
 
     def m2q_splits(self) -> Dict[str, Tuple[int, int]]:
         """path -> (n_uniform, n_apot) from the reports: what lets the
@@ -349,9 +352,9 @@ def quantize(arch_or_cfg, params, recipe: Union[str, QuantRecipe] = "m2q-w8a8",
     the float ``params`` live on.  ``calib_batches``: model inputs (numpy
     or tensors: images, or token prompts); None synthesizes them per the
     recipe's CalibSpec; weights-only recipes skip calibration.  ``attn``:
-    the vision MSA token mixer used during calibration (device default
-    when None).  ``release``: the caller hands ``params`` over -- each
-    quantized leaf's float weight is dropped from it as soon as its
+    the vision MSA token mixer used during calibration (the attn dispatch
+    axis when None).  ``release``: the caller hands ``params`` over --
+    each quantized leaf's float weight is dropped from it as soon as its
     QTensor exists (``core.apply.quantize_model``), so a float tree that
     fills most of the card (qwen3-14b's 59 GB) quantizes there; the
     numbers are the same either way."""

@@ -36,6 +36,14 @@ step would.  Prefill stays eager: its shapes vary with the group and the
 padded prompt length.  ``graphs=False`` runs every step eagerly (the
 twin of ``jax.disable_jit()``), as the CPU always does.
 
+``dispatch=`` (a ``kernels.ops.DispatchConfig``) pins kernel dispatch for
+this engine: every :meth:`Engine.step` -- admission, eager prefill,
+decode and any capture -- runs inside that scope (on whichever thread
+steps the engine) and inside ``autotune.no_tuning()``, so launch plans
+come from the autotune cache or ``launch_plan`` and a step never times
+candidates.  A decode graph is keyed by the axes as they resolve at its
+first use, so it replays the routing it was captured under.
+
 There is no silent retry: a raising prefill fails its group's handles, a
 raising decode step fails the slots live in it, and the engine serves on.
 With ``kv_cache_dtype == "int8"`` every decode step runs the
@@ -73,6 +81,7 @@ import numpy as np
 import torch
 
 from ..core.tree import device_of
+from ..kernels import ops
 from ..models import get_model
 from ..models.config import ArchConfig
 from . import faults as _faults
@@ -133,7 +142,8 @@ class Engine:
                  overload: Optional[OverloadPolicy] = None,
                  faults: Optional[_faults.FaultInjector] = None,
                  debug_numerics: Optional[bool] = None,
-                 graphs: bool = True):
+                 graphs: bool = True,
+                 dispatch: Optional[ops.DispatchConfig] = None):
         if max_delay_ms is None:
             raise ValueError(
                 "token engine admission needs a deadline: use "
@@ -146,6 +156,7 @@ class Engine:
         self.device = device_of(params)
         self.B = max_batch
         self.T = max_len
+        self.dispatch = dispatch
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.stats = EngineStats()
         self.faults = faults if faults is not None else _faults.from_env()
@@ -483,7 +494,8 @@ class Engine:
         draw = any(r is not None and r.temperature > 0 for r in self.slots)
         if in_use(self.step_graphs):
             self.step_graphs.run(
-                draw, lambda: self._decode_step(draw),
+                (draw, ops.resolve(self.device)),
+                lambda: self._decode_step(draw),
                 state=(*self.cache.values(), self._pending, self._outbuf,
                        self._counts, self._nonfinite),
                 generators=(self._gen,) if draw else ())
@@ -519,6 +531,10 @@ class Engine:
         number of live slots.  A raising decode step fails only the slots
         live in it; the step itself never raises (an injected ``crash``,
         a ``BaseException``, goes through on purpose)."""
+        with ops.engine_step(self.dispatch):
+            return self._step()
+
+    def _step(self) -> int:
         self.heartbeat = time.monotonic()
         self._sweep_slots()
         self._admit()

@@ -81,6 +81,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..kernels import ops
 from .batching import ServeStats
 from .daemon import ServingDaemon
 from .errors import (CancelledError, CircuitOpenError, EngineCrashError,
@@ -598,14 +599,13 @@ class Supervisor:
         """JSON-ready probe snapshot (written by ``launch/daemon.py
         --health-file``): the JAX package's keys, host reads only.
 
-        One value differs: ``trip_latches`` is ``{"axes": None}``.  The
-        port has no dispatch trip latch until the dispatch axes are
-        ported (ROADMAP A8), and a dict of zeros would read as "checked
-        and clean".  ``trip_latches["guard"]`` is absent, as it is in the
-        JAX package for an engine without a ``fallback_guard``: the port
-        has no ``FallbackGuard`` (ROADMAP A5, decided: a kernel that
-        raises or goes non-finite fails its batch instead of retrying
-        silently off the kernel)."""
+        ``trip_latches["axes"]`` is ``kernels.ops.trip_counts()``, as in
+        the JAX package; in the port only an explicit caller trips an
+        axis.  ``trip_latches["guard"]`` is absent, as it is in the JAX
+        package for an engine without a ``fallback_guard``: the port has
+        no ``FallbackGuard`` (ROADMAP A5, decided: a kernel that raises
+        or goes non-finite fails its batch instead of retrying silently
+        off the kernel)."""
         now = time.monotonic()
         with self._lock:
             daemon = self._daemon
@@ -620,7 +620,7 @@ class Supervisor:
             "replayed": self.replayed,
             "supervised_outstanding": outstanding,
             "unix_time": time.time(),
-            "trip_latches": {"axes": None},
+            "trip_latches": {"axes": ops.trip_counts()},
             "stats": self.stats.summary(),
         }
         if daemon is not None:

@@ -16,6 +16,14 @@ input buffer and replayed for every later batch of that bucket: the twin
 of the JAX engine's jitted forward.  ``graphs=False`` runs every forward
 eagerly (the twin of ``jax.disable_jit()``), as the CPU always does.
 
+``dispatch=`` (a ``kernels.ops.DispatchConfig``) pins kernel dispatch for
+this engine: every batch and every capture runs inside that scope (on
+whichever thread runs it) and inside ``autotune.no_tuning()``, so launch
+plans come from the autotune cache or ``launch_plan`` and a step never
+times candidates.  Each bucket's graph is keyed by the axes as they
+resolve at its first use, so a graph replays the routing it was captured
+under, and a tripped axis captures anew.
+
 There is no silent retry: a kernel that raises fails its batch's requests
 (the scheduler contains the exception) and the engine keeps serving.
 
@@ -38,6 +46,7 @@ import numpy as np
 import torch
 
 from ..core.tree import device_of
+from ..kernels import ops
 from ..models import get_model
 from ..models.config import ArchConfig
 from . import faults as _faults
@@ -70,7 +79,8 @@ class VisionEngine:
                  clock: Callable[[], float] = time.monotonic,
                  overload: Optional[OverloadPolicy] = None,
                  faults: Optional[_faults.FaultInjector] = None,
-                 graphs: bool = True):
+                 graphs: bool = True,
+                 dispatch: Optional[ops.DispatchConfig] = None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         faults = faults if faults is not None else _faults.from_env()
@@ -86,6 +96,7 @@ class VisionEngine:
         self.params = params
         self.device = device_of(params)
         self.attn = attn
+        self.dispatch = dispatch
         self.B = max_batch
         # the smallest bucket executed: a batch below it is padded up, so
         # only the buckets from min_bucket to max_batch are ever captured
@@ -95,7 +106,7 @@ class VisionEngine:
         # wall-clock time poll() was last entered (supervision liveness)
         self.heartbeat: Optional[float] = None
         self.step_graphs = for_device(self.device, graphs)
-        self._inputs = {}  # graph key -> its static (bucket, res, res, 3)
+        self._inputs = {}  # (bucket, attn) -> its static (bucket, res, res, 3)
         self.scheduler = Scheduler(
             policy=FlushPolicy(max_batch=max_batch, max_delay_ms=max_delay_ms),
             executor=self._execute, stats=self.stats, clock=clock,
@@ -112,7 +123,7 @@ class VisionEngine:
         if pad:
             images = np.concatenate(
                 [images, np.zeros((pad,) + images.shape[1:], np.float32)])
-        with torch.inference_mode():
+        with torch.inference_mode(), ops.engine_step(self.dispatch):
             if in_use(self.step_graphs):
                 logits = self._replay(images)
             else:
@@ -126,13 +137,15 @@ class VisionEngine:
     def _replay(self, images: np.ndarray) -> torch.Tensor:
         """The bucket's forward replayed from its graph (captured here at
         the bucket's first use); the launch plans depend on the batch, so
-        each bucket has its own."""
-        key = (images.shape[0], self.attn)
-        x = self._inputs.get(key)
+        each bucket has its own, and so does each resolution of the
+        dispatch axes."""
+        static = (images.shape[0], self.attn)
+        x = self._inputs.get(static)
         if x is None:
-            x = self._inputs[key] = torch.zeros(
+            x = self._inputs[static] = torch.zeros(
                 images.shape, dtype=torch.float32, device=self.device)
         x.copy_(torch.from_numpy(images))
+        key = (*static, ops.resolve(self.device))
         return self.step_graphs.run(key, lambda: self.model.forward(
             self.cfg, self.params, x, attn=self.attn))
 

@@ -16,6 +16,7 @@
 * The trained proxy: its weights, the committed JAX-written artifact in
   both packages, and the port's top-1 on the CPU against
   ``expected.json``."""
+import functools
 import inspect
 import json
 import sys
@@ -116,22 +117,31 @@ def test_a_port_saved_artifact_loads_in_the_jax_package(pair, tmp_path):
     assert manifest(jdir) == manifest(pdir)
 
 
+@functools.lru_cache(maxsize=None)
+def _port_b1(name):
+    """The reduced B1 quantized by the port under one recipe path (seed 1,
+    one calibration batch), shared by the round-trip and shape-only twin
+    tests."""
+    cfg = REDUCED["efficientvit-b1-r224"]
+    batches = [np.random.default_rng(4).normal(0, 1, (2, 32, 32, 3))
+               .astype(np.float32)]
+    return tr.quantize(cfg, efficientvit.init(cfg, seed=1, device="cpu"),
+                       chip_smoke.path_recipe(name), calib_batches=batches,
+                       attn="f32")
+
+
 @pytest.mark.parametrize("name", VISION)
 def test_every_recipe_path_round_trips_in_the_port(name, tmp_path):
     """Quantize the reduced B1 under each recipe path, save, load: every
     leaf, the provenance and the forward equal at zero tolerance."""
-    cfg = REDUCED["efficientvit-b1-r224"]
-    rng = np.random.default_rng(4)
-    batches = [rng.normal(0, 1, (2, 32, 32, 3)).astype(np.float32)]
-    qm = tr.quantize(cfg, efficientvit.init(cfg, seed=1, device="cpu"),
-                     chip_smoke.path_recipe(name), calib_batches=batches,
-                     attn="f32")
+    qm = _port_b1(name)
     qm.save(tmp_path)
     back = tr.QuantizedModel.load(tmp_path, device="cpu")
     same_numpy(params_to_numpy(back.params), params_to_numpy(qm.params))
     assert artifact_payload(back, "port") == artifact_payload(qm, "port")
     assert back.cfg == qm.cfg and back.recipe == qm.recipe
-    images = rng.normal(0, 1, (3, 32, 32, 3)).astype(np.float32)
+    images = np.random.default_rng(5).normal(0, 1, (3, 32, 32, 3)).astype(
+        np.float32)
     for attn in ("f32", "int8"):
         assert torch.equal(back.forward(images, attn=attn),
                            qm.forward(images, attn=attn))
@@ -156,15 +166,11 @@ def test_load_defaults_to_the_card_and_refuses_what_is_no_artifact(tmp_path):
 @pytest.mark.parametrize("name", VISION + ["qwen-w4-weights-only"])
 def test_abstract_twin_equals_the_concrete_tree(name):
     if name.startswith("qwen"):
-        cfg, rec, batches = REDUCED["qwen1.5-0.5b"], "w4-weights-only", None
-        params = dense_lm.init(cfg, seed=0, device="cpu")
+        cfg = REDUCED["qwen1.5-0.5b"]
+        qm = tr.quantize(cfg, dense_lm.init(cfg, seed=0, device="cpu"),
+                         "w4-weights-only")
     else:
-        cfg, rec = REDUCED["efficientvit-b1-r224"], chip_smoke.path_recipe(
-            name)
-        batches = [np.random.default_rng(0).normal(0, 1, (2, 32, 32, 3))
-                   .astype(np.float32)]
-        params = efficientvit.init(cfg, seed=0, device="cpu")
-    qm = tr.quantize(cfg, params, rec, calib_batches=batches, attn="f32")
+        cfg, qm = REDUCED["efficientvit-b1-r224"], _port_b1(name)
     abstract = qm.abstract_params()
     all_meta(abstract)
     assert abstract_tree(abstract) == abstract_tree(qm.params)

@@ -200,10 +200,10 @@ def test_dwconv_routes_only_the_windows_the_kernel_builds():
     x = torch.zeros((1, 8, 8, 16))
     for k in (3, 5):
         for stride in (1, 2):
-            assert ops.dwconv_supported(_leaf(16, k), x, stride, 16, "SAME")
-    assert not ops.dwconv_supported(_leaf(16, 7), x, 1, 16, "SAME")
-    assert not ops.dwconv_supported(_leaf(16, 3), x, 3, 16, "SAME")
-    assert not ops.dwconv_supported(_leaf(16, 3), x, 1, 16, "VALID")
+            assert ops.dwconv_kernel_supported(_leaf(16, k), x, stride, 16, "SAME")
+    assert not ops.dwconv_kernel_supported(_leaf(16, 7), x, 1, 16, "SAME")
+    assert not ops.dwconv_kernel_supported(_leaf(16, 3), x, 3, 16, "SAME")
+    assert not ops.dwconv_kernel_supported(_leaf(16, 3), x, 1, 16, "VALID")
 
 
 def test_dwconv_wrapper_refuses_before_it_builds():

@@ -355,10 +355,12 @@ def test_release_quantizes_the_same_bytes(name, rec):
     caller's tree once its QTensor exists, what lets qwen3-14b quantize
     on the card -- gives the tree, reports and stats of quantizing with
     the whole float tree held; the released tree keeps only the leaves
-    that stay float."""
+    that stay float.  The whole-tree model is the one the other tests
+    share (``_quantized``); the released one quantizes a fresh copy of the
+    same float numbers."""
     cfg = TREDUCED[name]
-    whole = tr.quantize(cfg, tlm.init(cfg, seed=0, device="cpu"), rec)
-    params = tlm.init(cfg, seed=0, device="cpu")
+    whole = _quantized(name, rec)[1]
+    params = params_from_numpy(jax_to_numpy(_float_params(name)[0]), "cpu")
     released = tr.quantize(cfg, params, rec, release=True)
     same_numpy(params_to_numpy(released.params),
                params_to_numpy(whole.params))

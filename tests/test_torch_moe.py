@@ -557,10 +557,13 @@ def test_release_quantizes_the_same_bytes(name, kind):
     """``quantize(..., release=True)`` -- each float leaf dropped once its
     QTensor exists, the 4-D expert leaves quantized a layer at a time --
     gives the tree, reports and stats of quantizing with the whole float
-    tree held; only the float leaves (norms, the router) stay."""
+    tree held; only the float leaves (norms, the router) stay.  The
+    whole-tree model is the one the other tests share (``_quantized``);
+    the released one quantizes a fresh copy of the same float numbers."""
     cfg = _cfgs(name, kind)[1]
-    whole = tr.quantize(cfg, tlm.init(cfg, seed=0, device="cpu"), "m2q-w8a8")
-    params = tlm.init(cfg, seed=0, device="cpu")
+    whole = _quantized(name, kind)[1]
+    params = params_from_numpy(jax_to_numpy(_float_params(name, kind)[0]),
+                               "cpu")
     released = tr.quantize(cfg, params, "m2q-w8a8", release=True)
     same_numpy(params_to_numpy(released.params),
                params_to_numpy(whole.params))

@@ -33,6 +33,7 @@ import pytest
 
 from repro.serving import supervisor as jsup
 from repro_torch.configs.registry import REDUCED
+from repro_torch.kernels import ops
 from repro_torch.launch import daemon as launch_daemon
 from repro_torch.models import dense_lm
 from repro_torch.serving import supervisor as tsup
@@ -406,8 +407,10 @@ def test_supervisor_health_and_ready_surface(lm, tmp_path):
         health["heartbeat_age_s"] >= 0
     assert health["journal"]["pending"] == 0
     assert health["journal"]["fsync"] == "batch"
-    # no dispatch trip latch until the axes are ported, and no guard
-    assert health["trip_latches"] == {"axes": None}
+    # the dispatch trip latch's counters (nothing tripped), and no guard
+    assert health["trip_latches"] == {"axes": ops.trip_counts()}
+    assert health["trip_latches"]["axes"] == {"dense": 0, "conv": 0,
+                                              "attn": 0}
     assert health["stats"]["submitted"] == 1
     json.dumps(health)  # the probe snapshot must be JSON-serializable
     sup.shutdown()
@@ -495,7 +498,9 @@ def test_crash_recovery_matches_jax(tmp_path):
     assert set(th["journal"]) == set(jh["journal"])
     assert set(th["stats"]) == set(jh["stats"])
     assert set(jh["trip_latches"]) == {"axes", "guard"}
-    assert th["trip_latches"] == {"axes": None}  # the stated value
+    assert set(th["trip_latches"]) == {"axes"}  # no guard in the port
+    assert set(th["trip_latches"]["axes"]) == set(jh["trip_latches"]["axes"])
+    assert th["trip_latches"]["axes"] == {"dense": 0, "conv": 0, "attn": 0}
 
 
 # -- what the port adds --------------------------------------------------------

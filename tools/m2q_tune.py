@@ -7,8 +7,9 @@ under every other launch shape the kernel builds.
 
 ``--kernel m2q_matmul`` (the default): the 17 shapes of one
 EfficientViT-B1 R224 batch-8 forward, each launch checked bit for bit
-against the plain version; ``--all`` adds every tile of the chosen width
-and every K split.  ``--kernel int4_matmul`` / ``apot_matmul``: the same
+against the plain version; ``--all`` adds every other plan the autotuner
+times (``kernels/autotune.py``: each kernel module's
+``candidate_plans``).  ``--kernel int4_matmul`` / ``apot_matmul``: the same
 forward's shapes and, for int4, qwen1.5-0.5b's lm_head at decode batch 8;
 each launch checked against the plain version within the f32 summation
 bound ``(K + 1) * 2^-23 * (|x| @ |W|)``, and its largest err / bound
@@ -61,68 +62,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
-KEYS = ("bm", "bn", "splits")
-
-
 def plans(mod, M: int, K: int, N: int, every: bool):
-    """The chosen launch shape first, then (``every``) each other tile of
-    its kind (the chosen width for m2q_matmul; every tile for
-    int8_matmul; the narrow tiles that hold M tokens, or the M > 16
-    tiles, for the weights-only kernels) and power-of-two split that
-    leaves no more splits than K steps."""
-    from repro_torch.kernels import int8_matmul, m2q_matmul
-    chosen = mod.launch_plan(M, K, N)
-    out = [{key: chosen[key] for key in KEYS}]
-    if not every:
-        return out
-    bk = m2q_matmul.BK if mod is int8_matmul else mod.BK
-    steps = -(-K // bk)
-    if mod is int8_matmul:
-        tiles = list(m2q_matmul.TILES)
-    elif mod is m2q_matmul:
-        tiles = [t for t in mod.TILES if t[1] == chosen["bn"]]
-    elif chosen["bm"] <= 16:
-        tiles = [t for t in mod.NARROW_TILES if t[0] >= M]
-    else:
-        tiles = list(mod.TILES)
-    for bm, bn in tiles:
-        for splits in (1, 2, 4, 8):
-            p = {"bm": bm, "bn": bn, "splits": splits}
-            if splits <= steps and p != out[0]:
-                out.append(p)
-    return out
+    """The chosen launch shape first, then (``every``) each other plan the
+    autotuner times at this shape (the module's ``candidate_plans``: every
+    tile of its kind and power-of-two split that leaves no more splits
+    than K steps)."""
+    cands = mod.candidate_plans(M, K, N)
+    return cands if every else cands[:1]
 
 
 def dwconv_plans(B: int, H: int, W: int, C: int, k: int, stride: int,
                  every: bool):
     """``launch_plan``'s choice first, then (``every``) each other plan of
-    the kernel: r in RS; the strips of a row split into 1, 2, 4, ... even
-    tiles of at most 16 strips; 1-8 channel vectors (no more than C has);
-    1-16 rows (no more than the map has); 32-256 threads; shared memory
-    within the cap."""
-    from repro_torch.kernels import dwconv_w4 as k_
-    keys = ("cv", "sw", "th", "r")
-    chosen = {key: k_.launch_plan(B, H, W, C, k, stride)[key]
-              for key in keys}
-    out = [chosen]
-    if not every:
-        return out
-    HO, WO = -(-H // stride), -(-W // stride)
-    for r in k_.RS:
-        strips = -(-WO // r)
-        sws = sorted({-(-strips // n) for n in (1, 2, 4, 8, 16, 32)
-                      if -(-strips // n) <= 16})
-        for sw in sws:
-            for cv in (1, 2, 4, 8):
-                if cv > -(-C // k_.CPT):
-                    continue
-                for th in (1, 2, 4, 8, 16):
-                    p = {"cv": cv, "sw": sw, "th": th, "r": r}
-                    shape = k_.plan_shape(p, B, H, W, C, k, stride)
-                    if th <= HO and 32 <= shape["threads"] <= k_.MAX_THREADS \
-                            and shape["smem"] <= k_.MAX_SMEM and p != chosen:
-                        out.append(p)
-    return out
+    the kernel (``dwconv_w4.candidate_plans``, bf16 x)."""
+    from repro_torch.kernels import dwconv_w4
+    cands = dwconv_w4.candidate_plans(B, H, W, C, k, stride)
+    return cands if every else cands[:1]
 
 
 def dwconv_case(torch, cs, rng, B, H, W, C, ks, s):
@@ -193,7 +148,7 @@ def weights_only_case(torch, cs, rng, name, M, K, N):
         k, a = apot_matmul, (x, qt.codes, qt.scale.reshape(-1))
     del w
     w_hat = qt.dequant()
-    bound = cs.f32_dot_bound(torch, x.float(), w_hat)
+    bound = int4_matmul.f32_dot_bound(x.float(), w_hat)
     y_ref = getattr(k, f"{name}_plain")(*a).double()
     del w_hat
 
@@ -207,8 +162,7 @@ def attn_plans(kernel: str, B: int, N: int, H: int, D: int):
     takes at this shape."""
     from repro_torch.kernels import relu_attn, relu_attn_scales
     if kernel == "relu_attn":
-        chosen = {"splits": relu_attn.launch_plan(B, N, H, D)["splits"]}
-        every = [dict(splits=s) for s in relu_attn.SPLITS]
+        return relu_attn.candidate_plans(B, N, H, D)
     else:
         chosen = relu_attn_scales.launch_plan(B, N, H * D, True)
         every = [dict(ctas=c) for c in relu_attn_scales.CTAS]
