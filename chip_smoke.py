@@ -299,7 +299,31 @@ Phases, each fatal on failure (nonzero exit, no result line):
    uniform8 at batch 8 from the warmed cache against an empty cache,
    and qwen token-m2q, (e) the dispatch axes: all off (no launch), a
    tripped conv axis in ``Supervisor.health()``.  Prints one line per
-   tuned shape; each phase's wall seconds go to ``chip_smoke_phases.json``.
+   tuned shape;
+16. sharded serving (:func:`run_sharded`) -- two ranks on the one card
+   (child processes of :func:`sharded_child`, joined through
+   ``launch.daemon``'s coordinator path; gloo, since NCCL refuses two
+   ranks on one device), against this process's unsharded eager engines
+   on the same artifacts: (a) phase 4's ``m2q-w8a8`` B1 artifact restored
+   with ``shardings=`` on a (data=2, model=1) mesh serving the 12 images
+   at max_batch 8, every rank's logits equal to the unsharded engine's
+   at zero tolerance, 42 / 20 / 14 / 14 launches a forward on each rank;
+   (b) phase 6's ``token`` qwen1.5-0.5b artifact tensor-parallel on a
+   (data=1, model=2) mesh (8 of 16 heads, FFN 1408 of 2816 and lm_head
+   75968 of 151936 columns a rank; every leaf's placement checked),
+   serving phase 6's 16 requests through a ``ServingDaemon`` on each
+   rank (rank 0's releases the other at shutdown): the ranks' tokens
+   equal, each greedy
+   token the unsharded engine's or within the teacher-forced bound of
+   the unsharded kernel model's logits (the margins printed), sampled
+   requests equal or diverging after a first differing draw (reported),
+   launches as phase 6 counts them on each rank; phase 3 checks
+   ``int4_matmul`` at a rank's lm_head (N 75968) and ``decode_attn_int8``
+   at its 8 heads.  Prints the backend, seconds, and the sharded and
+   unsharded eager images/s and tokens/s beside the card.
+
+Each phase's wall seconds go to ``chip_smoke_phases.json``; phase 3
+draws its inputs on the card (seeded CUDA generators).
 
 It then prints the card's name and power limit again, one JSON line with
 every kernel's numbers and, last, the ``{"ok": true, "device": ...}``
@@ -598,7 +622,12 @@ class Tally:
 
 
 def _randn(torch, rng, shape, std=1.0, dtype=None):
-    t = torch.from_numpy(rng.normal(0, std, shape).astype("float32")).cuda()
+    """Normals of ``std`` on the card, drawn by a CUDA generator seeded
+    from ``rng`` (drawing them on the host took most of phase 3's time at
+    the billion-weight lm_heads)."""
+    g = torch.Generator(device="cuda").manual_seed(
+        int(rng.integers(2 ** 63 - 1)))
+    t = torch.randn(tuple(shape), generator=g, device="cuda") * std
     return t if dtype is None else t.to(dtype)
 
 
@@ -4439,6 +4468,317 @@ def run_autotune(torch, out_dir, card) -> Counter:
     return launches
 
 
+# phase 16: sharded serving, two ranks on the one card
+SHARD_RANKS = 2
+SHARD_WAIT = 600
+
+
+def shard_images(cfg):
+    """Phase 4's 12 images (seed 1)."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    return rng.normal(0, 1, (N_IMAGES, cfg.img_res, cfg.img_res, 3)
+                      ).astype(np.float32)
+
+
+def sharded_child() -> None:
+    """One rank of phase 16, run as ``python -c "import chip_smoke;
+    chip_smoke.sharded_child()" RANK PORT OUT_DIR``: joins the other rank
+    through ``launch.daemon``'s coordinator path (gloo: two ranks on one
+    card), then (a) restores phase 4's ``m2q-w8a8`` artifact with its
+    shards on a (data=2, model=1) mesh and serves the 12 images at
+    max_batch 8 twice, eagerly, polled as phase 4 polls; (b) builds the
+    token engine from phase 6's ``token`` artifact on a (data=1, model=2)
+    mesh (``daemon.build_engine(..., mesh=)``: restored with shardings),
+    checks every leaf's placement, and serves phase 6's 16 requests
+    once through a ``ServingDaemon`` on each rank, as ``launch.daemon
+    --mesh`` serves (rank 0's decides every step; the other steps in its
+    broadcasts until rank 0's releases it at shutdown).  Writes its
+    logits, tokens, launch counts and seconds."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import daemon
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.recipe import QuantizedModel
+    from repro_torch.serving.daemon import ServingDaemon
+    rank, port, out = int(sys.argv[1]), sys.argv[2], Path(sys.argv[3])
+    t0 = time.perf_counter()
+    args = daemon.parse_args([
+        "--arch", "qwen1.5-0.5b", "--device", "cuda",
+        "--coordinator", f"127.0.0.1:{port}",
+        "--num-processes", str(SHARD_RANKS), "--process-id", str(rank),
+        "--mesh", "1x2", "--artifact", str(ARTIFACTS / "token"),
+        "--max-batch", str(TOKEN_BATCH), "--max-len", str(TOKEN_MAX_LEN)])
+    tok_mesh = daemon.join_mesh(args)
+    res = {"rank": rank, "backend": str(torch.distributed.get_backend()),
+           "join_s": time.perf_counter() - t0}
+
+    # (a) vision, data-parallel
+    vis_mesh = make_mesh((SHARD_RANKS, 1), ("data", "model"), "cuda")
+    t1 = time.perf_counter()
+    vqm = QuantizedModel.load(ARTIFACTS / "m2q-w8a8", shardings=lambda t:
+                              shd.shardings_from_specs(
+                                  shd.param_specs(t, vis_mesh), vis_mesh))
+    res["vision_load_s"] = time.perf_counter() - t1
+    veng = vqm.serve(max_batch=BATCH, max_delay_ms=50.0, graphs=False,
+                     mesh=vis_mesh)
+    images = shard_images(vqm.cfg)
+    for rep in ("warm", "timed"):
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        handles = [veng.submit(img) for img in images]
+        poll_until_done(veng, handles, f"phase 16 (a) rank {rank}")
+        torch.cuda.synchronize()
+        res[f"vision_{rep}_s"] = time.perf_counter() - t1
+        res[f"vision_{rep}_counts"] = kernels.counts()
+        logits = np.stack([h.result() for h in handles])
+        np.save(out / f"sharded_vision_{rank}_{rep}.npy", logits)
+    res["vision_buckets"] = sorted(veng.stats.buckets_used)
+    res["vision_batches"] = veng.stats.batches
+    del veng, vqm
+
+    # (b) token, tensor-parallel, through the daemon's artifact path
+    t1 = time.perf_counter()
+    eng = daemon.build_engine(args, mesh=tok_mesh)
+    res["token_load_s"] = time.perf_counter() - t1
+    problems, n_leaves, n_sharded = daemon.placement_problems(
+        eng.params, shd.param_specs(eng.params, tok_mesh), tok_mesh)
+    res["placement"] = {"problems": problems, "leaves": n_leaves,
+                        "sharded": n_sharded}
+    cache = eng.sharded_cache()
+    res["cache"] = {k: {"global": list(v.shape),
+                        "local": list(v.to_local().shape),
+                        "placements": str(v.placements)}
+                    for k, v in cache.items()}
+    res["local_heads"] = eng._exec_cfg.n_heads
+    reqs = token_requests(eng.cfg)
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with ServingDaemon(eng) as served:  # one pass: eager
+        handles = [served.submit(p, slo="batch", max_new_tokens=n,
+                                 temperature=t) for p, n, t in reqs]
+        res["token"] = [h.handle.result(timeout=SHARD_WAIT)
+                        for h in handles]
+    res["released"] = eng.lockstep.stopped
+    torch.cuda.synchronize()
+    res["token_s"] = time.perf_counter() - t1
+    res["token_counts"] = kernels.counts()
+    res["token_steps"] = [eng.stats.steps, eng.stats.prefill_batches]
+    res["wall_s"] = time.perf_counter() - t0
+    (out / f"sharded_rank{rank}.json").write_text(json.dumps(res))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _vision_launches(forwards) -> dict:
+    """A rank's launches over ``forwards`` forwards of its rows: the m2q
+    path's 42 / 20 / 14 / 14 each."""
+    return {"m2q_matmul": 42 * forwards, "dwconv_w4": 20 * forwards,
+            "relu_attn": 14 * forwards, "relu_attn_scales": 14 * forwards}
+
+
+def run_sharded(torch, out_dir, card) -> Counter:
+    """Phase 16, sharded serving: two ranks on ``cuda:0`` (gloo; NCCL
+    refuses two ranks on one card) in child processes
+    (:func:`sharded_child`), against this process's unsharded eager
+    engines on the same artifacts and inputs.  (a) B1 R224 m2q-w8a8
+    data-parallel (data=2): every rank's logits equal the unsharded
+    engine's on the same batches (8, then 4) at zero tolerance -- each
+    rank runs 4 / 2 rows and relu_attn's scales are max-reduced over
+    data -- with 42 / 20 / 14 / 14 launches a forward on each rank.  (b)
+    qwen1.5-0.5b int8-KV ``token`` tensor-parallel (model=2: 8 of 16
+    heads, FFN 1408 of 2816 columns, lm_head 75968 of 151936 on each
+    rank), each rank's engine driven by a ``ServingDaemon``: every leaf
+    placed as its spec says; both daemons shut down with the ranks
+    released; both ranks serve the same tokens; each greedy token is the unsharded engine's, or sits within
+    TEACHER_FORCED_BOUND of the top of the unsharded kernel model's
+    teacher-forced logits (row-parallel sums reorder f32 additions); a
+    sampled request equals the unsharded one's, or follows it up to a
+    first differing draw (a near-tie moved; reported); launches as
+    phase 6 counts them, on each rank.  Returns both ranks' launches."""
+    import os
+    import socket
+    import numpy as np
+    from repro_torch import kernels, recipe
+    from repro_torch.launch.daemon import (TEACHER_FORCED_BOUND,
+                                           teacher_forced_logits)
+    t0 = time.perf_counter()
+    res = {"ranks": SHARD_RANKS, "card": card}
+    # the unsharded references, eager, on the same artifacts
+    vqm = recipe.QuantizedModel.load(ARTIFACTS / "m2q-w8a8", device="cuda")
+    images = shard_images(vqm.cfg)
+    veng = vqm.serve(max_batch=BATCH, max_delay_ms=50.0, graphs=False)
+    ref = {}
+    for rep in ("warm", "timed"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        handles = [veng.submit(img) for img in images]
+        poll_until_done(veng, handles, "phase 16 reference")
+        torch.cuda.synchronize()
+        res[f"unsharded_vision_{rep}_s"] = time.perf_counter() - t1
+        ref[rep] = np.stack([h.result() for h in handles])
+    del veng, vqm
+    tqm = recipe.QuantizedModel.load(ARTIFACTS / "token", device="cuda")
+    cfg = tqm.cfg
+    reqs = token_requests(cfg)
+    teng = tqm.serve(max_batch=TOKEN_BATCH, max_len=TOKEN_MAX_LEN, seed=0,
+                     graphs=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    handles = [teng.submit(p, max_new_tokens=n, temperature=t)
+               for p, n, t in reqs]
+    teng.run()
+    torch.cuda.synchronize()
+    res["unsharded_token_s"] = time.perf_counter() - t1
+    want = [h.handle.result() for h in handles]
+    del teng
+    torch.cuda.empty_cache()
+    res["reference_s"] = time.perf_counter() - t0
+
+    # the two ranks
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    work = ARTIFACTS / "sharded"
+    work.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join([str(SRC), str(ROOT)])}
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         "chip_smoke.sharded_child()", str(r), str(port), str(work)],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(SHARD_RANKS)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=SHARD_WAIT))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail(f"phase 16: a rank did not finish in {SHARD_WAIT} s")
+    res["children_s"] = time.perf_counter() - t1
+    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+        print(f"phase 16 rank {r} output: {o.strip()[-1500:]}", flush=True)
+        if p.returncode != 0:
+            fail(f"phase 16: rank {r} ended rc {p.returncode}: {e[-3000:]}")
+    ranks = [json.loads((work / f"sharded_rank{r}.json").read_text())
+             for r in range(SHARD_RANKS)]
+    problems = []
+    launches = Counter()
+    # (a) vision
+    for r, rk in enumerate(ranks):
+        for rep in ("warm", "timed"):
+            got = np.load(work / f"sharded_vision_{r}_{rep}.npy")
+            if not np.array_equal(got, ref["warm"]):
+                problems.append(
+                    f"(a) rank {r} {rep}: logits differ from the unsharded "
+                    f"engine's by {float(np.abs(got - ref['warm']).max())}")
+            counts = rk[f"vision_{rep}_counts"]
+            expect = _vision_launches(2)  # its rows of 8, then of 4
+            for kname, c in counts.items():
+                if c["launches"] != expect.get(kname, 0) \
+                        or c["plain_calls"]:
+                    problems.append(f"(a) rank {r} {rep}: {kname} {c}, "
+                                    f"expected {expect.get(kname, 0)}")
+            launches.update({k: c["launches"] for k, c in counts.items()})
+        if rk["vision_buckets"] != [4, 8]:
+            problems.append(f"(a) rank {r}: buckets {rk['vision_buckets']}")
+    # (b) token
+    if ranks[0]["token"] != ranks[1]["token"]:
+        problems.append("(b) the two ranks served different tokens")
+    tb = {"placement": ranks[0]["placement"], "cache": ranks[0]["cache"],
+          "local_heads": ranks[0]["local_heads"]}
+    for r, rk in enumerate(ranks):
+        if rk["placement"]["problems"] or not rk["placement"]["sharded"]:
+            problems.append(f"(b) rank {r} placement: {rk['placement']}")
+        if not rk["released"]:
+            problems.append(f"(b) rank {r}: its daemon ended with the "
+                            "ranks not released")
+        steps, groups = rk["token_steps"]
+        expect = token_launches(cfg, "token", steps, groups)
+        for kname, c in rk["token_counts"].items():
+            if c["launches"] != expect.get(kname, 0) or c["plain_calls"]:
+                problems.append(f"(b) rank {r}: {kname} {c}, expected "
+                                f"{expect.get(kname, 0)}")
+        launches.update({k: c["launches"]
+                         for k, c in rk["token_counts"].items()})
+    got = ranks[0]["token"]
+    greedy_off = [i for i, (p, n, t) in enumerate(reqs)
+                  if t == 0.0 and got[i] != want[i]]
+    sampled = [i for i, (p, n, t) in enumerate(reqs) if t > 0.0]
+    tb["greedy_equal"] = sum(1 for i, (p, n, t) in enumerate(reqs)
+                             if t == 0.0 and got[i] == want[i])
+    tb["greedy_differing"] = greedy_off
+    rows = []
+    if greedy_off:
+        steps = max(len(got[i]) for i in greedy_off) - 1
+        forced = np.zeros((steps, len(greedy_off)), np.int64)
+        for j, i in enumerate(greedy_off):
+            forced[:len(got[i]) - 1, j] = got[i][:-1]
+        lg = teacher_forced_logits(cfg, tqm.params,
+                                   [reqs[i][0] for i in greedy_off], forced,
+                                   TOKEN_MAX_LEN).cpu().numpy()
+        bound = TEACHER_FORCED_BOUND * float(np.abs(lg).max())
+        for j, i in enumerate(greedy_off):
+            n = len(got[i])
+            served = np.asarray(got[i], np.int64)[:, None]
+            margins = token_margins(lg[:n, j:j + 1], served)
+            rows.append({"request": i, "bound": bound, **margins})
+            if margins["largest_gap"] > bound:
+                problems.append(f"(b) request {i}: a served token sits "
+                                f"{margins['largest_gap']} below the "
+                                f"teacher-forced top, over {bound}")
+    tb["greedy_margins"] = rows
+    tb["sampled"] = []
+    for i in sampled:
+        a, b = got[i], want[i]
+        first = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+        tb["sampled"].append({"request": i, "equal": a == b,
+                              "first_difference": first})
+        if len(a) != len(b) or not all(0 <= x < cfg.vocab_size for x in a):
+            problems.append(f"(b) sampled request {i}: {len(a)} tokens")
+    generated = sum(len(t) for t in got)
+    r0 = ranks[0]
+    res.update(
+        backend=r0["backend"], join_s=[rk["join_s"] for rk in ranks],
+        vision={"images_per_s_sharded": N_IMAGES / r0["vision_timed_s"],
+                "images_per_s_unsharded": N_IMAGES
+                / res["unsharded_vision_timed_s"],
+                "seconds": [rk["vision_timed_s"] for rk in ranks],
+                "load_s": [rk["vision_load_s"] for rk in ranks],
+                "counts_per_rank": [rk["vision_timed_counts"]
+                                    for rk in ranks]},
+        token=dict(tb, tokens=generated,
+                   tokens_per_s_sharded=generated / r0["token_s"],
+                   tokens_per_s_unsharded=sum(len(t) for t in want)
+                   / res["unsharded_token_s"],
+                   seconds=[rk["token_s"] for rk in ranks],
+                   load_s=[rk["token_load_s"] for rk in ranks],
+                   steps=r0["token_steps"],
+                   counts_per_rank=[rk["token_counts"] for rk in ranks]),
+        child_wall_s=[rk["wall_s"] for rk in ranks],
+        phase_s=time.perf_counter() - t0)
+    (out_dir / "chip_smoke_sharded.json").write_text(json.dumps(res, indent=1))
+    print("phase 16:", json.dumps(res), flush=True)
+    if problems:
+        fail("phase 16: " + "; ".join(problems)[:3000])
+    print(f"phase 16: {SHARD_RANKS} ranks, backend {res['backend']}, "
+          f"{res['phase_s']:.1f} s; vision {res['vision']['images_per_s_sharded']:.1f}"
+          f" images/s sharded eager vs {res['vision']['images_per_s_unsharded']:.1f}"
+          f" unsharded; token {res['token']['tokens_per_s_sharded']:.1f} "
+          f"tokens/s sharded eager vs {res['token']['tokens_per_s_unsharded']:.1f}"
+          f" unsharded; {card}", flush=True)
+    del tqm
+    torch.cuda.empty_cache()
+    return launches
+
+
 class PhaseClock:
     """Each phase's wall seconds, and the autotuner's probes and tuning
     seconds within it (the lazy tuning of its eager calls), printed and
@@ -4543,11 +4883,19 @@ def main() -> None:
                check_weights_only(torch, rng, "int4_matmul",
                                   {"w4-weights-only": m2q_calls,
                                    "qwen-decode-step": [lm_head_call],
+                                   # phase 16: a model rank's lm_head
+                                   "qwen model-shard decode step": [(
+                                       "lm_head", TOKEN_BATCH, qwen.d_model,
+                                       qwen.padded_vocab // SHARD_RANKS)],
                                    **pool_heads}),
                check_weights_only(torch, rng, "apot_matmul",
                                   {"weights-only-apot": m2q_calls}),
                check_decode_attn(torch, rng, qwen.n_layers,
-                                 pool + moe_lms)]
+                                 pool + moe_lms + [(
+                                     "qwen1.5-0.5b model-shard", qwen.replace(
+                                         n_heads=qwen.n_heads // SHARD_RANKS,
+                                         n_kv_heads=qwen.n_kv_heads
+                                         // SHARD_RANKS))])]
     detail = {t.name: t.rows for t in tallies}
     (out_dir / "chip_smoke_kernels.json").write_text(
         json.dumps(detail, indent=1))
@@ -4601,6 +4949,11 @@ def main() -> None:
         # ---- 15. kernel dispatch and autotuning -----------------------------
         launches.update(run_autotune(torch, out_dir, card))
         clock.lap("15 autotune")
+
+        # ---- 16. sharded serving, two ranks on the card ---------------------
+        with autotune.no_tuning():
+            launches.update(run_sharded(torch, out_dir, card))
+        clock.lap("16 sharded")
     finally:
         import shutil
         shutil.rmtree(ARTIFACTS, ignore_errors=True)

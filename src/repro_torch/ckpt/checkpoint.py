@@ -107,7 +107,15 @@ def _numpy_dtype(dtype) -> np.dtype:
     return np.dtype(dtype)
 
 
+def _is_dtensor(leaf) -> bool:
+    return isinstance(leaf, torch.Tensor) and hasattr(leaf, "full_tensor")
+
+
 def _to_numpy(leaf) -> np.ndarray:
+    if _is_dtensor(leaf):
+        # a sharded leaf is saved whole (a collective over its mesh), so
+        # either package reads the artifact
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         _numpy_dtype(leaf.dtype)  # names a dtype numpy lacks
         return leaf.detach().cpu().numpy()
@@ -144,12 +152,30 @@ def save(ckpt_dir, step: int, tree, extra: Optional[dict] = None) -> Path:
     QTensor leaves); ``extra`` is any JSON-serialisable dict.  Returns
     the published directory.
 
+    ``DTensor`` leaves (a tree placed on a mesh) are saved whole: every
+    rank calls ``save``, each leaf is gathered (``full_tensor()``), rank
+    0 alone writes, and every rank returns once it has published.
+
     Crash-safe at every point: arrays are written and fsync'd before the
     manifest exists, the manifest lands via tmp + ``os.replace``, and an
     existing published step is swapped aside -- never removed in place --
     so an overwriting save that dies midway leaves a complete checkpoint
     (old or new), not a torn one."""
     ckpt_dir = Path(ckpt_dir)
+    final = ckpt_dir / f"step_{step:08d}"
+    paths = _leaf_paths(tree)
+    if any(_is_dtensor(leaf) for _, leaf in paths):
+        import torch.distributed as dist
+        leaves = [(key, _to_numpy(leaf)) for key, leaf in paths]
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, step, leaves, extra)
+        dist.barrier()
+        return final
+    return _write(ckpt_dir, step,
+                  [(key, _to_numpy(leaf)) for key, leaf in paths], extra)
+
+
+def _write(ckpt_dir: Path, step: int, leaves, extra) -> Path:
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f"step_{step:08d}.tmp"
@@ -161,7 +187,6 @@ def save(ckpt_dir, step: int, tree, extra: Optional[dict] = None) -> Path:
             shutil.rmtree(stale)
     tmp.mkdir()
     manifest = {"step": step, "extra": extra or {}, "leaves": []}
-    leaves = [(key, _to_numpy(leaf)) for key, leaf in _leaf_paths(tree)]
     with ThreadPoolExecutor(_IO_THREADS) as pool:
         digests = list(pool.map(_sha256, [arr for _, arr in leaves]))
     arrays = {}
@@ -269,13 +294,17 @@ def read_extra(ckpt_dir, step: int) -> dict:
 
 
 def restore(ckpt_dir, step: int, template, device="cuda",
-            verify: bool = True):
+            verify: bool = True, shardings=None):
     """Restore into the structure of ``template`` (a tree of tensors --
     ``meta`` ones do -- numpy arrays and QTensor leaves, whose static
     fields are kept) on ``device``.  Each leaf's bytes are checked against
     the manifest's SHA256 (``verify``), and its shape and dtype against
     the manifest and the template; a leaf the template lacks, or the
-    checkpoint lacks, raises.  Returns (tree, extra)."""
+    checkpoint lacks, raises.  ``shardings``: a matching tree of
+    ``dist.sharding.NamedSharding`` (``shardings_from_specs``) -- each
+    leaf is read whole and placed as a ``DTensor`` with its placement,
+    this rank keeping only its shard, on the mesh's device (``device``
+    is then unused).  Returns (tree, extra)."""
     d = _step_dir(ckpt_dir, step)
     manifest = json.loads((d / _MANIFEST).read_text())
     by_key = {rec["key"]: rec for rec in manifest["leaves"]}
@@ -285,6 +314,14 @@ def restore(ckpt_dir, step: int, template, device="cuda",
         raise KeyError(f"checkpoint holds leaves the template lacks: "
                        f"{extra_keys[:5]}")
     device = torch.device(device)
+    placed = None
+    if shardings is not None:
+        from ..dist import sharding as shd
+        placed = dict(shd.flat_arrays(shardings))
+        missing = sorted(set(wanted) - set(placed))
+        if missing:
+            raise KeyError(f"shardings lack leaves of the template: "
+                           f"{missing[:5]}")
 
     def load(key):
         tpl = wanted[key]
@@ -308,8 +345,10 @@ def restore(ckpt_dir, step: int, template, device="cuda",
             raise ValueError(
                 f"shape mismatch for {key!r}: ckpt {arr.shape} vs "
                 f"template {tuple(tpl.shape)}")
-        return torch.from_numpy(np.require(arr, requirements="C")
-                                ).to(device)
+        t = torch.from_numpy(np.require(arr, requirements="C"))
+        if placed is not None:
+            return shd.place(t, placed[key])
+        return t.to(device)
 
     # leaves read, verified and moved a few at a time; the first failure
     # in flatten order raises

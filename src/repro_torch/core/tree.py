@@ -17,6 +17,13 @@ def _is_namedtuple(tree) -> bool:
     return isinstance(tree, tuple) and hasattr(tree, "_fields")
 
 
+def _is_node(tree) -> bool:
+    """A list or tuple walked into; a tuple type that says ``TREE_LEAF``
+    (``dist.sharding.P``, the twin of a ``PartitionSpec``) is a leaf."""
+    return isinstance(tree, (list, tuple)) and not getattr(
+        tree, "TREE_LEAF", False)
+
+
 def _children(tree):
     """(key, child) pairs of a tuple or list: a NamedTuple's fields as
     ``.<name>``, any other sequence's items by index."""
@@ -30,7 +37,7 @@ def map_with_path(fn: Callable[[str, Any], Any], tree, _path: Tuple = ()):
     if isinstance(tree, dict):
         return {k: map_with_path(fn, tree[k], _path + (str(k),))
                 for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
+    if _is_node(tree):
         children = [map_with_path(fn, v, _path + (k,))
                     for k, v in _children(tree)]
         if _is_namedtuple(tree):
@@ -44,7 +51,7 @@ def leaves_with_path(tree, _path: Tuple = ()) -> Iterator[Tuple[str, Any]]:
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from leaves_with_path(tree[k], _path + (str(k),))
-    elif isinstance(tree, (list, tuple)):
+    elif _is_node(tree):
         for k, v in _children(tree):
             yield from leaves_with_path(v, _path + (k,))
     else:

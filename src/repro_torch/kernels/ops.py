@@ -71,6 +71,34 @@ _REFERENCE: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_reference_path", default=False)
 
 
+# how relu_attn's three tensor-wide scales are combined with the other
+# ranks' (None: this rank's batch is the whole batch)
+_SCALE_REDUCE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_scale_reduce", default=None)
+
+
+@contextlib.contextmanager
+def batch_scales(reduce):
+    """Inside this scope ``relu_attn_op`` passes its (3,) f32 scales
+    ``(sq, sk, sv)`` through ``reduce`` before the attention kernel: a
+    data-parallel engine's max over the ``data`` ranks, so each rank's
+    slice of a batch quantizes with the whole batch's scales, as under
+    GSPMD (the scales are tensor-wide over the batch)."""
+    token = _SCALE_REDUCE.set(reduce)
+    try:
+        yield
+    finally:
+        _SCALE_REDUCE.reset(token)
+
+
+def _batch_scales(scales):
+    reduce = _SCALE_REDUCE.get()
+    if reduce is None:
+        return scales
+    out = reduce(torch.stack([s.reshape(()) for s in scales]))
+    return out[0], out[1], out[2]
+
+
 @contextlib.contextmanager
 def reference_path():
     """Run the plain PyTorch versions instead of the kernels, on any
@@ -438,8 +466,9 @@ def relu_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     inside :func:`reference_path`."""
     if _REFERENCE.get():
         return _attn.relu_attn_plain(
-            q, k, v, *_scales.relu_attn_scales_plain(q, k, v), eps, q.dtype)
-    scales = _scales.relu_attn_scales(q, k, v)
+            q, k, v, *_batch_scales(_scales.relu_attn_scales_plain(q, k, v)),
+            eps, q.dtype)
+    scales = _batch_scales(_scales.relu_attn_scales(q, k, v))
     B, N, H, D = q.shape
     if plan is None:
         plan = _plan(
@@ -469,7 +498,10 @@ def decode_attn_int8_op(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qh = q.reshape(B, Hkv, Hq // Hkv, D).contiguous()
     lens = lengths.to(torch.int32).contiguous()
-    args = (qh, k_q, v_q, k_scale, v_scale, lens, scale, window)
+    # a model-sharded engine hands in its heads' slice of the replicated
+    # (B, T, Hkv_all) scales: a strided view, copied here
+    args = (qh, k_q, v_q, k_scale.contiguous(), v_scale.contiguous(), lens,
+            scale, window)
     if ref:
         out = _dec.decode_attn_int8_plain(*args).to(q.dtype)
     else:

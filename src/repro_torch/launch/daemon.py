@@ -38,10 +38,37 @@ Supervision (:mod:`repro_torch.serving.supervisor`):
   (:func:`replay_agreement`; both counts are printed): on the card bf16
   matmuls of another shape can move a near-tie token.
 
-Not ported yet, and refused with a message naming what brings them:
-``--coordinator`` (multi-host launch, with its per-process readiness
-markers under ``--health-file``) and ``--mesh`` wait for the port's
-sharding (ROADMAP A9).
+Sharded serving (``dist.sharding``, the engines' ``mesh=``), one
+process per rank:
+
+* ``--mesh DATAxMODEL`` under ``torchrun`` (its environment joins the
+  ranks), as ``launch.serve --mesh``;
+* multi-host launch: every process runs the same command with its own
+  ``--process-id``; ``--coordinator host:port`` is rank 0's address
+  (``init_process_group(init_method="tcp://host:port")``, the twin of
+  ``jax.distributed.initialize``), ``--mesh`` spans the world.
+  :func:`multihost_dryrun` places the float tree with
+  ``dist.sharding.put_global`` and checks every leaf's placements
+  against its spec and its local shard's shape (each rank holds only
+  its own shards), likewise the decode cache and a token batch; with
+  ``--health-file PATH`` each process then writes ``PATH.p<id>`` and
+  waits for every peer's (a readiness barrier).  There is no lowering
+  twin (the port has no ahead-of-time compile).  The serve loop then
+  runs (the JAX package skips it on its CPU backend, which has no
+  multiprocess execution; the port's ranks execute everywhere):
+
+    python -m repro_torch.launch.daemon --arch qwen1.5-0.5b --reduced \
+        --device cpu --mesh 1x2 --coordinator 127.0.0.1:9911 \
+        --num-processes 2 --process-id 0   # and --process-id 1
+
+The backend is printed: NCCL where every rank has a card of its own,
+gloo on the CPU and for several ranks on one card.  ``--artifact DIR``
+(the port's own) serves a saved ``QuantizedModel`` (restored with each
+rank's shards on a mesh) instead of quantizing one.  On more than one
+rank the engine's steps run eagerly and rank 0 decides each one; a
+supervisor's restarts are per process, so ``--health-file`` supervision
+(not the multi-host readiness marker) refuses a mesh of more than one
+rank, as do ``--smoke`` and ``--recovery-smoke``.
 """
 from __future__ import annotations
 
@@ -61,24 +88,37 @@ import torch
 # the token path's bound on the card, for served and replayed tokens
 TEACHER_FORCED_BOUND = 5e-2
 
-SHARDING_NOT_PORTED = (
-    "{flag}: multi-host and sharded serving are not ported; they wait for "
-    "the port's dist/sharding.py (ROADMAP A9)")
-
-
-def build_engine(args):
+def build_engine(args, mesh=None):
+    """The token Engine the CLI serves: ``--artifact``'s model, else a
+    seeded init quantized (unless ``--no-quant``); sharded over ``mesh``
+    (eager) when given."""
     from ..configs.registry import ARCHS, REDUCED
     from ..models import get_model
     from ..serving.engine import Engine
     from .serve import quantize_for_serving
+    engine_kw = dict(max_batch=args.max_batch, max_len=args.max_len)
+    if mesh is not None:
+        engine_kw.update(mesh=mesh, graphs=False)
+    if getattr(args, "artifact", None):
+        from ..recipe import QuantizedModel
+        shardings = None
+        if mesh is not None:
+            from ..dist import sharding as shd
+
+            def shardings(tree):
+                return shd.shardings_from_specs(
+                    shd.param_specs(tree, mesh), mesh)
+        qm = QuantizedModel.load(args.artifact, device=args.device,
+                                 shardings=shardings)
+        return qm.serve(**engine_kw)
     cfg = (REDUCED if args.reduced else ARCHS)[args.arch]
     params = get_model(cfg).init(cfg, seed=0, device=args.device)
-    engine_kw = dict(max_batch=args.max_batch, max_len=args.max_len)
     if args.no_quant:
         return Engine(cfg, params, **engine_kw)
     qm = quantize_for_serving(cfg, params)
     del params
-    print(f"[daemon] quantized {len(qm.report)} layers")
+    if mesh is None or mesh.get_rank() == 0:
+        print(f"[daemon] quantized {len(qm.report)} layers")
     return qm.serve(**engine_kw)
 
 
@@ -142,8 +182,14 @@ def serve_traffic(daemon, args) -> bool:
             results.append(daemon.submit(p, slo="interactive",
                                          max_new_tokens=args.max_new))
 
+    # on a mesh every rank submits the same requests in the same order:
+    # the background submitter runs first, on this thread
+    sharded = getattr(eng, "mesh", None) is not None
     th = threading.Thread(target=submitter)
-    th.start()
+    if sharded:
+        submitter()
+    else:
+        th.start()
     streamed, at = [], []
     t0 = time.monotonic()
     first = daemon.submit(_prompts(cfg, 1, rng)[0], slo="interactive",
@@ -153,7 +199,8 @@ def serve_traffic(daemon, args) -> bool:
         streamed.append(tok)
         if args.stream:
             print(f"[daemon] stream tok={tok}", flush=True)
-    th.join(args.timeout)
+    if not sharded:
+        th.join(args.timeout)
     if th.is_alive():
         print("[daemon] FAIL: the submitting thread did not finish")
         return False
@@ -184,6 +231,114 @@ def serve_traffic(daemon, args) -> bool:
           f"streamed_tokens={s.streamed_tokens} "
           f"preemptions={s.preemptions}")
     return True
+
+
+def _peer_barrier(args, pid: int, info: dict) -> bool:
+    """Multi-host readiness barrier over ``--health-file``: write this
+    process's marker, wait for every peer's."""
+    _write_json_atomic(f"{args.health_file}.p{pid}",
+                       {"pid": pid, "ready": True, **info})
+    want = [f"{args.health_file}.p{i}" for i in range(args.num_processes)]
+    deadline = time.monotonic() + args.timeout
+    seen = 0
+    while time.monotonic() < deadline:
+        seen = sum(1 for p in want if os.path.exists(p))
+        if seen == args.num_processes:
+            print(f"[daemon:{pid}] peers-ready: {seen}/"
+                  f"{args.num_processes} readiness markers", flush=True)
+            return True
+        time.sleep(0.1)
+    print(f"[daemon:{pid}] FAIL: peer readiness barrier timed out "
+          f"({seen}/{args.num_processes})")
+    return False
+
+
+def placement_problems(tree, specs, mesh) -> tuple:
+    """(problems, leaves, sharded): every leaf of a ``DTensor`` tree
+    placed as its spec says, its local shard the shape that spec cuts
+    for this rank; ``sharded`` counts the leaves this rank holds only
+    part of."""
+    from ..dist import sharding as shd
+    want = dict(shd.flat_arrays(shd.shardings_from_specs(specs, mesh)))
+    problems, n, sharded = [], 0, 0
+    for path, leaf in shd.flat_arrays(tree):
+        n += 1
+        sh = want[path]
+        local = leaf.to_local()
+        cut = tuple(shd.local_slice(torch.empty(leaf.shape, device="meta"),
+                                    sh.spec, mesh).shape)
+        if tuple(leaf.placements) != tuple(sh.placements):
+            problems.append(f"{path}: placed {leaf.placements}, spec "
+                            f"{sh.spec} wants {sh.placements}")
+        elif tuple(local.shape) != cut:
+            problems.append(f"{path}: local shard {tuple(local.shape)}, "
+                            f"spec {sh.spec} cuts {cut}")
+        if local.numel() < leaf.numel():
+            sharded += 1
+    return problems, n, sharded
+
+
+def join_mesh(args):
+    """Join the ranks at ``--coordinator`` and build ``--mesh`` over
+    them (the twin of ``jax.distributed.initialize`` + the global
+    mesh); prints the backend."""
+    from .mesh import init_ranks
+    from .serve import parse_mesh
+    pid = args.process_id
+    backend, why = init_ranks(args.device, args.num_processes, pid,
+                              f"tcp://{args.coordinator}")
+    print(f"[daemon:{pid}] distributed up: {args.num_processes} processes, "
+          f"backend={backend} ({why})", flush=True)
+    return parse_mesh(args.mesh, args.device, world=args.num_processes,
+                      rank=pid)
+
+
+def multihost_dryrun(args) -> int:
+    """Distributed init + global mesh + cross-process placement (checked
+    leaf by leaf), then the serve loop over the mesh.  No lowering twin:
+    the port compiles nothing ahead of time."""
+    from ..configs.registry import ARCHS, REDUCED
+    from ..dist import sharding as shd
+    from ..models import get_model
+    from ..serving.daemon import ServingDaemon
+    if not args.mesh:
+        raise SystemExit("--coordinator needs --mesh DATAxMODEL")
+    mesh = join_mesh(args)
+    pid = args.process_id
+    cfg = (REDUCED if args.reduced else ARCHS)[args.arch]
+    model = get_model(cfg)
+    params = model.init(cfg, seed=0, device="cpu")
+    pspecs = shd.param_specs(params, mesh)
+    gparams = shd.put_global(params, pspecs, mesh)
+    problems, n_leaves, n_sharded = placement_problems(gparams, pspecs, mesh)
+    cache = model.init_cache(cfg, args.max_batch, args.max_len,
+                             dtype=torch.float32, device="cpu")
+    cspecs = shd.cache_specs(cache, mesh, shard_model=True)
+    toks = {"tokens": torch.zeros((args.max_batch, 8), dtype=torch.int64)}
+    bspecs = shd.batch_specs(toks, mesh)
+    for tree, specs in ((cache, cspecs), (toks, bspecs)):
+        problems += placement_problems(shd.put_global(tree, specs, mesh),
+                                       specs, mesh)[0]
+    if problems:
+        for p in problems[:10]:
+            print(f"[daemon:{pid}] FAIL: {p}")
+        return 1
+    print(f"[daemon:{pid}] placement-ok: {n_leaves} leaves on-spec, "
+          f"{n_sharded} with remote shards; cache and batch on-spec",
+          flush=True)
+    del params, gparams
+    if args.health_file:
+        # cross-host readiness barrier: every peer verified placement
+        # before anyone serves
+        if not _peer_barrier(args, pid, {
+                "leaves": n_leaves, "sharded": n_sharded,
+                "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                "unix_time": time.time()}):
+            return 1
+    eng = build_engine(args, mesh=mesh)
+    with ServingDaemon(eng) as daemon:
+        ok = serve_traffic(daemon, args)
+    return 0 if ok else 1
 
 
 def serve_supervised(args) -> int:
@@ -482,7 +637,7 @@ def smoke(args) -> int:
     return 0
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -509,29 +664,40 @@ def main(argv=None) -> None:
                     help="write supervisor health() JSON snapshots here "
                          "while serving under a Supervisor")
     ap.add_argument("--mesh", default=None,
-                    help="DATAxMODEL over the global device world (not "
-                         "ported)")
+                    help="DATAxMODEL over the global rank world")
     ap.add_argument("--coordinator", default=None,
-                    help="host:port of process 0, multi-host launch (not "
-                         "ported)")
+                    help="host:port of process 0 (multi-host launch)")
     ap.add_argument("--num-processes", type=int, default=1)
     ap.add_argument("--process-id", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="where the model and engine live (cuda or cpu)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--artifact", default=None,
+                    help="serve this saved QuantizedModel (port-only)")
+    return ap.parse_args(argv)
 
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     if args.coordinator is not None:
-        raise SystemExit(SHARDING_NOT_PORTED.format(flag="--coordinator"))
-    if args.mesh:
-        raise SystemExit(SHARDING_NOT_PORTED.format(flag="--mesh"))
+        sys.exit(multihost_dryrun(args))
+    if args.mesh and (args.recovery_smoke or args.smoke):
+        raise SystemExit("--mesh serves the --stream traffic; --smoke and "
+                         "--recovery-smoke run on one rank")
     if args.recovery_smoke:
         sys.exit(recovery_smoke(args))
     if args.smoke:
         sys.exit(smoke(args))
+    from .serve import parse_mesh
+    mesh = parse_mesh(args.mesh, args.device) if args.mesh else None
     if args.health_file:
+        if mesh is not None and mesh.size() > 1:
+            raise SystemExit(
+                "--health-file supervision with a --mesh of more than one "
+                "rank: a restart is per process, and the ranks step in "
+                "lockstep; supervise a one-rank engine instead")
         sys.exit(serve_supervised(args))
     from ..serving.daemon import ServingDaemon
-    eng = build_engine(args)
+    eng = build_engine(args, mesh=mesh)
     with ServingDaemon(eng) as daemon:
         ok = serve_traffic(daemon, args)
     sys.exit(0 if ok else 1)

@@ -13,9 +13,19 @@ recurrentgemma-9b (served through exact-length prefill buckets;
 recurrentgemma-9b only with ``--no-quant``: the CLI's m2q-w8a8 recipe
 calibrates, which that family cannot do in the reference either).
 
-The engine runs on ``--device`` (the card by default).  ``--mesh``
-(sharded execution) is not ported: it waits for the port's sharding
-(ROADMAP A9).
+The engine runs on ``--device`` (the card by default).  ``--mesh
+DATAxMODEL`` serves sharded (``dist.sharding``, the engines' ``mesh=``):
+one process per rank, launched by ``torchrun``, whose environment
+(``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``) joins them;
+the mesh must cover every rank.  The process group's backend is printed:
+NCCL where every rank has a card of its own, gloo on the CPU and for
+several ranks on one card (``launch.mesh.pick_backend``).  Every rank
+builds the same tree from seed 0 and submits the same requests; rank 0
+prints the report.  The sharded steps run eagerly:
+
+  python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.serve --arch qwen1.5-0.5b --reduced \
+      --device cpu --mesh 2x2
 
 One flag is the port's own, not in the JAX CLI: ``--kv-cache-dtype``.
 The registry's qwen1.5-0.5b keeps a bf16 cache, so without it the CLI
@@ -26,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -34,10 +45,6 @@ from ..configs.registry import ARCHS, REDUCED
 from ..models import get_model
 from ..recipe import QuantizedModel, as_recipe, quantize
 from ..serving.engine import Engine
-
-MESH_NOT_PORTED = ("--mesh: sharded serving is not ported; it waits for "
-                   "the port's dist/sharding.py (ROADMAP A9)")
-
 
 def quantize_for_serving(cfg, params, batch: int = 2, calib_len: int = 32,
                          recipe="m2q-w8a8") -> QuantizedModel:
@@ -53,6 +60,42 @@ def quantize_for_serving(cfg, params, batch: int = 2, calib_len: int = 32,
     return quantize(cfg, params, rec, release=True)
 
 
+def parse_mesh(spec: str, device: str = "cuda", world: int = None,
+               rank: int = None, init_method: str = "env://"):
+    """'DATAxMODEL' (e.g. '2x2') -> a ``DeviceMesh`` over (data, model)
+    spanning the process group, joined here if it is not yet (``torchrun``'s
+    environment by default).  The mesh must cover exactly the world's
+    ranks (one process each)."""
+    try:
+        n_data, n_model = (int(p) for p in spec.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh wants DATAxMODEL (e.g. 4x4), got {spec!r}")
+    import torch.distributed as dist
+    if world is None:
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else int(os.environ.get("WORLD_SIZE", "1")))
+    n = n_data * n_model
+    if n > world:
+        raise SystemExit(
+            f"--mesh {spec} needs {n} ranks but only {world} exist (launch "
+            f"one process per rank: python -m torch.distributed.run "
+            f"--nproc-per-node {n} -m repro_torch.launch.serve ...)")
+    if n < world:
+        raise SystemExit(
+            f"--mesh {spec} covers {n} of {world} ranks; the port's "
+            "sharded engines span every rank")
+    from .mesh import init_ranks, make_mesh
+    if rank is None:
+        rank = (dist.get_rank() if dist.is_initialized()
+                else int(os.environ.get("RANK", "0")))
+    backend, why = init_ranks(device, world, rank, init_method)
+    if rank == 0:
+        print(f"[serve] mesh={n_data}x{n_model} backend={backend} ({why})",
+              flush=True)
+    return make_mesh((n_data, n_model), ("data", "model"),
+                     "cuda" if device.startswith("cuda") else "cpu")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -65,7 +108,9 @@ def main(argv=None) -> None:
                     help="admission deadline: >0 coalesces prefills until "
                          "the batch fills or the oldest request ages out")
     ap.add_argument("--mesh", default=None,
-                    help="DATAxMODEL sharded execution (not ported)")
+                    help="DATAxMODEL (e.g. 2x2): sharded execution via "
+                         "repro_torch.dist.sharding, one torchrun rank "
+                         "each")
     ap.add_argument("--no-quant", action="store_true")
     ap.add_argument("--kv-cache-dtype", choices=("bf16", "int8"),
                     default=None,
@@ -73,8 +118,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="where the model and engine live (cuda or cpu)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise SystemExit(MESH_NOT_PORTED)
+    mesh = parse_mesh(args.mesh, args.device) if args.mesh else None
+    lead = mesh is None or mesh.get_rank() == 0
 
     cfg = (REDUCED if args.reduced else ARCHS)[args.arch]
     if args.kv_cache_dtype:
@@ -82,12 +127,15 @@ def main(argv=None) -> None:
     params = get_model(cfg).init(cfg, seed=0, device=args.device)
     engine_kw = dict(max_batch=args.max_batch, max_len=args.max_len,
                      max_delay_ms=args.max_delay_ms)
+    if mesh is not None:  # eager: gloo collectives cannot be captured
+        engine_kw.update(mesh=mesh, graphs=False)
     if not args.no_quant:
         qm = quantize_for_serving(cfg, params)
         del params
         bits = {r.path: r.bits for r in qm.report}
-        print(f"[serve] quantized {len(qm.report)} layers; "
-              f"avg bits={np.mean(list(bits.values())):.2f}")
+        if lead:
+            print(f"[serve] quantized {len(qm.report)} layers; "
+                  f"avg bits={np.mean(list(bits.values())):.2f}")
         eng = qm.serve(**engine_kw)
     else:
         eng = Engine(cfg, params, **engine_kw)
@@ -99,9 +147,13 @@ def main(argv=None) -> None:
     t0 = time.time()
     stats = eng.run()  # ends on a completion's read: the card is done
     dt = time.time() - t0
+    if not lead:
+        return
     print(f"[serve] arch={cfg.name} requests={stats.finished} "
           f"decoded={stats.decoded_tokens} steps={stats.steps} "
-          f"tok/s={stats.decoded_tokens / max(dt, 1e-9):.1f}")
+          f"tok/s={stats.decoded_tokens / max(dt, 1e-9):.1f}"
+          + (f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+             if mesh is not None else ""))
     print(f"[serve] queue p50={stats.p50_ms:.2f}ms p99={stats.p99_ms:.2f}ms "
           f"prefill-occupancy={stats.batch_occupancy:.2f} "
           f"padded-fraction={stats.padded_fraction:.2f} "

@@ -109,7 +109,11 @@ def remat(fn, *args, policy: str = "full"):
 
 
 def dense(x: torch.Tensor, w, b=None) -> torch.Tensor:
-    """y = x @ w (+ b); w may be float, CalibTensor or a QTensor leaf."""
+    """y = x @ w (+ b); w may be float, CalibTensor or a QTensor leaf, or
+    a leaf that computes its own product (``local_dense(x, b)``: a rank's
+    shard of one, ``dist.spmd.Parallel``)."""
+    if hasattr(w, "local_dense"):
+        return w.local_dense(x, b)
     if isinstance(w, CalibTensor):
         w.record(x)
         y = x @ w.w.to(x.dtype)
@@ -139,7 +143,11 @@ def tied_head(x: torch.Tensor, table) -> torch.Tensor:
 
 def embed(ids: torch.Tensor, table) -> torch.Tensor:
     """Rows of ``table`` (float, CalibTensor, or an axis-0 QUniform whose
-    packed rows are gathered before they are dequantized)."""
+    packed rows are gathered before they are dequantized), or a table
+    that gathers its own rows (``local_embed(ids)``: a rank's column
+    shard of one, ``dist.spmd.Parallel``)."""
+    if hasattr(table, "local_embed"):
+        return table.local_embed(ids)
     if isinstance(table, CalibTensor):
         return table.w[ids]
     if isinstance(table, QUniform):

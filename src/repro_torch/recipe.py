@@ -268,7 +268,7 @@ class QuantizedModel:
             return _model_forward(self.cfg, self.model, self.params, x,
                                   attn, **kw)
 
-    def serve(self, dispatch=None, **engine_kw):
+    def serve(self, dispatch=None, mesh=None, **engine_kw):
         """The serving engine for this model, by modality: the batched
         :class:`~repro_torch.serving.vision.VisionEngine` for the vision
         family (``max_batch``, ``min_bucket``, ``max_delay_ms``, ``attn``,
@@ -276,13 +276,17 @@ class QuantizedModel:
         :class:`~repro_torch.serving.engine.Engine` otherwise
         (``max_batch``, ``max_len``, ``seed``, ``max_delay_ms``, ...).
         ``dispatch``: an optional ``kernels.ops.DispatchConfig`` the
-        engine enters inside every step and capture."""
+        engine enters inside every step and capture.  ``mesh``: an
+        optional ``("data", "model")`` ``DeviceMesh`` for sharded
+        execution (both engines' ``mesh=``; on more than one rank pass
+        ``graphs=False``)."""
         if self.cfg.family == "efficientvit":
             from .serving.vision import VisionEngine
             return VisionEngine(self.cfg, self.params, dispatch=dispatch,
-                                **engine_kw)
+                                mesh=mesh, **engine_kw)
         from .serving.engine import Engine
-        return Engine(self.cfg, self.params, dispatch=dispatch, **engine_kw)
+        return Engine(self.cfg, self.params, dispatch=dispatch, mesh=mesh,
+                      **engine_kw)
 
     def m2q_splits(self) -> Dict[str, Tuple[int, int]]:
         """path -> (n_uniform, n_apot) from the reports: what lets the
@@ -315,11 +319,16 @@ class QuantizedModel:
 
     @classmethod
     def load(cls, path, step: Optional[int] = None,
-             device="cuda") -> "QuantizedModel":
+             device="cuda", shardings=None) -> "QuantizedModel":
         """The artifact at ``path`` (the latest step unless ``step``),
         written by either package, on ``device``, without re-quantizing:
         the abstract twin gives the structure, the checkpoint the bytes
-        (each leaf's SHA256, shape and dtype checked)."""
+        (each leaf's SHA256, shape and dtype checked).  ``shardings``: a
+        callable taking the abstract tree and returning its
+        ``NamedSharding`` tree (e.g. ``lambda t:
+        shardings_from_specs(param_specs(t, mesh), mesh)``), or that tree
+        itself -- each leaf is placed as a ``DTensor`` on this rank
+        (``ckpt.restore(..., shardings=)``)."""
         if step is None:
             step = ckpt.latest_step(path)
             if step is None:
@@ -332,8 +341,11 @@ class QuantizedModel:
                   report=[_report_from_json(r) for r in probe["report"]],
                   act_stats=dict(probe["act_stats"]),
                   provenance=dict(probe.get("provenance", {})))
-        out.params, _ = ckpt.restore(path, step, out.abstract_params(),
-                                     device=device)
+        template = out.abstract_params()
+        if callable(shardings):
+            shardings = shardings(template)
+        out.params, _ = ckpt.restore(path, step, template, device=device,
+                                     shardings=shardings)
         return out
 
 

@@ -307,6 +307,9 @@ class ServingDaemon:
 
     def _idle(self) -> bool:
         """Nothing queued and nothing in flight (drain-complete test)."""
+        ls = getattr(self.engine, "lockstep", None)
+        if ls is not None and ls.stopped:
+            return True  # rank 0 released the ranks: nothing runs more
         if self.engine.scheduler.pending:
             return False
         if self._is_token and any(s is not None for s in self.engine.slots):
@@ -326,9 +329,15 @@ class ServingDaemon:
         them for unsupervised users)."""
         dev = self.engine.device
         try:
-            with (torch.cuda.device(dev) if dev.type == "cuda"
-                  else contextlib.nullcontext()):
-                self._loop()
+            try:
+                with (torch.cuda.device(dev) if dev.type == "cuda"
+                      else contextlib.nullcontext()):
+                    self._loop()
+            finally:
+                # a sharded engine's rank 0: the other ranks stop too
+                ls = getattr(self.engine, "lockstep", None)
+                if ls is not None:
+                    ls.release()
         except BaseException as e:  # noqa: BLE001 — crash recorder
             with self._wake:
                 self.crashed = e
@@ -339,19 +348,26 @@ class ServingDaemon:
 
     def _loop(self) -> None:
         sched = self.engine.scheduler
+        # a sharded engine's ranks other than 0 wait for rank 0's next
+        # decision inside their step: they step without pause until
+        # rank 0 releases them, and an idle rank 0 steps at least every
+        # keepalive_s so that wait stays inside the group's timeout
+        ls = getattr(self.engine, "lockstep", None)
         while True:
             self.step_started = time.monotonic()
-            busy = self._tick() > 0
+            busy = self._tick() > 0 and not (ls is not None and ls.stopped)
             self.step_started = None
             self.heartbeat = time.monotonic()
+            follows = ls is not None and ls.follows
             with self._wake:
                 if self._state == _STOPPING:
-                    if not self._drain or self._idle():
+                    if (not self._drain or self._idle()) and not follows:
                         return
-                    if not busy:  # e.g. coalescing deadline not yet due
+                    if not busy and not follows:
+                        # e.g. coalescing deadline not yet due
                         self._wake.wait(timeout=0.005)
                     continue  # draining: keep serving
-                if busy:
+                if busy or follows:
                     continue  # hot: decode slots live or queue due
                 # idle: sleep until the next deadline or a submit.  The
                 # re-check under the lock closes the submit race (a
@@ -362,6 +378,9 @@ class ServingDaemon:
                 nd = sched.next_deadline()
                 timeout = (None if nd is None
                            else max(0.0, nd - sched.clock()))
+                if ls is not None and not ls.stopped:
+                    timeout = (ls.keepalive_s if timeout is None
+                               else min(timeout, ls.keepalive_s))
                 if timeout is None or timeout > 0:
                     self._wake.wait(timeout=timeout)
 

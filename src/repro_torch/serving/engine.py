@@ -1,6 +1,5 @@
 """Continuous-batching token engine over a (quantized) LM parameter tree
-(twin of ``repro.serving.engine.Engine`` without ``FallbackGuard`` and
-``mesh=``).
+(twin of ``repro.serving.engine.Engine`` without ``FallbackGuard``).
 
 Slot-based: a fixed decode batch of ``max_batch`` slots, each holding one
 request's KV cache rows (or recurrent state).  Waiting requests are
@@ -69,12 +68,39 @@ miss a poisoned slot (the logits check is always on: JAX's
 ``REPRO_DEBUG_NUMERICS=1``) also scans the cache's float leaves inside
 every decode step.  ``heartbeat`` is the wall-clock time ``step()`` was
 last entered.
+
+``mesh=`` (a ``("data", "model")`` ``DeviceMesh`` over every process,
+one rank each) serves sharded, as the JAX engine's ``mesh=`` does: the
+parameters are placed by ``dist.sharding.param_specs`` (``self.params``
+holds ``DTensor`` leaves) and the cache by ``cache_specs(...,
+shard_model=True)`` (:meth:`sharded_cache`): slots over ``data``, heads
+over ``model``; the int8 cache's ``(L, B, T, Hkv)`` row scales are
+replicated over ``model``, so each rank writes its heads' slice and the
+new rows are gathered over ``model`` after every write.  Each rank runs
+its ``data`` slice of the slots on its ``model`` shards
+(``dist.spmd.local_params``: column-parallel products keep their
+columns, row-parallel ones are summed over ``model``, the lm_head's
+logits gathered before sampling); sampled tokens are drawn from the full
+``(B, V)`` uniforms of the engine's seeded generator on every rank, each
+keeping its rows, so seeded draws equal the unsharded engine's.  On more
+than one rank the steps run eagerly (``graphs=True`` raises: gloo
+collectives cannot be captured) and rank 0 decides every step
+(``dist.spmd.Lockstep``): each slot retirement, queue expiry, eviction,
+admitted group and decode is broadcast before it runs, the other ranks
+apply it to their own handles of the same uids (every rank submits the
+same requests in the same order, at any wall time), and :meth:`run` ends
+on every rank when rank 0's does.  The other ranks keep no deadlines:
+rank 0's expiries and cancellations reach them with its decisions.
+``lockstep`` (None on one rank) is what a serving daemon reads: a
+follower keeps stepping until rank 0's ``lockstep.release()`` at
+shutdown, and an idle rank 0 steps every ``lockstep.keepalive_s``.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import time
+import zlib
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -89,7 +115,7 @@ from .batching import ServeStats, pow2_bucket
 from .errors import NumericalError, RequestTimedOut
 from .graphs import for_device, in_use
 from .scheduler import TIMED_OUT, FlushPolicy, Handle, OverloadPolicy, \
-    Scheduler
+    Scheduler, end_like
 
 
 def write_slots(cache: dict, slots: List[int], group_cache: dict) -> None:
@@ -103,6 +129,12 @@ def write_slots(cache: dict, slots: List[int], group_cache: dict) -> None:
             dst[idx] = src
         else:
             dst[:, idx] = src
+
+
+def _digest(req: "Request") -> tuple:
+    """What ranks compare before prefilling a request together."""
+    return (zlib.crc32(np.ascontiguousarray(req.prompt).tobytes()),
+            req.max_new_tokens, req.temperature)
 
 
 @dataclasses.dataclass
@@ -143,7 +175,8 @@ class Engine:
                  faults: Optional[_faults.FaultInjector] = None,
                  debug_numerics: Optional[bool] = None,
                  graphs: bool = True,
-                 dispatch: Optional[ops.DispatchConfig] = None):
+                 dispatch: Optional[ops.DispatchConfig] = None,
+                 mesh=None):
         if max_delay_ms is None:
             raise ValueError(
                 "token engine admission needs a deadline: use "
@@ -152,10 +185,16 @@ class Engine:
         self.cfg = cfg
         self.model = get_model(cfg)
         self._ragged = bool(getattr(self.model, "RAGGED_PREFILL", False))
-        self.params = params
-        self.device = device_of(params)
         self.B = max_batch
         self.T = max_len
+        self.mesh = mesh
+        self._rt = self.lockstep = None
+        # what the model computes with: a rank's config and shards
+        self._exec_cfg, self._exec = cfg, params
+        if mesh is not None:
+            params = self._shard(params, mesh, graphs)
+        self.params = params
+        self.device = device_of(self._exec)
         self.dispatch = dispatch
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.stats = EngineStats()
@@ -174,8 +213,15 @@ class Engine:
                                max_delay_ms=max_delay_ms),
             stats=self.stats, clock=clock, overload=overload)
         dev = self.device
-        self.cache = self.model.init_cache(cfg, max_batch, max_len,
-                                           dtype=torch.float32, device=dev)
+        self._rows = slice(0, max_batch)  # this rank's slots
+        self._gathered = ()  # cache leaves replicated over model
+        if self._rt is None:
+            self.cache = self.model.init_cache(cfg, max_batch, max_len,
+                                               dtype=torch.float32,
+                                               device=dev)
+            self._model_cache = self.cache
+        else:
+            self._init_sharded_cache()
         # device-resident decode state
         self._gen = torch.Generator(device=dev).manual_seed(seed)
         self._pending = torch.zeros((max_batch,), dtype=torch.int64,
@@ -194,6 +240,109 @@ class Engine:
         # host mirror of per-slot emitted-token counts (drives completion
         # without reading token values back)
         self._emitted = [0] * max_batch
+
+    # -- sharding --------------------------------------------------------------
+    def _shard(self, params, mesh, graphs: bool):
+        """Place params per dist.sharding; this rank's compute tree and
+        config (``dist.spmd``)."""
+        from ..dist import sharding as shd
+        from ..dist import spmd
+        if graphs and mesh.size() > 1:
+            raise ValueError(
+                "graphs=True on a mesh of more than one rank: the sharded "
+                "decode step's collectives (gloo) cannot be captured in a "
+                "CUDA graph; serve it with graphs=False")
+        rt = spmd.MeshRuntime(mesh)
+        if self.B % rt.n_data:
+            raise ValueError(
+                f"max_batch ({self.B}) must be divisible by the data "
+                f"axis size ({rt.n_data}) for sharded execution")
+        self._exec_cfg = spmd.local_config(self.cfg, rt)
+        specs = shd.param_specs(params, mesh)
+        placed = spmd.place_tree(params, specs, mesh)
+        self._exec = spmd.local_params(placed, specs, rt)
+        self._rt = rt
+        if rt.size > 1:
+            self.lockstep = spmd.Lockstep(rt)
+        return placed
+
+    def _init_sharded_cache(self) -> None:
+        """This rank's cache buffers: its slots, and its heads of a
+        model-sharded leaf; a leaf ``cache_specs`` replicates over
+        ``model`` although the model writes it per head (the int8 row
+        scales) keeps every head, and the model is handed its heads'
+        slice (a view)."""
+        from ..dist import sharding as shd
+        rt, cfg, T = self._rt, self.cfg, self.T
+        n = self.B // rt.n_data
+        self._rows = rt.rows(self.B)
+        self._cache_specs = shd.cache_specs(
+            self.model.init_cache(cfg, self.B, T, dtype=torch.float32,
+                                  device="meta"), rt.mesh, shard_model=True)
+        full = self.model.init_cache(cfg, n, T, dtype=torch.float32,
+                                     device=self.device)
+        mine = self.model.init_cache(self._exec_cfg, n, T,
+                                     dtype=torch.float32, device=self.device)
+        self.cache, self._model_cache, gathered = {}, {}, []
+        for name, buf in mine.items():
+            if "model" in self._cache_specs[name] \
+                    or buf.shape == full[name].shape:
+                self.cache[name] = self._model_cache[name] = buf
+                continue
+            h = buf.shape[-1]
+            self.cache[name] = full[name]
+            self._model_cache[name] = full[name].narrow(
+                -1, rt.model_rank * h, h)
+            gathered.append(name)
+        self._gathered = tuple(gathered)
+
+    def sharded_cache(self) -> dict:
+        """The cache as ``DTensor`` leaves over this engine's mesh (views
+        of the buffers the steps write), placed as ``cache_specs(...,
+        shard_model=True)`` says."""
+        from torch.distributed.tensor import DTensor
+
+        from ..dist import sharding as shd
+        if self._rt is None:
+            raise ValueError("sharded_cache() needs an engine built with "
+                             "mesh=")
+        mesh = self._rt.mesh
+        return {name: DTensor.from_local(
+                    buf, mesh, shd.NamedSharding(
+                        mesh, self._cache_specs[name]).placements,
+                    run_check=False)
+                for name, buf in self.cache.items()}
+
+    def _gather_rows(self, lengths: torch.Tensor) -> None:
+        """After a decode step: the row each slot wrote (``lengths - 1``,
+        dropped past ``max_len``) of every per-head leaf replicated over
+        ``model``, gathered from every ``model`` rank into all heads."""
+        if not self._gathered:
+            return
+        at = (lengths - 1).to(torch.int64)
+        ok = at < self.T
+        safe = torch.where(ok, at, torch.zeros_like(at))
+        b = torch.arange(at.shape[0], device=at.device)
+        for name in self._gathered:
+            buf, mine = self.cache[name], self._model_cache[name]
+            rows = self._rt.all_gather(mine[:, b, safe], "model", -1)
+            keep = ok.reshape(1, -1, 1)
+            buf[:, b, safe] = torch.where(keep, rows, buf[:, b, safe])
+
+    def _write_group(self, slots: List[int], group_cache: dict) -> None:
+        """A prefill group's cache into this rank's slots (``slots``
+        local), its per-head replicated leaves gathered over ``model``."""
+        group_cache = dict(group_cache)
+        for name in self._gathered:
+            group_cache[name] = self._rt.all_gather(group_cache[name],
+                                                    "model", -1)
+        write_slots(self.cache, slots, group_cache)
+
+    # -- lockstep (more than one rank) -------------------------------------------
+    def _announce(self, msg) -> None:
+        """Rank 0: broadcast a decision before it runs."""
+        if self.lockstep is not None and self.lockstep.leader:
+            self.lockstep.share(msg)
 
     # -- request API ---------------------------------------------------------
     @property
@@ -257,24 +406,34 @@ class Engine:
                       temperature=float(temperature), out_tokens=[],
                       stream=bool(stream) or on_token is not None,
                       preemptible=bool(preemptible))
+        if self.lockstep is not None and not self.lockstep.leader:
+            deadline_ms = None  # rank 0 decides expiries
         req.handle = self.scheduler.submit(req, deadline_ms=deadline_ms,
                                            priority=priority,
                                            on_token=on_token)
         req.uid = req.handle.uid
+        if self.lockstep is not None:
+            self.lockstep.note(req.handle)
         return req
 
     # -- device-side pieces --------------------------------------------------
     def _sample(self, logits: torch.Tensor, temps: torch.Tensor,
-                draw: bool) -> torch.Tensor:
+                draw: bool, rows=None, total: int = 0) -> torch.Tensor:
         """(n, padded_vocab) logits -> (n,) int64 tokens on the device:
         argmax, or Gumbel-max of ``logits / t`` where ``t > 0`` (``draw``:
         whether any row samples; greedy-only calls consume no random
-        numbers)."""
+        numbers).  ``rows`` / ``total``: the logits are those rows of a
+        batch of ``total`` (a rank's slots): the whole batch's uniforms
+        are drawn and these rows kept, as the unsharded engine draws."""
         lg = logits[:, : self.cfg.vocab_size].to(torch.float32)
         greedy = torch.argmax(lg, dim=-1)
         if not draw:
             return greedy
-        u = torch.rand(lg.shape, generator=self._gen, device=lg.device)
+        if rows is None:
+            u = torch.rand(lg.shape, generator=self._gen, device=lg.device)
+        else:
+            u = torch.rand((total, lg.shape[1]), generator=self._gen,
+                           device=lg.device)[rows]
         gumbel = -torch.log(-torch.log(u))
         drawn = torch.argmax(lg / temps.clamp(min=1e-6)[:, None] + gumbel,
                              dim=-1)
@@ -289,11 +448,12 @@ class Engine:
         1).  Integer payloads are finite by construction; the float leaves
         (a float cache, the int8 cache's row scales) carry a NaN the
         quantizers would send to code 0."""
-        bad = torch.zeros((self.B,), dtype=torch.bool, device=self.device)
+        n = self.cache["lengths"].shape[0]  # this rank's slots
+        bad = torch.zeros((n,), dtype=torch.bool, device=self.device)
         for leaf in self.cache.values():
             if leaf.ndim < 2 or not leaf.is_floating_point():
                 continue
-            rows = torch.isfinite(leaf).movedim(1, 0).reshape(self.B, -1)
+            rows = torch.isfinite(leaf).movedim(1, 0).reshape(n, -1)
             bad |= ~rows.all(dim=1)
         return bad
 
@@ -322,11 +482,17 @@ class Engine:
             group = self.scheduler.pop(cands, reason)
             if not group:
                 continue  # whole group cancelled/expired while queued
-            try:
-                self._prefill_group(free[: len(group)], group)
-            except Exception as e:  # noqa: BLE001 -- per-batch containment
-                for h in group:
-                    h.set_exception(e)
+            self._announce(("prefill", free[: len(group)],
+                            [h.uid for h in group], reason,
+                            [_digest(h.payload) for h in group]))
+            self._run_group(free[: len(group)], group)
+
+    def _run_group(self, gslots: List[int], group: List[Handle]) -> None:
+        try:
+            self._prefill_group(gslots, group)
+        except Exception as e:  # noqa: BLE001 -- per-batch containment
+            for h in group:
+                h.set_exception(e)
 
     def _maybe_preempt(self) -> bool:
         """With every slot busy: evict ONE preemptible decode of lower
@@ -348,6 +514,7 @@ class Engine:
             victims.append((req.handle.priority, -self._emitted[slot], slot))
         if not victims:
             return False
+        self._announce(("preempt", min(victims)[2]))
         self._preempt_slot(min(victims)[2])
         return True
 
@@ -380,6 +547,8 @@ class Engine:
         self.stats.preemptions += 1
         self._release_slot(slot)
         self.scheduler.requeue(h)
+        if self.lockstep is not None:
+            self.lockstep.note(h, requeued=True)  # admitted again by uid
 
     @torch.no_grad()
     def _prefill_group(self, gslots: List[int], handles: List[Handle]):
@@ -394,24 +563,16 @@ class Engine:
         for i, r in enumerate(greqs):
             toks[i, : len(r.prompt)] = r.prompt
         dev = self.device
-        sc = self.model.init_cache(self.cfg, len(greqs), self.T,
-                                   dtype=torch.float32, device=dev)
         temps_h = [r.temperature for r in greqs]
         temps = torch.tensor(temps_h, dtype=torch.float32, device=dev)
         act = (self.faults.on_call("prefill")
                if self.faults is not None else None)
         if act is not None:
             act.fire()  # raises and delays land before any state changes
-        kw = ({"lengths": torch.from_numpy(lens).to(dev)} if self._ragged
-              else {})
-        logits, sc = self.model.prefill(
-            self.cfg, self.params, sc, torch.from_numpy(toks).to(dev), **kw)
-        first = self._sample(logits[:, -1], temps,
-                             draw=any(t > 0 for t in temps_h))
-        bad = self._row_nonfinite(logits[:, -1])
+        first, bad = self._prefill_rows(gslots, toks, lens, temps,
+                                        any(t > 0 for t in temps_h))
         if act is not None and act.poison:
             bad[0] = True  # the group's first request fails alone
-        write_slots(self.cache, gslots, sc)
         idx = torch.as_tensor(gslots, dtype=torch.int64, device=dev)
         self._pending[idx] = first
         self._temps[idx] = temps
@@ -435,6 +596,41 @@ class Engine:
                                 capacity=self.B * pmax)
         self._finish_done()  # max_new_tokens == 1 finishes at prefill
 
+    def _prefill_rows(self, gslots, toks, lens, temps, draw):
+        """This rank prefills the group's members whose slots are its own
+        (all of them without a mesh; on a mesh, on its model shards),
+        samples them from the whole group's uniforms, and on a mesh the
+        group's first tokens and flags are summed over ``data`` (each
+        member's row comes from one data rank).  Returns the group's
+        (n,) first tokens and flags."""
+        rt, dev, n = self._rt, self.device, len(gslots)
+        lo = self._rows.start
+        mine = [i for i, s in enumerate(gslots) if self._rows.start <= s
+                < self._rows.stop]
+        first = torch.zeros((n,), dtype=torch.int64, device=dev)
+        bad = torch.zeros((n,), dtype=torch.int32, device=dev)
+        if mine:
+            idx = torch.as_tensor(mine, dtype=torch.int64, device=dev)
+            sc = self.model.init_cache(self._exec_cfg, len(mine), self.T,
+                                       dtype=torch.float32, device=dev)
+            kw = ({"lengths": torch.from_numpy(lens[mine]).to(dev)}
+                  if self._ragged else {})
+            logits, sc = self.model.prefill(
+                self._exec_cfg, self._exec, sc,
+                torch.from_numpy(toks[mine]).to(dev), **kw)
+            first[idx] = self._sample(logits[:, -1], temps[idx], draw,
+                                      rows=idx, total=n)
+            bad[idx] = self._row_nonfinite(logits[:, -1]).to(torch.int32)
+            self._write_group([gslots[i] - lo for i in mine], sc)
+        elif draw:
+            # the group's uniforms are drawn on every rank all the same
+            torch.rand((n, self.cfg.vocab_size), generator=self._gen,
+                       device=dev)
+        if rt is not None:
+            rt.all_reduce(first, "data")
+            rt.all_reduce(bad, "data")
+        return first, bad.to(torch.bool)
+
     # -- slots ---------------------------------------------------------------
     def _release_slot(self, slot: int) -> None:
         """Free a slot and clear its sticky flag for the next occupant
@@ -445,9 +641,32 @@ class Engine:
 
     def _sweep_slots(self) -> None:
         """Retire in-flight requests that went terminal without a result:
-        cancellation, and deadline expiry mid-decode."""
+        cancellation, and deadline expiry mid-decode (rank 0 broadcasts
+        the slots it retired)."""
+        leader = self.lockstep is not None and self.lockstep.leader
         self.scheduler.expire()
         now = self.scheduler.now()
+        if leader:
+            slots = {s: r.handle for s, r in enumerate(self.slots)
+                     if r is not None and r.handle is not None
+                     and not r.handle.done()}
+        self._retire_done(now)
+        if leader:
+            gone = [(s, h.state, str(h.exception()))
+                    for s, h in slots.items() if h.done()]
+            if gone:
+                self._announce(("sweep", gone))
+
+    def _mirror_sweep(self, gone) -> None:
+        """A follower: rank 0's retired slots, applied to this rank's
+        handles."""
+        for slot, state, msg in gone:
+            req = self.slots[slot]
+            if req is not None and req.handle is not None:
+                end_like(req.handle, state, msg)
+            self._release_slot(slot)
+
+    def _retire_done(self, now: float) -> None:
         for slot, req in enumerate(self.slots):
             if req is None or req.handle is None:
                 continue
@@ -505,20 +724,28 @@ class Engine:
     def _decode_step(self, draw: bool) -> None:
         """One decode step for every slot, in place over the engine's
         buffers (what a graph captures; ``draw`` as in :meth:`_sample`)."""
-        live = self._live
+        live, rows = self._live, self._rows
         logits, cache = self.model.decode_step(
-            self.cfg, self.params, self.cache, self._pending[:, None])
+            self._exec_cfg, self._exec, self._model_cache,
+            self._pending[rows, None])
         self.cache["lengths"].copy_(cache["lengths"])
+        self._gather_rows(cache["lengths"])
         lg = logits[:, 0]
-        # sticky: once a live slot's logits go non-finite the bit stays
-        # set until the slot retires
-        self._nonfinite |= self._row_nonfinite(lg) & live
+        bad = self._row_nonfinite(lg)
         if self.debug_numerics:
             # a cache NaN the int8 quantizers would launder into finite
             # logits still trips the flag
-            self._nonfinite |= self._cache_nonfinite() & live
-        tok = torch.where(live, self._sample(lg, self._temps, draw),
-                          self._pending)
+            bad |= self._cache_nonfinite()
+        sampled = self._sample(lg, self._temps[rows], draw, rows=rows,
+                               total=self.B)
+        if self._rt is not None:  # every rank's slots, on every rank
+            sampled = self._rt.all_gather(sampled, "data", 0)
+            bad = self._rt.all_gather(bad.to(torch.int32), "data",
+                                      0).to(torch.bool)
+        # sticky: once a live slot's logits go non-finite the bit stays
+        # set until the slot retires
+        self._nonfinite |= bad & live
+        tok = torch.where(live, sampled, self._pending)
         b = torch.arange(self.B, device=self.device)
         at = torch.clamp(self._counts, max=self.T - 1).to(torch.int64)
         self._outbuf[b, at] = torch.where(live, tok.to(torch.int32),
@@ -536,12 +763,57 @@ class Engine:
 
     def _step(self) -> int:
         self.heartbeat = time.monotonic()
+        ls = self.lockstep
+        if ls is not None and ls.stopped:
+            return 0
+        if ls is not None and not ls.leader:
+            return self._follow()
         self._sweep_slots()
         self._admit()
         live_mask = np.asarray([r is not None for r in self.slots], bool)
-        live = [i for i in range(self.B) if live_mask[i]]
-        if not live:
+        if not live_mask.any():
+            self._announce(("end",))
             return 0
+        self._announce(("decode",))
+        return self._decode_live(live_mask)
+
+    def _follow(self) -> int:
+        """A follower's step: rank 0's decisions, in its order, until its
+        decode (or the end of its step)."""
+        ls = self.lockstep
+        while True:
+            msg = ls.share(None)
+            kind = msg[0]
+            if kind == "sweep":
+                self._mirror_sweep(msg[1])
+            elif kind == "preempt":
+                self._preempt_slot(msg[1])
+            elif kind == "prefill":
+                _, gslots, uids, reason, digests = msg
+                group = ls.await_handles(uids)
+                mine = [_digest(h.payload) for h in group]
+                if mine != digests:
+                    raise RuntimeError(
+                        f"rank {ls.rt.rank}: requests {uids} differ from "
+                        "rank 0's (prompt, budget or temperature): every "
+                        "rank must submit the same requests in the same "
+                        "order")
+                self.scheduler.pop(group, reason)
+                self._run_group(gslots, group)
+            elif kind == "decode":
+                return self._decode_live(np.asarray(
+                    [r is not None for r in self.slots], bool))
+            elif kind == "idle":
+                self._peer_idle = True
+                return 0
+            elif kind == "stop":
+                ls.stopped = True
+                return 0
+            else:  # "end"
+                return 0
+
+    def _decode_live(self, live_mask: np.ndarray) -> int:
+        live = [i for i in range(self.B) if live_mask[i]]
         act = (self.faults.on_call("decode")
                if self.faults is not None else None)
         try:
@@ -583,14 +855,33 @@ class Engine:
     def _poison_slot(self, slot: int) -> None:
         """NaN-poison ONE slot's cache rows (``nan@decode``) in place --
         the decode graph replays these very buffers -- so that request
-        alone fails with ``NumericalError``."""
+        alone fails with ``NumericalError`` (on a mesh, by the data rank
+        whose slot it is)."""
+        if not self._rows.start <= slot < self._rows.stop:
+            return
         for leaf in self.cache.values():
             if leaf.is_floating_point() and leaf.ndim >= 2:
-                leaf[:, slot] = float("nan")
+                leaf[:, slot - self._rows.start] = float("nan")
 
     def run(self, max_steps: int = 10_000) -> EngineStats:
         """Step until the queue and every slot are empty (or
-        ``max_steps``)."""
+        ``max_steps``); on a mesh of more than one rank the other ranks
+        step until rank 0's run ends."""
+        ls = self.lockstep
+        if ls is not None and not ls.leader:
+            self._peer_idle = False
+            for _ in range(max_steps):
+                self.step()
+                if self._peer_idle or ls.stopped:
+                    break
+            return self.stats
+        try:
+            return self._run(max_steps)
+        finally:
+            if ls is not None and not ls.stopped:
+                ls.share(("idle",))
+
+    def _run(self, max_steps: int) -> EngineStats:
         for _ in range(max_steps):
             if self.scheduler.pending == 0 and all(
                     s is None for s in self.slots):

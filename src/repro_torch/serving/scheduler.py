@@ -265,6 +265,19 @@ class Handle:
         return f"Handle(uid={self.uid}, {self.state})"
 
 
+def end_like(h: Handle, state: str, msg: str) -> None:
+    """End ``h`` as its twin on another rank ended: cancelled, timed out
+    or failed, with that rank's message (a no-op once ``h`` is done)."""
+    if h.done():
+        return
+    if state == CANCELLED:
+        h.cancel()
+    elif state == TIMED_OUT:
+        h.set_exception(RequestTimedOut(msg), state=TIMED_OUT)
+    else:
+        h.set_exception(RuntimeError(msg))
+
+
 class Scheduler:
     """Deadline-driven priority/FIFO request queue (see module docstring).
     Queue state is guarded by one lock; the executor runs outside it, and

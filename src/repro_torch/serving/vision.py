@@ -1,5 +1,5 @@
 """Batched vision inference (images in, logits out); twin of
-``repro.serving.vision`` without ``mesh=`` and ``FallbackGuard``.
+``repro.serving.vision`` without ``FallbackGuard``.
 
 ``submit()`` queues one image and returns a handle at once; a batch runs
 when it fills to ``max_batch``, when its oldest request is older than
@@ -26,6 +26,28 @@ under, and a tripped axis captures anew.
 
 There is no silent retry: a kernel that raises fails its batch's requests
 (the scheduler contains the exception) and the engine keeps serving.
+
+``mesh=`` (a ``("data", "model")`` ``DeviceMesh`` over every process,
+one rank each) serves data-parallel: the parameters are placed by
+``dist.sharding.param_specs`` (``self.params`` holds ``DTensor`` leaves),
+the data axis must be a power of two dividing ``max_batch`` (the JAX
+engine's errors), ``min_bucket`` is raised to it, and each rank runs its
+``data`` slice of every padded bucket, the logits gathered over ``data``.
+``relu_attn``'s three scales are tensor-wide over the batch, so they are
+max-reduced over ``data`` before the kernel (``ops.batch_scales``), and
+each image's logits do not depend on the rank its row lands on.  On more
+than one rank the forward runs eagerly (``graphs=True`` raises: gloo
+collectives cannot be captured), batches run only in :meth:`poll` /
+:meth:`flush` / :meth:`classify`, never inline at submit, and rank 0
+decides every batch (``dist.spmd.Lockstep``): it broadcasts the batch's
+uids before it runs, and the other ranks' :meth:`poll` / :meth:`flush`
+run the same batches of their own handles (every rank submits the same
+images in the same order).  The other ranks keep no deadlines: a request
+that times out or is cancelled in rank 0's queue ends alike on the
+others with rank 0's next message.  ``lockstep`` (None on one rank) is
+what a serving daemon reads: a follower keeps polling until rank 0's
+``lockstep.release()`` at shutdown, and an idle rank 0 polls every
+``lockstep.keepalive_s``.
 
 Fault injection (:mod:`.faults`; ``faults=`` or ``REPRO_FAULT_SPEC``)
 fires at the ``vision`` site (each executed batch: a ``nan`` poisons the
@@ -80,7 +102,8 @@ class VisionEngine:
                  overload: Optional[OverloadPolicy] = None,
                  faults: Optional[_faults.FaultInjector] = None,
                  graphs: bool = True,
-                 dispatch: Optional[ops.DispatchConfig] = None):
+                 dispatch: Optional[ops.DispatchConfig] = None,
+                 mesh=None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         faults = faults if faults is not None else _faults.from_env()
@@ -93,14 +116,19 @@ class VisionEngine:
                 "'vision' or 'executor' instead")
         self.cfg = cfg
         self.model = get_model(cfg)
-        self.params = params
-        self.device = device_of(params)
         self.attn = attn
         self.dispatch = dispatch
         self.B = max_batch
         # the smallest bucket executed: a batch below it is padded up, so
         # only the buckets from min_bucket to max_batch are ever captured
         self.min_bucket = max(1, min_bucket)
+        self.mesh = mesh
+        self._rt = self.lockstep = None
+        self._exec = params  # the tree the forward reads (a rank's shards)
+        if mesh is not None:
+            params = self._shard(params, mesh, graphs)
+        self.params = params
+        self.device = device_of(self._exec)
         self.stats = VisionStats()
         self.faults = faults
         # wall-clock time poll() was last entered (supervision liveness)
@@ -111,6 +139,38 @@ class VisionEngine:
             policy=FlushPolicy(max_batch=max_batch, max_delay_ms=max_delay_ms),
             executor=self._execute, stats=self.stats, clock=clock,
             overload=overload, faults=self.faults)
+        if self.lockstep is not None:
+            self.scheduler.execute_on_submit = False
+
+    def _shard(self, params, mesh, graphs: bool):
+        """Place params per dist.sharding and raise the bucket floor to the
+        data-axis size so every pow2 batch shards evenly."""
+        from ..dist import sharding as shd
+        from ..dist import spmd
+        data = int(shd._mesh_axes(mesh).get("data", 1))
+        if data > 1:
+            if data & (data - 1):
+                raise ValueError(
+                    f"data axis size {data} is not a power of two; pow2 "
+                    "batch buckets cannot shard evenly over it")
+            if self.B % data:
+                raise ValueError(
+                    f"max_batch ({self.B}) must be divisible by the data "
+                    f"axis size ({data}) for sharded execution")
+            self.min_bucket = max(self.min_bucket, data)
+        if graphs and mesh.size() > 1:
+            raise ValueError(
+                "graphs=True on a mesh of more than one rank: the sharded "
+                "forward's collectives (gloo) cannot be captured in a CUDA "
+                "graph; serve it with graphs=False")
+        rt = spmd.MeshRuntime(mesh)
+        specs = shd.param_specs(params, mesh)
+        placed = spmd.place_tree(params, specs, mesh)
+        self._rt = rt
+        if rt.size > 1:
+            self.lockstep = spmd.Lockstep(rt)
+        self._exec = spmd.local_params(placed, specs, rt)
+        return placed
 
     def bucket(self, n: int) -> int:
         """Smallest power of two >= n, floored at min_bucket and capped at
@@ -127,12 +187,26 @@ class VisionEngine:
             if in_use(self.step_graphs):
                 logits = self._replay(images)
             else:
-                logits = self.model.forward(
-                    self.cfg, self.params,
-                    torch.from_numpy(images).to(self.device), attn=self.attn)
+                logits = self._forward(images)
         self.stats.record_batch(items=n, padded=pad, capacity=self.B,
                                 bucket=bucket)
         return logits.to(torch.float32).cpu().numpy()[:n]
+
+    def _forward(self, images: np.ndarray) -> torch.Tensor:
+        """The padded bucket's logits, eagerly; on a mesh this rank runs
+        its ``data`` slice, its relu_attn scales max-reduced over
+        ``data``, and the bucket's logits are gathered."""
+        rt = self._rt
+        if rt is None:
+            return self.model.forward(
+                self.cfg, self._exec, torch.from_numpy(images).to(
+                    self.device), attn=self.attn)
+        x = torch.from_numpy(images[rt.rows(images.shape[0])]).to(
+            self.device)
+        with ops.batch_scales(lambda s: rt.all_reduce(s, "data", "max")):
+            logits = self.model.forward(self.cfg, self._exec, x,
+                                        attn=self.attn)
+        return rt.all_gather(logits.to(torch.float32), "data", 0)
 
     def _replay(self, images: np.ndarray) -> torch.Tensor:
         """The bucket's forward replayed from its graph (captured here at
@@ -147,11 +221,13 @@ class VisionEngine:
         x.copy_(torch.from_numpy(images))
         key = (*static, ops.resolve(self.device))
         return self.step_graphs.run(key, lambda: self.model.forward(
-            self.cfg, self.params, x, attn=self.attn))
+            self.cfg, self._exec, x, attn=self.attn))
 
     def _execute(self, handles: List[Handle], reason: str) -> None:
         """One flushed batch -> per-handle logits, finite-checked per row
         (an exception out of here fails this batch's handles)."""
+        if self.lockstep is not None and self.lockstep.leader:
+            self.lockstep.share(("batch", [h.uid for h in handles], reason))
         act = (self.faults.on_call("vision")
                if self.faults is not None else None)
         if act is not None:
@@ -188,17 +264,57 @@ class VisionEngine:
                 and not np.all(np.isfinite(img)):
             raise ValueError("image holds NaN/Inf pixels; refusing to "
                              "enqueue a payload that would poison its batch")
-        return self.scheduler.submit(img, deadline_ms=deadline_ms)
+        if self.lockstep is not None and not self.lockstep.leader:
+            deadline_ms = None  # rank 0 decides expiries
+        h = self.scheduler.submit(img, deadline_ms=deadline_ms)
+        if self.lockstep is not None:
+            self.lockstep.note(h)
+        return h
+
+    def _follow(self) -> List[Handle]:
+        """A follower's poll / flush: rank 0's batches, run on this rank's
+        handles of the same uids, until rank 0's poll / flush ends."""
+        ls = self.lockstep
+        done: List[Handle] = []
+        while not ls.stopped:
+            msg = ls.share(None)
+            if msg[0] == "batch":
+                _, uids, reason = msg
+                handles = ls.await_handles(uids)
+                self.scheduler.pop(handles, reason)
+                self.scheduler._run_executor(handles, reason)
+                done.extend(handles)
+            elif msg[0] == "stop":
+                ls.stopped = True
+            else:  # "end"
+                break
+        return done
 
     def poll(self) -> int:
         """Execute whatever is due; returns the requests resolved."""
         self.heartbeat = time.monotonic()
-        return self.scheduler.poll()
+        if self.lockstep is None:
+            return self.scheduler.poll()
+        if self.lockstep.stopped:
+            return 0  # rank 0 released the ranks: nothing runs together
+        if not self.lockstep.leader:
+            return len(self._follow())
+        n = self.scheduler.poll()
+        self.lockstep.share(("end",))
+        return n
 
     def flush(self) -> Optional[np.ndarray]:
         """Drain every pending image; returns the delivered logits in
         submit order (None if nothing was delivered)."""
-        flushed = self.scheduler.drain()
+        if self.lockstep is None:
+            flushed = self.scheduler.drain()
+        elif self.lockstep.stopped:
+            flushed = []
+        elif self.lockstep.leader:
+            flushed = self.scheduler.drain()
+            self.lockstep.share(("end",))
+        else:
+            flushed = self._follow()
         ok = [h.result() for h in flushed if h.state == DONE]
         if not ok:
             return None
