@@ -203,10 +203,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
 
 11. the MoE LMs -- at their published widths with the int8 KV cache,
    the depth cut (the f32 trees do not fit the card whole):
-   llama4-scout-17b-a16e (4 of 48 layers; 16 experts top-1 and a shared
+   llama4-scout-17b-a16e (2 of 48 layers; 16 experts top-1 and a shared
    expert, G 5, vocab 202048 -> 202112) under m2q-w8a8 at the decode
    shape (every leaf 4-bit, the experts (L, 16, K, N/2) QUniform leaves:
-   decode_attn_int8 4 and int4_matmul 1 a decode step), and dbrx-132b (1
+   decode_attn_int8 2 and int4_matmul 1 a decode step), and dbrx-132b (1
    of 40 layers; 16 experts top-4, G 6) at 256 tokens a step (64 an
    expert: the experts (L, 16, K, N) QExpertM2Q leaves, attention and the
    lm_head mixed: 53 m2q_matmul -- 16 a leaf and layer for the experts,
@@ -319,11 +319,29 @@ Phases, each fatal on failure (nonzero exit, no result line):
    requests equal or diverging after a first differing draw (reported),
    launches as phase 6 counts them on each rank; phase 3 checks
    ``int4_matmul`` at a rank's lm_head (N 75968) and ``decode_attn_int8``
-   at its 8 heads.  Prints the backend, seconds, and the sharded and
-   unsharded eager images/s and tokens/s beside the card.
+   at its 8 heads; (c) phase 11's dbrx-132b artifact (1 of 40 layers,
+   ``m2q-w8a8`` at 256 tokens a step) expert-parallel on (data=1,
+   model=2): 8 of 16 experts, 24 / 4 of 48 / 8 heads and lm_head 50176
+   of 100352 columns a rank; layer 0's MoE on a fixed 512-row input
+   equal to the unsharded layer's at zero tolerance, the 8 LM-pool
+   prompts served (16 tokens each) with greedy tokens the unsharded
+   engine's or within the teacher-forced bound, ``m2q_matmul`` (8
+   experts x 3, the attention slices, the lm_head shard) and
+   ``decode_attn_int8`` launched as ``tree_launches`` counts a rank's
+   tree; (d) recurrentgemma-9b at its published width, 3 of 38 layers
+   (rec, rec, attn), ``w4-weights-only``, drawn on the card and saved,
+   on the same mesh (8 of 16 query heads, the single KV head gathered,
+   the recurrence replicated, ``int4_matmul`` on the lm_head shard of
+   128000 columns), phase 12's 8 prompts under the same gates; phase 3
+   checks ``m2q_matmul`` at dbrx's sharded attention and lm_head
+   shapes, ``decode_attn_int8`` at its 4 KV heads (G 6) and
+   ``int4_matmul`` at recurrentgemma's lm_head shard.  Prints the
+   backend, seconds, and the sharded and unsharded eager images/s and
+   tokens/s beside the card.
 
-Each phase's wall seconds go to ``chip_smoke_phases.json``; phase 3
-draws its inputs on the card (seeded CUDA generators).
+Each phase's wall seconds go to ``chip_smoke_phases.json``, and the
+run's total seconds are printed beside the card; phase 3 draws its
+inputs on the card (seeded CUDA generators).
 
 It then prints the card's name and power limit again, one JSON line with
 every kernel's numbers and, last, the ``{"ok": true, "device": ...}``
@@ -338,6 +356,7 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -1066,8 +1085,9 @@ def leaf_kind(leaf) -> str:
 
 
 ARTIFACTS = ROOT / "build" / "chip_smoke_artifacts"
-# the artifacts phase 8 serves again; main() removes them at the end
-KEPT_ARTIFACTS = ("m2q-w8a8", "token")
+# the artifacts later phases serve again (phases 8 and 16; phase 11's
+# dbrx, phase 16 (c)); main() removes them at the end
+KEPT_ARTIFACTS = ("m2q-w8a8", "token", "dbrx-132b")
 
 
 def _bits(torch, t):
@@ -3225,8 +3245,10 @@ def run_lm_pool(torch, out_dir, card) -> Counter:
 # (name, layers of the published depth served, tokens a step of the
 # recipe: None is the decode shape).  Published widths; the depth is cut
 # because the f32 trees do not fit the card at full depth (llama4-scout
-# 8.81 GB a layer + 8.28 GB of embed and head; dbrx 12.9 GB a layer).
-MOE_CASES = (("llama4-scout-17b-a16e", 4, None), ("dbrx-132b", 1, 256))
+# 8.81 GB a layer + 8.28 GB of embed and head; dbrx 12.9 GB a layer), and
+# llama4-scout's to 2 layers to keep the run inside its time with phase
+# 16's MoE and recurrent sub-phases.
+MOE_CASES = (("llama4-scout-17b-a16e", 2, None), ("dbrx-132b", 1, 256))
 
 
 def moe_m2q_calls(cfg, batch: int, prefill_len: int, label: str):
@@ -3253,6 +3275,20 @@ def moe_m2q_calls(cfg, batch: int, prefill_len: int, label: str):
     head = ("lm_head", batch, D, cfg.padded_vocab)
     return {f"{label} decode step": layers(batch) + [head],
             f"{label} prefill group": layers(batch * prefill_len) + [head]}
+
+
+def shard_m2q_calls(cfg, batch: int, prefill_len: int, label: str):
+    """m2q_matmul's calls on one rank of phase 16 (c) (model=2) that
+    differ in shape from :func:`moe_m2q_calls`' (an expert's calls keep
+    their shapes): the attention slices of the rank's heads (wq / wk /
+    wv columns, wo rows) and its lm_head shard."""
+    m = SHARD_RANKS
+    local = cfg.replace(n_heads=cfg.n_heads // m,
+                        n_kv_heads=cfg.n_kv_heads // m)
+    return {path: [(p, M, K, N // m if p == "lm_head" else N)
+                   for p, M, K, N in calls if "experts/" not in p]
+            for path, calls in moe_m2q_calls(local, batch, prefill_len,
+                                             label).items()}
 
 
 def tree_bytes(tree) -> int:
@@ -4471,6 +4507,56 @@ def run_autotune(torch, out_dir, card) -> Counter:
 # phase 16: sharded serving, two ranks on the one card
 SHARD_RANKS = 2
 SHARD_WAIT = 600
+# (c): phase 11's dbrx artifact (1 of 40 layers, m2q-w8a8 at 256 tokens a
+# step: QExpertM2Q experts), expert-parallel on model=2; the MoE layer
+# probe holds one prefill group's rows (8 prompts x 64)
+SHARD_MOE = "dbrx-132b"
+SHARD_MOE_ROWS = TOKEN_BATCH * 64
+# (d): recurrentgemma-9b at its published width, 3 of 38 layers (rec,
+# rec, attn: one attention block), w4-weights-only, drawn on the card
+SHARD_RG = "recurrentgemma-9b"
+SHARD_RG_LAYERS = 3
+SHARD_RG_ART = "recurrentgemma-9b-sharded"
+
+
+def shard_cases():
+    """Phase 16 (c) and (d): (key, config, artifact directory name)."""
+    from repro_torch.configs.registry import ARCHS
+    moe = ARCHS[SHARD_MOE]
+    return (("moe", moe.replace(n_layers=1, kv_cache_dtype="int8"),
+             SHARD_MOE),
+            ("recurrent", ARCHS[SHARD_RG].replace(n_layers=SHARD_RG_LAYERS),
+             SHARD_RG_ART))
+
+
+def shard_prompts(cfg):
+    """Phase 16 (c) / (d)'s prompts: the LM pool's 8 (8-64 tokens), or the
+    recurrent phase's (8 / 32 / 64 tokens: three exact-length groups)."""
+    if cfg.family == "recurrentgemma":
+        return recurrent_requests(cfg)
+    return pool_requests(cfg)
+
+
+def moe_probe(torch, cfg, device="cuda"):
+    """The (SHARD_MOE_ROWS, d_model) input phase 16 (c) holds one MoE layer
+    to: seeded normal rows in the model's dtype."""
+    import numpy as np
+    x = np.random.default_rng(16).normal(size=(SHARD_MOE_ROWS, cfg.d_model))
+    return torch.as_tensor(x, dtype=getattr(torch, cfg.dtype),
+                           device=device)
+
+
+def moe_layer_out(torch, cfg, params):
+    """Layer 0's MoE of ``params`` (a host tree, or a rank's compute tree)
+    over :func:`moe_probe`, as f32 numpy."""
+    from repro_torch import nn
+    from repro_torch.core.tree import device_of
+    from repro_torch.models import dense_lm
+    moe = dense_lm.layer_params(params["layers"], 0)["moe"]
+    with torch.no_grad():
+        y = nn.moe_ffn(moe_probe(torch, cfg, device_of(params)), moe,
+                       dense_lm.moe_config(cfg))
+    return y.float().cpu().numpy()
 
 
 def shard_images(cfg):
@@ -4493,8 +4579,12 @@ def sharded_child() -> None:
     checks every leaf's placement, and serves phase 6's 16 requests
     once through a ``ServingDaemon`` on each rank, as ``launch.daemon
     --mesh`` serves (rank 0's decides every step; the other steps in its
-    broadcasts until rank 0's releases it at shutdown).  Writes its
-    logits, tokens, launch counts and seconds."""
+    broadcasts until rank 0's releases it at shutdown); (c) / (d)
+    restores dbrx's and recurrentgemma's artifacts (:func:`shard_cases`)
+    with their shards on the same mesh, runs dbrx's MoE layer 0 on
+    :func:`moe_probe`, and serves each one's prompts through
+    ``Engine.run``.  Writes its logits, tokens, launch counts and
+    seconds."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -4568,10 +4658,79 @@ def sharded_child() -> None:
     res["token_s"] = time.perf_counter() - t1
     res["token_counts"] = kernels.counts()
     res["token_steps"] = [eng.stats.steps, eng.stats.prefill_batches]
+    del eng
+
+    # (c) dbrx expert-parallel, (d) recurrentgemma, both on model=2
+    for key, cfg, art in shard_cases():
+        t1 = time.perf_counter()
+        qm = QuantizedModel.load(ARTIFACTS / art, shardings=lambda t:
+                                 shd.shardings_from_specs(
+                                     shd.param_specs(t, tok_mesh), tok_mesh))
+        eng = qm.serve(max_batch=TOKEN_BATCH, max_len=TOKEN_MAX_LEN, seed=0,
+                       graphs=False, mesh=tok_mesh)
+        res[f"{key}_load_s"] = time.perf_counter() - t1
+        lc = eng._exec_cfg
+        res[f"{key}_local"] = {"n_heads": lc.n_heads,
+                               "n_kv_heads": lc.n_kv_heads,
+                               "cache": {k: list(v.shape)
+                                         for k, v in eng.cache.items()}}
+        if key == "moe":  # one layer on the probe, before the counts
+            np.save(out / f"sharded_moe_layer_{rank}.npy",
+                    moe_layer_out(torch, qm.cfg, eng._exec))
+            layer = eng._exec["layers"]["moe"]
+            res["moe_local"]["experts"] = int(
+                layer.experts["w1"].shape[-3])
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        handles = [eng.submit(p, max_new_tokens=POOL_NEW)
+                   for p in shard_prompts(qm.cfg)]
+        eng.run()
+        torch.cuda.synchronize()
+        res[f"{key}_s"] = time.perf_counter() - t1
+        res[f"{key}_counts"] = kernels.counts()
+        res[f"{key}_tokens"] = [h.handle.result() for h in handles]
+        res[f"{key}_steps"] = [eng.stats.steps, eng.stats.prefill_batches]
+        del eng, qm
+        gc.collect()
+        torch.cuda.empty_cache()
     res["wall_s"] = time.perf_counter() - t0
     (out / f"sharded_rank{rank}.json").write_text(json.dumps(res))
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
+
+
+def greedy_problems(torch, cfg, params, prompts, got, want, what: str):
+    """Served greedy tokens ``got`` against the unsharded engine's
+    ``want`` (request by request): each differing request's tokens must
+    sit within TEACHER_FORCED_BOUND of max |logit| of the top of the
+    unsharded model's teacher-forced logits over them.  Returns
+    (figures, problems)."""
+    import numpy as np
+    from repro_torch.launch.daemon import (TEACHER_FORCED_BOUND,
+                                           teacher_forced_logits)
+    off = [i for i in range(len(got)) if got[i] != want[i]]
+    res = {"greedy_equal": len(got) - len(off), "greedy_differing": off,
+           "greedy_margins": []}
+    problems = []
+    for i in off:  # one request at a time: the recurrent families'
+        n = len(got[i])  # prefill takes one length a call
+        if n != len(want[i]):
+            problems.append(f"{what} request {i}: {n} tokens")
+            continue
+        lg = teacher_forced_logits(
+            cfg, params, [prompts[i]],
+            np.asarray(got[i][:-1], np.int64)[:, None],
+            TOKEN_MAX_LEN).cpu().numpy()
+        bound = TEACHER_FORCED_BOUND * float(np.abs(lg).max())
+        margins = token_margins(lg, np.asarray(got[i], np.int64)[:, None])
+        res["greedy_margins"].append({"request": i, "bound": bound,
+                                      **margins})
+        if margins["largest_gap"] > bound:
+            problems.append(f"{what} request {i}: a served token sits "
+                            f"{margins['largest_gap']} below the "
+                            f"teacher-forced top, over {bound}")
+    return res, problems
 
 
 def _vision_launches(forwards) -> dict:
@@ -4599,7 +4758,14 @@ def run_sharded(torch, out_dir, card) -> Counter:
     teacher-forced logits (row-parallel sums reorder f32 additions); a
     sampled request equals the unsharded one's, or follows it up to a
     first differing draw (a near-tie moved; reported); launches as
-    phase 6 counts them, on each rank.  Returns both ranks' launches."""
+    phase 6 counts them, on each rank.  (c) dbrx-132b expert-parallel
+    and (d) recurrentgemma-9b (3 layers, drawn here and saved) on
+    model=2, against this process's unsharded eager engines: dbrx's MoE
+    layer on the probe equal at zero tolerance on each rank, both ranks
+    the same tokens, greedy tokens within the teacher-forced bound
+    (:func:`greedy_problems`), the local heads and experts, and each
+    rank's launches what :func:`tree_launches` counts for its tree (E /
+    2 experts).  Returns both ranks' launches."""
     import os
     import socket
     import numpy as np
@@ -4636,6 +4802,33 @@ def run_sharded(torch, out_dir, card) -> Counter:
     res["unsharded_token_s"] = time.perf_counter() - t1
     want = [h.handle.result() for h in handles]
     del teng
+    # (c) / (d): phase 11's dbrx artifact, and recurrentgemma drawn on the
+    # card (init from seed 0, w4-weights-only) and saved for the ranks;
+    # each served eagerly, unsharded, and dbrx's MoE layer 0 on the probe
+    refs = {}
+    for key, ccfg, art in shard_cases():
+        t1 = time.perf_counter()
+        if key == "recurrent":
+            sqm, res["recurrent_drawn"] = pool_quantize(torch, ccfg,
+                                                        "w4-weights-only")
+            sqm.save(ARTIFACTS / art)
+        else:
+            sqm = recipe.QuantizedModel.load(ARTIFACTS / art, device="cuda")
+        res[f"unsharded_{key}_build_s"] = time.perf_counter() - t1
+        layer = (moe_layer_out(torch, sqm.cfg, sqm.params) if key == "moe"
+                 else None)
+        prompts = shard_prompts(sqm.cfg)
+        seng = sqm.serve(max_batch=TOKEN_BATCH, max_len=TOKEN_MAX_LEN,
+                         seed=0, graphs=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        handles = [seng.submit(p, max_new_tokens=POOL_NEW) for p in prompts]
+        seng.run()
+        torch.cuda.synchronize()
+        res[f"unsharded_{key}_s"] = time.perf_counter() - t1
+        refs[key] = (sqm, prompts, [h.handle.result() for h in handles],
+                     layer)
+        del seng
     torch.cuda.empty_cache()
     res["reference_s"] = time.perf_counter() - t0
 
@@ -4744,6 +4937,59 @@ def run_sharded(torch, out_dir, card) -> Counter:
         if len(a) != len(b) or not all(0 <= x < cfg.vocab_size for x in a):
             problems.append(f"(b) sampled request {i}: {len(a)} tokens")
     generated = sum(len(t) for t in got)
+    # (c) / (d)
+    for key, _, _ in shard_cases():
+        sqm, prompts, swant, layer = refs[key]
+        scfg = sqm.cfg
+        what = f"({'c' if key == 'moe' else 'd'}) {scfg.name}"
+        sub = {"local": ranks[0][f"{key}_local"]}
+        heads = (scfg.n_heads // SHARD_RANKS,
+                 scfg.n_kv_heads // SHARD_RANKS
+                 if scfg.n_kv_heads % SHARD_RANKS == 0 else scfg.n_kv_heads)
+        lcfg = scfg
+        if key == "moe":
+            lcfg = scfg.replace(moe_experts=scfg.moe_experts // SHARD_RANKS)
+            sub["layer_max_abs_diff"] = []
+            for r in range(SHARD_RANKS):
+                lay = np.load(work / f"sharded_moe_layer_{r}.npy")
+                sub["layer_max_abs_diff"].append(
+                    float(np.abs(lay - layer).max()))
+                if not np.array_equal(lay, layer):
+                    problems.append(f"{what} rank {r}: the MoE layer differs "
+                                    "from the unsharded one by "
+                                    f"{sub['layer_max_abs_diff'][-1]}")
+        sgot = ranks[0][f"{key}_tokens"]
+        for r, rk in enumerate(ranks):
+            if rk[f"{key}_tokens"] != sgot:
+                problems.append(f"{what}: rank {r} served other tokens than "
+                                "rank 0")
+            loc = rk[f"{key}_local"]
+            if (loc["n_heads"], loc["n_kv_heads"]) != heads or (
+                    key == "moe" and loc["experts"] != lcfg.moe_experts):
+                problems.append(f"{what} rank {r}: local {loc}")
+            steps, groups = rk[f"{key}_steps"]
+            expect = tree_launches(SimpleNamespace(
+                cfg=lcfg, report=sqm.report, params=sqm.params), steps,
+                groups)
+            for kname, c in rk[f"{key}_counts"].items():
+                if c["launches"] != expect.get(kname, 0) or c["plain_calls"]:
+                    problems.append(f"{what} rank {r}: {kname} {c}, "
+                                    f"expected {expect.get(kname, 0)}")
+            launches.update({k: c["launches"]
+                             for k, c in rk[f"{key}_counts"].items()})
+        more, bad = greedy_problems(torch, scfg, sqm.params, prompts, sgot,
+                                    swant, what)
+        problems += bad
+        sgen = sum(len(t) for t in sgot)
+        sub.update(more, tokens=sgen,
+                   tokens_per_s_sharded=sgen / ranks[0][f"{key}_s"],
+                   tokens_per_s_unsharded=sum(len(t) for t in swant)
+                   / res[f"unsharded_{key}_s"],
+                   seconds=[rk[f"{key}_s"] for rk in ranks],
+                   load_s=[rk[f"{key}_load_s"] for rk in ranks],
+                   steps=ranks[0][f"{key}_steps"],
+                   counts_per_rank=[rk[f"{key}_counts"] for rk in ranks])
+        res[key] = sub
     r0 = ranks[0]
     res.update(
         backend=r0["backend"], join_s=[rk["join_s"] for rk in ranks],
@@ -4774,7 +5020,16 @@ def run_sharded(torch, out_dir, card) -> Counter:
           f" unsharded; token {res['token']['tokens_per_s_sharded']:.1f} "
           f"tokens/s sharded eager vs {res['token']['tokens_per_s_unsharded']:.1f}"
           f" unsharded; {card}", flush=True)
-    del tqm
+    for key in ("moe", "recurrent"):
+        sub = res[key]
+        rank0 = {k: c["launches"] for k, c in sub["counts_per_rank"][0].items()
+                 if c["launches"]}
+        print(f"phase 16 {key}: {sub['tokens_per_s_sharded']:.1f} tokens/s "
+              f"sharded eager vs {sub['tokens_per_s_unsharded']:.1f} "
+              f"unsharded, {sub['greedy_equal']} of {POOL_REQUESTS} greedy "
+              f"requests equal, rank 0 launches {json.dumps(rank0)}; "
+              f"{card}", flush=True)
+    del tqm, refs
     torch.cuda.empty_cache()
     return launches
 
@@ -4872,6 +5127,10 @@ def main() -> None:
                                      POOL_PREFILL_LEN, "minitron-4b mixed"),
                    **moe_m2q_calls(moe_lms[1][1], TOKEN_BATCH,
                                    POOL_PREFILL_LEN, "dbrx-132b"),
+                   # phase 16 (c): a model rank's heads and lm_head
+                   **shard_m2q_calls(moe_lms[1][1], TOKEN_BATCH,
+                                     POOL_PREFILL_LEN,
+                                     "dbrx-132b model-shard"),
                    **rwkv_m2q_calls(recurrent[0][1], TOKEN_BATCH,
                                     (2, RECURRENT_LENGTHS[-1]),
                                     "rwkv6-3b mixed")}),
@@ -4887,15 +5146,24 @@ def main() -> None:
                                    "qwen model-shard decode step": [(
                                        "lm_head", TOKEN_BATCH, qwen.d_model,
                                        qwen.padded_vocab // SHARD_RANKS)],
+                                   # phase 16 (d)
+                                   "recurrentgemma-9b model-shard decode "
+                                   "step": [(
+                                       "lm_head", TOKEN_BATCH,
+                                       recurrent[1][1].d_model,
+                                       recurrent[1][1].padded_vocab
+                                       // SHARD_RANKS)],
                                    **pool_heads}),
                check_weights_only(torch, rng, "apot_matmul",
                                   {"weights-only-apot": m2q_calls}),
                check_decode_attn(torch, rng, qwen.n_layers,
-                                 pool + moe_lms + [(
-                                     "qwen1.5-0.5b model-shard", qwen.replace(
-                                         n_heads=qwen.n_heads // SHARD_RANKS,
-                                         n_kv_heads=qwen.n_kv_heads
-                                         // SHARD_RANKS))])]
+                                 pool + moe_lms + [
+                                     (f"{name} model-shard", c.replace(
+                                         n_heads=c.n_heads // SHARD_RANKS,
+                                         n_kv_heads=c.n_kv_heads
+                                         // SHARD_RANKS))
+                                     for name, c in (("qwen1.5-0.5b", qwen),
+                                                     moe_lms[1])])]
     detail = {t.name: t.rows for t in tallies}
     (out_dir / "chip_smoke_kernels.json").write_text(
         json.dumps(detail, indent=1))
@@ -4957,6 +5225,8 @@ def main() -> None:
     finally:
         import shutil
         shutil.rmtree(ARTIFACTS, ignore_errors=True)
+    print(f"chip_smoke total: {time.perf_counter() - clock.t0:.1f} s from "
+          f"the build's start; {card}", flush=True)
 
     # ---- results --------------------------------------------------------
     replaces = {"m2q_matmul": "src/repro/kernels/m2q_matmul.py:80",

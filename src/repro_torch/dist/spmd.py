@@ -20,7 +20,16 @@ and XLA partitions every op.  The port runs one process per rank, so:
   columns (its bias sliced to match), a row-parallel one's partial
   products -- each already rounded to the compute dtype by the kernel
   or matmul -- are summed over ``model`` in f32 and cast back, and the
-  lm_head's / embedding's columns are gathered over ``model``.
+  lm_head's / embedding's columns are gathered over ``model`` (so are
+  a single KV head's K / V columns: ``gather_kv``).
+* Each MoE layer (a ``{"router", "experts"}`` subtree) becomes an
+  :class:`ExpertParallel` leaf, which ``nn.moe_ffn`` hands the layer to
+  (``local_moe``): the router replicated, this rank's ``E / model``
+  experts of every expert leaf (each QTensor child narrowed along its
+  expert axis), and the routing over the step's global rows -- a rank's
+  ``data`` rows are gathered first, as the reference routes the whole
+  batch -- then every rank runs its experts on the same (E, C, D)
+  buffer and the outputs are gathered over ``model``.
 * :class:`Lockstep` keeps every rank's host-side decisions equal: the
   leader decides (admission, flushes, evictions, expiries), broadcasts
   each decision before it runs, and the other ranks apply it to their
@@ -51,6 +60,8 @@ from . import sharding as shd
 # a model-sharded leaf whose product must be gathered over ``model``
 # (the rest of the column-parallel leaves feed a row-parallel one)
 _GATHER_RE = re.compile(r"(lm_head|head|embed)$")
+# ... and with ``gather_kv``, the K / V projections of a single KV head
+_KV_GATHER_RE = re.compile(r"(lm_head|head|embed|attn/w[kv])$")
 
 
 class MeshRuntime:
@@ -163,14 +174,60 @@ class Parallel:
         return dataclasses.replace(self, leaf=slice_layer(self.leaf, i))
 
 
+@dataclasses.dataclass
+class ExpertParallel:
+    """One MoE layer on a rank (``nn.moe_ffn`` hands it the layer:
+    :meth:`local_moe`): ``router`` replicated; ``experts`` this rank's
+    ``E / model`` experts of each expert leaf (all of them on a model
+    axis of 1); ``rows``: the layer's input holds this rank's ``data``
+    rows of the step (row order: data rank ``r`` owns the ``r``-th
+    block), which are gathered before routing, since capacity and each
+    choice's position depend on every row of the batch.  False where
+    every data rank runs the whole batch (:func:`whole_rows`)."""
+
+    router: object
+    experts: dict
+    rt: MeshRuntime
+    rows: bool
+
+    def local_moe(self, x: torch.Tensor, cfg) -> torch.Tensor:
+        """``nn.moe_ffn(x, layer, cfg)`` over the step's global rows:
+        gathered over ``data`` (a no-op on one data rank), routed on
+        every rank alike, each rank's experts run, this rank's rows
+        kept."""
+        from ..nn import moe
+        gather = self.rows and self.rt.n_data > 1
+        xg = self.rt.all_gather(x, "data", 0) if gather else x
+        y = moe.dispatch_ffn(xg, self.router, cfg, self._run_experts)
+        if not gather:
+            return y
+        n = x.shape[0]
+        return y.narrow(0, self.rt.data_rank * n, n)
+
+    def _run_experts(self, xe: torch.Tensor) -> torch.Tensor:
+        """The (E, C, D) buffer -> (E, C, D): this rank's experts on
+        their rows, gathered over ``model`` along the expert axis."""
+        from ..nn import moe
+        if self.rt.n_model == 1:
+            return moe.expert_ffn(xe, self.experts)
+        n = xe.shape[0] // self.rt.n_model
+        ye = moe.expert_ffn(xe.narrow(0, self.rt.model_rank * n, n),
+                            self.experts)
+        return self.rt.all_gather(ye, "model", 0)
+
+    def __getitem__(self, i: int) -> "ExpertParallel":
+        """Layer ``i`` of a stacked layer (``core.qtensor.slice_layer``)."""
+        return dataclasses.replace(
+            self, router=slice_layer(self.router, i),
+            experts={k: slice_layer(v, i) for k, v in self.experts.items()})
+
+
 def _role(path: str, spec, rt: MeshRuntime) -> Optional[str]:
     clean = shd._strip_child_suffix(path)
     if "model" not in spec or rt.n_model == 1:
         return None
     if shd._EXPERT_RE.search(clean):
-        raise NotImplementedError(
-            f"{path}: expert-parallel leaves (nn/moe.constrain_ep) are "
-            "not ported; serve MoE models on a mesh whose model axis is 1")
+        return "expert"
     if shd._ROW_RE.search(clean):
         return "row"
     return "col"
@@ -180,14 +237,18 @@ def _local(x):
     return x.to_local() if hasattr(x, "to_local") else x
 
 
-def local_params(params, specs, rt: MeshRuntime):
+def local_params(params, specs, rt: MeshRuntime, gather_kv: bool = False):
     """This rank's compute tree of a ``DTensor`` tree placed by
     ``specs``: local shards, each model-sharded leaf wrapped in
-    :class:`Parallel`.  Raises ``ValueError`` where the children of one
-    QTensor leaf are not sharded alike (a product of mismatched shards
-    would be wrong), ``NotImplementedError`` for expert-parallel
-    leaves."""
+    :class:`Parallel`, each MoE layer in :class:`ExpertParallel` (on a
+    mesh of more than one rank).  ``gather_kv``: the K / V projections'
+    columns are gathered over ``model`` (one KV head, cut by the
+    column rule, that every rank's query heads read whole:
+    :func:`kv_gathered`).  Raises ``ValueError`` where the children of
+    one QTensor leaf are not sharded alike (a product of mismatched
+    shards would be wrong)."""
     flat_specs = dict(shd.flat_arrays(specs))
+    gathered = _KV_GATHER_RE if gather_kv else _GATHER_RE
 
     def visit(path, leaf):
         if is_qtensor(leaf):
@@ -195,6 +256,8 @@ def local_params(params, specs, rt: MeshRuntime):
                     enumerate(CHILDREN[type(leaf)])
                     if getattr(leaf, name) is not None]
             roles = {_role(k, flat_specs[k], rt) for k, _ in kids}
+            if "expert" in roles:
+                return _local_experts(path, leaf, kids, flat_specs, rt)
             loc = dataclasses.replace(leaf, **{
                 name: _local(getattr(leaf, name)) for _, name in kids})
             role = _qtensor_role(path, leaf, kids, flat_specs, roles)
@@ -209,11 +272,70 @@ def local_params(params, specs, rt: MeshRuntime):
                 return leaf
             role = _role(path, flat_specs.get(path, shd.P()), rt)
             loc = _local(leaf)
-            if role is None:
+            if role in (None, "expert"):
                 return loc
-        return Parallel(loc, role, bool(_GATHER_RE.search(path)), rt)
+        return Parallel(loc, role, bool(gathered.search(path)), rt)
 
-    return map_with_path(visit, params)
+    tree = map_with_path(visit, params)
+    return _wrap_moe(tree, rt) if rt.size > 1 else tree
+
+
+def _wrap_moe(tree, rt: MeshRuntime):
+    """Every ``{"router", "experts", ...}`` node of ``tree`` as an
+    :class:`ExpertParallel` leaf (rows gathered over ``data``)."""
+    if not isinstance(tree, dict):
+        return tree
+    if "router" in tree and "experts" in tree:
+        return ExpertParallel(tree["router"], tree["experts"], rt,
+                              rows=True)
+    return {k: _wrap_moe(v, rt) for k, v in tree.items()}
+
+
+def whole_rows(tree):
+    """``tree`` (from :func:`local_params`) for a pass in which every
+    data rank runs the whole batch (a prefill group): its MoE layers
+    route the rows they are given, gathering nothing; None where the
+    tree has no MoE layer on a data axis > 1 (no layer couples the
+    rows)."""
+    found = []
+
+    def visit(node):
+        if isinstance(node, ExpertParallel) and node.rt.n_data > 1:
+            found.append(node)
+            return dataclasses.replace(node, rows=False)
+        if isinstance(node, dict):
+            return {k: visit(v) for k, v in node.items()}
+        return node
+    out = visit(tree)
+    return out if found else None
+
+
+def _local_experts(path, leaf, kids, specs, rt: MeshRuntime):
+    """This rank's experts ``[r E/m, (r+1) E/m)`` of an expert QTensor
+    (``(L, E, K, N)`` or ``(E, K, N)``).  The rule places each child by
+    its own rank, so each child's expert axis is found from the leaf's
+    (``len(leaf.shape) - 3``, counted from the left: the children share
+    the leading dims): a child sharded there is already this rank's; a
+    replicated child with the E experts there is narrowed to them; one
+    of size 1 there (the per-layer activation scale) stays whole.
+    Raises ``ValueError`` for a child sharded over ``model`` on another
+    axis."""
+    axis = len(leaf.shape) - 3
+    E = leaf.shape[axis]
+    n = E // rt.n_model
+    fields = {}
+    for key, name in kids:
+        spec, loc = specs[key], _local(getattr(leaf, name))
+        placed = len(spec) > axis and spec[axis] == "model"
+        if "model" in spec and not placed:
+            raise ValueError(f"{key}: spec {spec} shards another axis than "
+                             f"the experts' ({axis}) of {path}")
+        if not placed and loc.ndim > axis and loc.shape[axis] == E:
+            loc = loc.narrow(axis, rt.model_rank * n, n)
+        fields[name] = loc
+    shape = list(leaf.shape)
+    shape[axis] = n
+    return dataclasses.replace(leaf, shape=tuple(shape), **fields)
 
 
 def _qtensor_role(path, leaf, kids, specs, roles) -> Optional[str]:
@@ -235,28 +357,57 @@ def _qtensor_role(path, leaf, kids, specs, roles) -> Optional[str]:
     return role
 
 
+def kv_gathered(cfg, rt: MeshRuntime) -> bool:
+    """Whether a rank computes the K / V projections' columns whole (a
+    single KV head that the model axis does not divide, which
+    :func:`local_config` admits for the MoE LMs and recurrentgemma):
+    gathered over ``model``, the KV cache replicated over it, as the
+    reference's ``cache_specs`` shards heads only where divisible."""
+    return rt.n_model > 1 and cfg.n_kv_heads % rt.n_model != 0
+
+
 def local_config(cfg, rt: MeshRuntime):
-    """The config a rank computes with: its heads on ``model`` (the
-    weights' shards), everything else as given.  Raises ``ValueError``
-    where the model axis does not divide the heads, the FFN, the model
-    width or the vocab, or ``NotImplementedError`` for a family whose
-    model-sharded path is not ported (MoE, recurrent, whisper)."""
+    """The config a rank computes with: its query heads on ``model`` (the
+    weights' shards) and its KV heads (all of a single KV head:
+    :func:`kv_gathered`), everything else as given.
+
+    * ``dense_lm``: the model axis must divide the query and KV heads,
+      the FFN, the model width and the vocab;
+    * ``moe_lm``: the same, and the experts and the expert FFN, except
+      that a single KV head is gathered;
+    * ``recurrentgemma``: the heads (a single KV head gathered), the FFN,
+      the width and the vocab (the recurrence blocks replicate);
+    * ``rwkv``: the vocab (only the embedding and the lm_head shard).
+
+    Raises ``ValueError`` where one of these does not divide, or
+    ``NotImplementedError`` for whisper (ROADMAP A10d)."""
     m = rt.n_model
     if m == 1:
         return cfg
-    if cfg.family != "dense_lm":
+    fam = cfg.family
+    if fam not in ("dense_lm", "moe_lm", "rwkv", "recurrentgemma"):
         raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel serving of the {cfg.family} "
-            "family is not ported (only dense_lm); use a mesh whose model "
-            "axis is 1")
-    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-                    ("d_ff", cfg.d_ff), ("d_model", cfg.d_model),
-                    ("padded_vocab", cfg.padded_vocab)):
+            f"{cfg.name}: model-sharded serving of the {fam} family is not "
+            "ported (ROADMAP A10d: its sharded steps exist only in the "
+            "reference's dry-run); use a mesh whose model axis is 1")
+    checks = [("padded_vocab", cfg.padded_vocab)]
+    if fam != "rwkv":
+        checks += [("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff),
+                   ("d_model", cfg.d_model)]
+        if fam == "dense_lm" or cfg.n_kv_heads != 1:
+            checks.append(("n_kv_heads", cfg.n_kv_heads))
+    if fam == "moe_lm":
+        checks += [("moe_experts", cfg.moe_experts),
+                   ("moe_d_ff", cfg.moe_d_ff or cfg.d_ff)]
+    for what, n in checks:
         if n % m:
             raise ValueError(f"{cfg.name}: {what}={n} does not divide "
                              f"over a model axis of {m}")
+    if fam == "rwkv":
+        return cfg
     return cfg.replace(n_heads=cfg.n_heads // m,
-                       n_kv_heads=cfg.n_kv_heads // m)
+                       n_kv_heads=cfg.n_kv_heads if kv_gathered(cfg, rt)
+                       else cfg.n_kv_heads // m)
 
 
 def place_tree(tree, specs, mesh):

@@ -21,7 +21,11 @@ the mesh must cover every rank.  The process group's backend is printed:
 NCCL where every rank has a card of its own, gloo on the CPU and for
 several ranks on one card (``launch.mesh.pick_backend``).  Every rank
 builds the same tree from seed 0 and submits the same requests; rank 0
-prints the report.  The sharded steps run eagerly:
+prints the report.  Every family above takes a model axis that divides
+it (``dist.spmd.local_config``): the dense and MoE LMs' heads, FFN and
+vocab, the MoE experts (expert-parallel), recurrentgemma's heads and
+FFN (its recurrence replicated), rwkv's embedding and lm_head.  The
+sharded steps run eagerly:
 
   python -m torch.distributed.run --nproc-per-node 4 \
       -m repro_torch.launch.serve --arch qwen1.5-0.5b --reduced \

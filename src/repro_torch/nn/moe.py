@@ -15,8 +15,14 @@ Expert weights are float tensors, CalibTensors (calibration records
 their input under the layer's ``'<path>@<i>'`` key), QUniform leaves
 (the dequantized einsum) or QExpertM2Q leaves (``kernels.ops.
 qtensor_expert_matmul``: ``m2q_matmul`` expert by expert on the card).
-The router stays float.  JAX's ``constrain_ep`` (a sharding constraint)
-is an execution knob the port leaves out with the sharding.
+The router stays float.
+
+On a mesh, a rank's layer is a ``dist.spmd.ExpertParallel`` leaf, which
+:func:`moe_ffn` hands the layer to: it routes the step's global rows
+(gathered over ``data``) through :func:`dispatch_ffn`, runs its own
+experts on the shared buffer and gathers their outputs over ``model``.
+JAX's ``constrain_ep`` (a sharding constraint of the dry-run's lowering)
+is not ported.
 """
 from __future__ import annotations
 
@@ -96,16 +102,29 @@ def route(x: torch.Tensor, router, cfg: MoEConfig):
 
 
 def moe_ffn(x: torch.Tensor, params, cfg: MoEConfig) -> torch.Tensor:
-    """x (T, D) token-flattened activations -> (T, D)."""
+    """x (T, D) token-flattened activations -> (T, D); ``params`` the
+    layer's ``{"router", "experts"}``, or a rank's shard of the layer
+    that runs it (``local_moe(x, cfg)``: ``dist.spmd.ExpertParallel``)."""
+    if hasattr(params, "local_moe"):
+        return params.local_moe(x, cfg)
+    experts = params["experts"]
+    return dispatch_ffn(x, params["router"], cfg,
+                        lambda xe: expert_ffn(xe, experts))
+
+
+def dispatch_ffn(x: torch.Tensor, router, cfg: MoEConfig,
+                 run_experts) -> torch.Tensor:
+    """The layer over x (T, D): route, fill the (E, C, D) buffer, run
+    ``run_experts`` on it ((E, C, D) -> (E, C, D)), combine."""
     T, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     C = capacity(T, cfg)
-    top_g, _, slot, ok = route(x, params["router"], cfg)
+    top_g, _, slot, ok = route(x, router, cfg)
     xrep = torch.repeat_interleave(x, K, dim=0)  # (T * K, D)
     xrep = torch.where(ok[:, None], xrep, torch.zeros_like(xrep))
     buf = torch.zeros((E * C, D), dtype=x.dtype, device=x.device)
     buf.index_add_(0, slot, xrep)
-    ye = expert_ffn(buf.reshape(E, C, D), params["experts"])  # (E, C, D)
+    ye = run_experts(buf.reshape(E, C, D))  # (E, C, D)
     yrep = ye.reshape(E * C, D)[slot]  # (T * K, D)
     gates = torch.where(ok, top_g.reshape(-1), torch.zeros_like(
         top_g.reshape(-1)))

@@ -80,9 +80,13 @@ new rows are gathered over ``model`` after every write.  Each rank runs
 its ``data`` slice of the slots on its ``model`` shards
 (``dist.spmd.local_params``: column-parallel products keep their
 columns, row-parallel ones are summed over ``model``, the lm_head's
-logits gathered before sampling); sampled tokens are drawn from the full
-``(B, V)`` uniforms of the engine's seeded generator on every rank, each
-keeping its rows, so seeded draws equal the unsharded engine's.  On more
+logits gathered before sampling; an MoE layer's experts split over
+``model`` and its routing over the step's global rows, so a prefill
+group of an MoE model runs whole on every data rank; the recurrent
+families' recurrence blocks replicated); sampled tokens are drawn from
+the full ``(B, V)`` uniforms of the engine's seeded generator on every
+rank, each keeping its rows, so seeded draws equal the unsharded
+engine's.  On more
 than one rank the steps run eagerly (``graphs=True`` raises: gloo
 collectives cannot be captured) and rank 0 decides every step
 (``dist.spmd.Lockstep``): each slot retirement, queue expiry, eviction,
@@ -188,7 +192,7 @@ class Engine:
         self.B = max_batch
         self.T = max_len
         self.mesh = mesh
-        self._rt = self.lockstep = None
+        self._rt = self.lockstep = self._group_exec = None
         # what the model computes with: a rank's config and shards
         self._exec_cfg, self._exec = cfg, params
         if mesh is not None:
@@ -260,7 +264,11 @@ class Engine:
         self._exec_cfg = spmd.local_config(self.cfg, rt)
         specs = shd.param_specs(params, mesh)
         placed = spmd.place_tree(params, specs, mesh)
-        self._exec = spmd.local_params(placed, specs, rt)
+        self._exec = spmd.local_params(
+            placed, specs, rt, gather_kv=spmd.kv_gathered(self.cfg, rt))
+        # an MoE layer couples the rows of a pass: a prefill group runs
+        # whole on every data rank, each keeping its members
+        self._group_exec = spmd.whole_rows(self._exec)
         self._rt = rt
         if rt.size > 1:
             self.lockstep = spmd.Lockstep(rt)
@@ -284,9 +292,12 @@ class Engine:
         mine = self.model.init_cache(self._exec_cfg, n, T,
                                      dtype=torch.float32, device=self.device)
         self.cache, self._model_cache, gathered = {}, {}, []
+        self._whole = {}  # leaves placed over model but computed whole
         for name, buf in mine.items():
-            if "model" in self._cache_specs[name] \
-                    or buf.shape == full[name].shape:
+            spec = self._cache_specs[name]
+            if buf.shape == full[name].shape and "model" in spec:
+                self._whole[name] = spec.index("model")
+            if "model" in spec or buf.shape == full[name].shape:
                 self.cache[name] = self._model_cache[name] = buf
                 continue
             h = buf.shape[-1]
@@ -299,19 +310,27 @@ class Engine:
     def sharded_cache(self) -> dict:
         """The cache as ``DTensor`` leaves over this engine's mesh (views
         of the buffers the steps write), placed as ``cache_specs(...,
-        shard_model=True)`` says."""
+        shard_model=True)`` says (a leaf the spec shards over ``model``
+        that the model computes whole -- rwkv's state -- as this rank's
+        slice of its buffer)."""
         from torch.distributed.tensor import DTensor
 
         from ..dist import sharding as shd
         if self._rt is None:
             raise ValueError("sharded_cache() needs an engine built with "
                              "mesh=")
-        mesh = self._rt.mesh
-        return {name: DTensor.from_local(
-                    buf, mesh, shd.NamedSharding(
-                        mesh, self._cache_specs[name]).placements,
-                    run_check=False)
-                for name, buf in self.cache.items()}
+        rt = self._rt
+        out = {}
+        for name, buf in self.cache.items():
+            if name in self._whole:
+                d = self._whole[name]
+                n = buf.shape[d] // rt.n_model
+                buf = buf.narrow(d, rt.model_rank * n, n)
+            out[name] = DTensor.from_local(
+                buf, rt.mesh, shd.NamedSharding(
+                    rt.mesh, self._cache_specs[name]).placements,
+                run_check=False)
+        return out
 
     def _gather_rows(self, lengths: torch.Tensor) -> None:
         """After a decode step: the row each slot wrote (``lengths - 1``,
@@ -598,11 +617,13 @@ class Engine:
 
     def _prefill_rows(self, gslots, toks, lens, temps, draw):
         """This rank prefills the group's members whose slots are its own
-        (all of them without a mesh; on a mesh, on its model shards),
-        samples them from the whole group's uniforms, and on a mesh the
-        group's first tokens and flags are summed over ``data`` (each
-        member's row comes from one data rank).  Returns the group's
-        (n,) first tokens and flags."""
+        (all of them without a mesh; on a mesh, on its model shards; an
+        MoE model, whose routing couples the rows, prefills the whole
+        group on every data rank and keeps its members' rows), samples
+        them from the whole group's uniforms, and on a mesh the group's
+        first tokens and flags are summed over ``data`` (each member's
+        row comes from one data rank).  Returns the group's (n,) first
+        tokens and flags."""
         rt, dev, n = self._rt, self.device, len(gslots)
         lo = self._rows.start
         mine = [i for i, s in enumerate(gslots) if self._rows.start <= s
@@ -611,13 +632,19 @@ class Engine:
         bad = torch.zeros((n,), dtype=torch.int32, device=dev)
         if mine:
             idx = torch.as_tensor(mine, dtype=torch.int64, device=dev)
-            sc = self.model.init_cache(self._exec_cfg, len(mine), self.T,
+            whole = self._group_exec
+            run = list(range(n)) if whole is not None else mine
+            sc = self.model.init_cache(self._exec_cfg, len(run), self.T,
                                        dtype=torch.float32, device=dev)
-            kw = ({"lengths": torch.from_numpy(lens[mine]).to(dev)}
+            kw = ({"lengths": torch.from_numpy(lens[run]).to(dev)}
                   if self._ragged else {})
             logits, sc = self.model.prefill(
-                self._exec_cfg, self._exec, sc,
-                torch.from_numpy(toks[mine]).to(dev), **kw)
+                self._exec_cfg, self._exec if whole is None else whole, sc,
+                torch.from_numpy(toks[run]).to(dev), **kw)
+            if whole is not None:  # this rank's members of the group
+                logits = logits[idx]
+                sc = {k: v[idx] if v.ndim == 1 else v[:, idx]
+                      for k, v in sc.items()}
             first[idx] = self._sample(logits[:, -1], temps[idx], draw,
                                       rows=idx, total=n)
             bad[idx] = self._row_nonfinite(logits[:, -1]).to(torch.int32)

@@ -231,12 +231,17 @@ def test_save_gathers_sharded_leaves(pool, token_art, tmp_path):
 def test_sharded_engines_refuse_graphs_and_expert_parallel(pool, token_art):
     """``graphs=True`` on a mesh of more than one rank raises (gloo
     collectives cannot be captured; no quiet fallback to eager), and an
-    MoE model on a model axis > 1 raises naming the unported
-    expert-parallel reshard."""
+    MoE model on a model axis > 1 -- once refused -- builds and serves
+    (its experts split over ``model``): every rank the same three
+    tokens, each in the vocab."""
     art, _ = token_art
-    for out in pool.run("refused", art=art):
+    outs = pool.run("refused", art=art)
+    vocab = REDUCED["llama4-scout-17b-a16e"].vocab_size
+    for out in outs:
         assert "graphs=True" in out["graphs"]
-        assert "constrain_ep" in out["moe"] or "moe_lm" in out["moe"]
+        assert out["moe"] == outs[0]["moe"]
+        assert len(out["moe"]) == 3 and all(0 <= t < vocab
+                                            for t in out["moe"])
 
 
 # ---------------------------------------------------------------------------

@@ -277,9 +277,10 @@ def idle_gap(mesh_of, rank, art, requests, gap_s, timeout_s, shape=(2, 2)):
 
 
 def refused(mesh_of, rank, art, shape=(2, 2)):
-    """What a sharded engine refuses: ``graphs=True`` on more than one
-    rank (both engines), and tensor-parallel serving where it is not
-    ported (an MoE model's experts)."""
+    """What a sharded engine refuses -- ``graphs=True`` on more than one
+    rank (both engines) -- and what it now takes: an MoE model on a
+    model axis > 1 (llama4-scout's float tree, experts split over
+    ``model``), built and serving one greedy request."""
     from repro_torch.configs.registry import REDUCED
     from repro_torch.models import dense_lm
     from repro_torch.recipe import QuantizedModel
@@ -293,13 +294,75 @@ def refused(mesh_of, rank, art, shape=(2, 2)):
     except ValueError as e:
         out["graphs"] = str(e)
     cfg = REDUCED["llama4-scout-17b-a16e"]
-    try:
-        Engine(cfg, dense_lm.init(cfg, device="cpu"), mesh=mesh,
-               graphs=False)
-        out["moe"] = None
-    except NotImplementedError as e:
-        out["moe"] = str(e)
+    eng = Engine(cfg, dense_lm.init(cfg, device="cpu"), mesh=mesh,
+                 graphs=False)
+    req = eng.submit(np.arange(1, 6, dtype=np.int32), max_new_tokens=3)
+    eng.run()
+    out["moe"] = req.handle.result()
     return out
+
+
+def _exec(mesh, cfg, params):
+    """A rank's (config, compute tree, runtime) of a tree placed on
+    ``mesh`` (what ``Engine(mesh=)`` computes with)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import spmd
+    rt = spmd.MeshRuntime(mesh)
+    specs = shd.param_specs(params, mesh)
+    tree = spmd.local_params(params, specs, rt,
+                             gather_kv=spmd.kv_gathered(cfg, rt))
+    return spmd.local_config(cfg, rt), tree, rt
+
+
+def moe_layer(mesh_of, rank, x, shape, art=None, layer=None, mcfg=None):
+    """One MoE layer on ``shape`` over ``x`` (T, D): ``layer`` (one
+    layer's float ``{"router", "experts"}`` numpy tree, ``mcfg`` its
+    ``nn.MoEConfig``) placed on the mesh, or layer 0 of the artifact
+    ``art``; this data rank's rows of ``x`` through ``nn.moe_ffn``.
+    Returns this rank's rows of the output and its local expert count."""
+    import torch
+    from repro_torch import nn
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import spmd
+    from repro_torch.models import dense_lm
+    from repro_torch.recipe import QuantizedModel
+    mesh, shardings = _sharded(mesh_of, shape)
+    if art is not None:
+        qm = QuantizedModel.load(art, device="cpu", shardings=shardings)
+        mcfg = dense_lm.moe_config(qm.cfg)
+        _, tree, rt = _exec(mesh, qm.cfg, qm.params)
+        moe = dense_lm.layer_params(tree["layers"], 0)["moe"]
+    else:
+        host = {"router": torch.from_numpy(layer["router"]),
+                "experts": {k: torch.from_numpy(v)
+                            for k, v in layer["experts"].items()}}
+        rt = spmd.MeshRuntime(mesh)
+        specs = shd.param_specs(host, mesh)
+        moe = spmd.local_params(shd.put_global(host, specs, mesh), specs,
+                                rt)
+    rows = rt.rows(x.shape[0])
+    with torch.no_grad():
+        y = nn.moe_ffn(torch.from_numpy(x[rows]), moe, mcfg)
+    experts = moe.experts if hasattr(moe, "experts") else moe["experts"]
+    return {"y": y.numpy(), "experts": int(experts["w1"].shape[-3])}
+
+
+def forced_logits(mesh_of, rank, art, prompts, forced, shape, max_len=64):
+    """The teacher-forced logits (``launch.daemon.teacher_forced_logits``)
+    of a sharded artifact's compute tree on ``shape``: every rank runs
+    every prompt (its MoE layers route the rows they are given:
+    ``spmd.whole_rows``), on its model shards.  Also the engine's
+    local config's heads."""
+    from repro_torch.dist import spmd
+    from repro_torch.launch.daemon import teacher_forced_logits
+    from repro_torch.recipe import QuantizedModel
+    mesh, shardings = _sharded(mesh_of, shape)
+    qm = QuantizedModel.load(art, device="cpu", shardings=shardings)
+    cfg, tree, _ = _exec(mesh, qm.cfg, qm.params)
+    tree = spmd.whole_rows(tree) or tree
+    lg = teacher_forced_logits(cfg, tree, prompts, np.asarray(forced),
+                               max_len)
+    return {"logits": lg.numpy(), "heads": (cfg.n_heads, cfg.n_kv_heads)}
 
 
 def vision_refused(mesh_of, rank, art, shape=(2, 2)):

@@ -12,6 +12,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core import calibrate as jcal
 from repro.core import qtensor as jq
@@ -20,6 +21,13 @@ from repro.core.calibrate import (rule_matcher, run_calibration,
                                   wrap_for_calibration)
 from repro.kernels import ops as jops
 from repro.models import efficientvit as jev
+
+# One intra-op thread for the port's tests.  Every pytest-xdist worker
+# imports this module at collection, so it holds for every test the
+# worker runs: the workers share the host's cores, and torch's default of
+# a thread per core oversubscribes them -- a reduced B1 forward took
+# 0.11 s on one thread and 4.2 s on eight beside five busy workers.
+torch.set_num_threads(1)
 
 
 def jax_to_numpy(tree):
@@ -81,6 +89,17 @@ def jax_forward(cfg, params, images):
     with jops.dispatch(dense=False, conv=False, attn=False):
         fwd = jax.jit(lambda p, x: jev.forward(cfg, p, x))
         return np.asarray(fwd(params, images))
+
+
+def jax_lm_forward(cfg, params, tokens):
+    """JAX's dispatch-off forward of a token model (any LM family of the
+    registry) over (B, S) tokens: (B, S, padded_vocab) f32 logits."""
+    from repro.models import get_model
+    model = get_model(cfg)
+    with jops.dispatch(dense=False, conv=False, attn=False):
+        fwd = jax.jit(lambda p, t: model.forward(cfg, p, t))
+        return np.asarray(fwd(params, np.asarray(tokens, np.int32)),
+                          np.float32)
 
 
 def jax_quantize(cfg, params, recipe, batches, groups=4):
