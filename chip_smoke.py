@@ -14,7 +14,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    and prints the ``-Xptxas -v`` report;
 3. kernel checks -- each of the eight kernels against its plain PyTorch
    version on the card, at every distinct shape of one EfficientViT-B1
-   R224 forward at batch 8 under the recipe paths below and of one
+   R224 forward at batch 8 under the recipe paths below (and, for
+   ``m2q_matmul``, ``dwconv_w4``, ``relu_attn`` and its scales, of one
+   m2q-w8a8 forward of each of Table III's other models, B1 R256 / R288
+   and B2 R224, each its own path in the sums: phase 17) and of one
    qwen1.5-0.5b decode step at batch 8 (``decode_attn_int8`` at
    B=8 T=256 Hkv=16 G=1 D=64 with ragged lengths, plus a G=4 D=128 shape,
    a windowed case and the decode shape at B=1, 2 and 4, each row with
@@ -62,9 +65,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
    relu_attn_scales launches per forward, 0 plain calls), every pass's
    logits equal to the eager engine's first at zero tolerance (the same
    batches: relu_attn's scales span the batch), and the logits against a
-   plain-version forward of the same batches on the card; reports served
-   images/s both ways; times the batch-8 forward (eager, in a CUDA graph,
-   plain) and traces it with torch.profiler; then the artifact:
+   plain-version forward of the same batches on the card (equal at zero
+   tolerance on the integer paths, m2q-w8a8, uniform8 and the int8
+   stem; within 2e-2 of max |logit| on the weights-only ones); reports
+   served images/s both ways; times the batch-8 forward (eager, in a
+   CUDA graph, plain) and traces it with torch.profiler; then the
+   artifact:
    ``qm.save`` and ``QuantizedModel.load(..., device="cuda")`` (timed,
    with the artifact's bytes), every leaf bit-identical with equal class
    and static fields, equal cfg, recipe, reports, act_stats and
@@ -338,6 +344,25 @@ Phases, each fatal on failure (nonzero exit, no result line):
    ``int4_matmul`` at recurrentgemma's lm_head shard.  Prints the
    backend, seconds, and the sharded and unsharded eager images/s and
    tokens/s beside the card.
+17. the paper's accuracy tables and Table III's models
+   (:func:`run_tables`) -- (a) ``launch.tables.run`` over the committed
+   trained proxy on the card (Tables I-IV, 20 rows, f32 attention) held
+   by ``tables.reference_check`` against the JAX package's rows
+   (``results/proxy_tables_jax.json``): every replaced leaf's sha256
+   equal but for PoT elements at a rounding tie of log2 (counted), the
+   Eq. 6 splits equal (or each flipped filter's penalty gap within float
+   noise), at most PROXY_MISMATCHES predictions differing a row, top-1
+   printed beside JAX's; (b) ``data.proxy.train_proxy`` on the card (300
+   steps of 32 images, seed 0) into ``chiprun_out``: a falling loss, the
+   committed proxy unchanged, the file reloading as the trained tree,
+   its Table I printed with the schemes' order (reported, not gated);
+   (c) B1 R256, B1 R288 and B2 R224 at full width (seeded init) under
+   m2q-w8a8 calibrated on 2 SyntheticVision batches of 8 at their
+   resolution, each through :func:`run_path` at batch 8: m2q_matmul,
+   dwconv_w4, relu_attn and relu_attn_scales launched as
+   ``main_path_calls`` counts them, no plain call, graph-served logits
+   equal to eager ones and eager ones to the plain-version forward's at
+   zero tolerance, the artifact round trip.
 
 Each phase's wall seconds go to ``chip_smoke_phases.json``, and the
 run's total seconds are printed beside the card; phase 3 draws its
@@ -700,10 +725,12 @@ def check_m2q(torch, rng, calls_by_path) -> Tally:
     return tally
 
 
-def check_dwconv(torch, rng, calls) -> Tally:
-    """dwconv_w4 at every distinct conv shape with bf16 x and bf16 y, the
-    launch the served paths make, bit for bit against the plain version
-    cast to bf16; the f32-out launch is held bit for bit too (untimed).
+def check_dwconv(torch, rng, calls_by_path) -> Tally:
+    """dwconv_w4 at every distinct conv shape of each path in
+    ``calls_by_path`` (one forward of each EfficientViT config), summed
+    per path, with bf16 x and bf16 y, the launch the served paths make,
+    bit for bit against the plain version cast to bf16; the f32-out
+    launch is held bit for bit too (untimed).
     Each row records the launch shape (``launch_plan``).  Bytes count y at
     its stored 2 B.  Yardstick: one cuDNN grouped conv2d (bf16,
     channels-last view, symmetric padding)."""
@@ -711,33 +738,36 @@ def check_dwconv(torch, rng, calls) -> Tally:
     from repro_torch.core.qtensor import QUniform
     from repro_torch.kernels import dwconv_w4 as k
     tally = Tally("dwconv_w4")
-    for (B, H, W, C, ks, s), n in Counter([c[1:] for c in calls]).items():
-        x = _randn(torch, rng, (B, H, W, C), dtype=torch.bfloat16)
-        qt = QUniform.quantize(_randn(torch, rng, (ks * ks, C), std=1 / ks),
-                               bits=4)
-        args = (x, qt.payload, qt.scale.reshape(-1),
-                qt.zero_point.reshape(-1), ks, ks, s)
-        y32, y32_ref = (k._launch(*args, torch.float32),
-                        k.dwconv_w4_plain(*args, torch.float32))
-        if not torch.equal(y32, y32_ref):
-            fail(f"dwconv_w4 {(B, H, W, C, ks, s)} f32 out: max_abs_err "
-                 f"{float((y32 - y32_ref).abs().max())}")
-        del y32, y32_ref
-        x_nchw = x.permute(0, 3, 1, 2)  # channels-last view, no copy
-        w_oihw = qt.dequant(torch.bfloat16).reshape(ks, ks, C).permute(
-            2, 0, 1).unsqueeze(1).contiguous()
-        HO, WO = -(-H // s), -(-W // s)
-        nbytes = (B * H * W * C * 2 + ks * ks * C // 2 + 2 * C * 4
-                  + B * HO * WO * C * 2)
-        ops_ms = 2.0 * B * HO * WO * C * ks * ks / F32_FLOPS_PER_S * 1e3
-        tally.measure(dict(B=B, H=H, W=W, C=C, k=ks, stride=s), n,
-                      lambda: k.dwconv_w4(*args, torch.bfloat16),
-                      lambda: k.dwconv_w4_plain(*args, torch.bfloat16),
-                      lambda: F.conv2d(x_nchw, w_oihw, stride=s,
-                                       padding=ks // 2, groups=C),
-                      nbytes, ops_ms, err_bound=0.0)
-        tally.rows[-1]["launch"] = k.launch_plan(B, H, W, C, ks, s)
-        tally.rows[-1]["f32_out_exact"] = True
+    for path, calls in calls_by_path.items():
+        for (B, H, W, C, ks, s), n in Counter(
+                [c[1:] for c in calls]).items():
+            x = _randn(torch, rng, (B, H, W, C), dtype=torch.bfloat16)
+            qt = QUniform.quantize(
+                _randn(torch, rng, (ks * ks, C), std=1 / ks), bits=4)
+            args = (x, qt.payload, qt.scale.reshape(-1),
+                    qt.zero_point.reshape(-1), ks, ks, s)
+            y32, y32_ref = (k._launch(*args, torch.float32),
+                            k.dwconv_w4_plain(*args, torch.float32))
+            if not torch.equal(y32, y32_ref):
+                fail(f"dwconv_w4 {(B, H, W, C, ks, s)} f32 out: "
+                     f"max_abs_err {float((y32 - y32_ref).abs().max())}")
+            del y32, y32_ref
+            x_nchw = x.permute(0, 3, 1, 2)  # channels-last view, no copy
+            w_oihw = qt.dequant(torch.bfloat16).reshape(ks, ks, C).permute(
+                2, 0, 1).unsqueeze(1).contiguous()
+            HO, WO = -(-H // s), -(-W // s)
+            nbytes = (B * H * W * C * 2 + ks * ks * C // 2 + 2 * C * 4
+                      + B * HO * WO * C * 2)
+            ops_ms = (2.0 * B * HO * WO * C * ks * ks / F32_FLOPS_PER_S
+                      * 1e3)
+            tally.measure(dict(B=B, H=H, W=W, C=C, k=ks, stride=s), n,
+                          lambda: k.dwconv_w4(*args, torch.bfloat16),
+                          lambda: k.dwconv_w4_plain(*args, torch.bfloat16),
+                          lambda: F.conv2d(x_nchw, w_oihw, stride=s,
+                                           padding=ks // 2, groups=C),
+                          nbytes, ops_ms, err_bound=0.0, path=path)
+            tally.rows[-1]["launch"] = k.launch_plan(B, H, W, C, ks, s)
+            tally.rows[-1]["f32_out_exact"] = True
     return tally
 
 
@@ -749,7 +779,7 @@ def _attn_qkv(torch, rng, B, N, Hh, D):
     return [t.reshape(B, N, Hh, D) for t in torch.split(qkv, C, dim=-1)]
 
 
-def check_attn(torch, rng, calls) -> Tally:
+def check_attn(torch, rng, calls_by_path) -> Tally:
     """relu_attn at both MSA token counts, on strided q/k/v slices of one
     qkv tensor, with bf16 q/k/v and bf16 y (the launch the served paths
     make), bit for bit against the plain version rounded once to bf16;
@@ -763,31 +793,34 @@ def check_attn(torch, rng, calls) -> Tally:
     from repro_torch.kernels import relu_attn_scales as ks
     from repro_torch.nn.attention import relu_linear_attention
     tally = Tally("relu_attn")
-    for (B, N, Hh, D), n in Counter(calls).items():
-        q, kk, v = _attn_qkv(torch, rng, B, N, Hh, D)
-        sc = ks.relu_attn_scales_plain(q, kk, v)
-        y32, y32_ref = (k._launch(q, kk, v, *sc, 1e-6),
-                        k.relu_attn_plain(q, kk, v, *sc))
-        if not torch.equal(y32, y32_ref):
-            fail(f"relu_attn {(B, N, Hh, D)} f32 out: max_abs_err "
-                 f"{float((y32 - y32_ref).abs().max())}")
-        del y32, y32_ref
-        C = Hh * D
-        ops = B * Hh * (4.0 * N * D * D + 3.0 * N * D)
-        tally.measure(dict(B=B, N=N, H=Hh, D=D), n,
-                      lambda: k.relu_attn(q, kk, v, *sc,
-                                          out_dtype=torch.bfloat16),
-                      lambda: k.relu_attn_plain(q, kk, v, *sc,
-                                                out_dtype=torch.bfloat16),
-                      lambda: relu_linear_attention(q, kk, v, attn="f32"),
-                      3 * B * N * C * 2 + 3 * 4 + B * N * C * 2,
-                      ops / INT8_OPS_PER_S * 1e3, err_bound=0.0)
-        tally.rows[-1]["launch"] = k.launch_plan(B, N, Hh, D)
-        tally.rows[-1]["f32_out_exact"] = True
+    for path, calls in calls_by_path.items():
+        for (B, N, Hh, D), n in Counter(calls).items():
+            q, kk, v = _attn_qkv(torch, rng, B, N, Hh, D)
+            sc = ks.relu_attn_scales_plain(q, kk, v)
+            y32, y32_ref = (k._launch(q, kk, v, *sc, 1e-6),
+                            k.relu_attn_plain(q, kk, v, *sc))
+            if not torch.equal(y32, y32_ref):
+                fail(f"relu_attn {(B, N, Hh, D)} f32 out: max_abs_err "
+                     f"{float((y32 - y32_ref).abs().max())}")
+            del y32, y32_ref
+            C = Hh * D
+            ops = B * Hh * (4.0 * N * D * D + 3.0 * N * D)
+            tally.measure(dict(B=B, N=N, H=Hh, D=D), n,
+                          lambda: k.relu_attn(q, kk, v, *sc,
+                                              out_dtype=torch.bfloat16),
+                          lambda: k.relu_attn_plain(
+                              q, kk, v, *sc, out_dtype=torch.bfloat16),
+                          lambda: relu_linear_attention(q, kk, v,
+                                                        attn="f32"),
+                          3 * B * N * C * 2 + 3 * 4 + B * N * C * 2,
+                          ops / INT8_OPS_PER_S * 1e3, err_bound=0.0,
+                          path=path)
+            tally.rows[-1]["launch"] = k.launch_plan(B, N, Hh, D)
+            tally.rows[-1]["f32_out_exact"] = True
     return tally
 
 
-def check_scales(torch, rng, calls) -> Tally:
+def check_scales(torch, rng, calls_by_path) -> Tally:
     """relu_attn_scales at both MSA shapes, on the same strided bf16
     slices, bit for bit against the plain chain it replaces (q.max,
     k.max, |v|.max and the scalar steps after each: ~20 launches, timed
@@ -797,15 +830,16 @@ def check_scales(torch, rng, calls) -> Tally:
     none)."""
     from repro_torch.kernels import relu_attn_scales as ks
     tally = Tally("relu_attn_scales", source="relu_attn")
-    for (B, N, Hh, D), n in Counter(calls).items():
-        q, kk, v = _attn_qkv(torch, rng, B, N, Hh, D)
-        elems = 3 * B * N * Hh * D
-        tally.measure(dict(B=B, N=N, H=Hh, D=D), n,
-                      lambda: ks.relu_attn_scales(q, kk, v),
-                      lambda: ks.relu_attn_scales_plain(q, kk, v), None,
-                      elems * 2 + 3 * 4, elems / F32_FLOPS_PER_S * 1e3,
-                      err_bound=0.0)
-        tally.rows[-1]["launch"] = ks.launch_plan(B, N, Hh * D, True)
+    for path, calls in calls_by_path.items():
+        for (B, N, Hh, D), n in Counter(calls).items():
+            q, kk, v = _attn_qkv(torch, rng, B, N, Hh, D)
+            elems = 3 * B * N * Hh * D
+            tally.measure(dict(B=B, N=N, H=Hh, D=D), n,
+                          lambda: ks.relu_attn_scales(q, kk, v),
+                          lambda: ks.relu_attn_scales_plain(q, kk, v), None,
+                          elems * 2 + 3 * 4, elems / F32_FLOPS_PER_S * 1e3,
+                          err_bound=0.0, path=path)
+            tally.rows[-1]["launch"] = ks.launch_plan(B, N, Hh * D, True)
     return tally
 
 
@@ -1056,6 +1090,11 @@ PATHS = {
 }
 
 
+# the paths whose served logits equal the plain-version forward's exactly
+# (integer kernels only)
+EXACT_PATHS = ("m2q-w8a8", "uniform8", "int8-stem")
+
+
 def path_recipe(name: str):
     """The recipe of one path, built through the port's public API (the
     int8 stem and weights-only APoT are recipes, not presets)."""
@@ -1172,16 +1211,23 @@ def poll_until_done(engine, handles, what: str) -> None:
         time.sleep(0.001)
 
 
-def run_path(torch, cfg, name, calls, out_dir, full: bool):
-    """Quantize a full-width B1 under one recipe path, serve 12 images
-    eagerly and from the engine's CUDA graphs, and check leaves, launch
-    counters and logits.  ``full``: also time the eager and plain-version
+def run_path(torch, cfg, name, calls, out_dir, full: bool,
+             calib_batches=None):
+    """Quantize a full-width EfficientViT (``cfg``, B1 R224 in phases
+    4-5) under one recipe path, from ``calib_batches`` or synthesized
+    calibration, serve 12 images eagerly and from the engine's CUDA
+    graphs, and check leaves, launch counters and logits (equal to the
+    plain-version forward's at zero tolerance on the integer paths,
+    ``EXACT_PATHS``).  ``full``: also time the eager and plain-version
     forwards and trace one with torch.profiler."""
     import numpy as np
     from repro_torch import kernels, recipe
     from repro_torch.kernels import ops
     from repro_torch.models import efficientvit
 
+    # B1 R224's results keep their names; another config's carry its own
+    label = name if cfg.name == "efficientvit-b1-r224" \
+        else f"{cfg.name}-{name}"
     m2q_calls, dw_calls, attn_calls = calls
     leaves_want, per_fwd = PATHS[name]
     n_calls = {"dense": len(m2q_calls), "dw": len(dw_calls),
@@ -1191,7 +1237,8 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
 
     t0 = time.perf_counter()
     params = efficientvit.init(cfg, seed=0, device="cuda")
-    qm = recipe.quantize(cfg, params, path_recipe(name))
+    qm = recipe.quantize(cfg, params, path_recipe(name),
+                         calib_batches=calib_batches)
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
     roles = ([(path, 0) for path, *_ in m2q_calls]
@@ -1199,13 +1246,13 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
     for path, role in roles:
         got = leaf_kind(_get(qm.params, path))
         if got != leaves_want[role]:
-            fail(f"{name}: {path} is a {got} leaf, expected "
+            fail(f"{label}: {path} is a {got} leaf, expected "
                  f"{leaves_want[role]}")
     for path, M, K, N in m2q_calls:
         leaf = _get(qm.params, path)
         rows = getattr(leaf, "payload", getattr(leaf, "codes", None))
         if rows.shape[0] != K:
-            fail(f"{name}: {path} payload {tuple(rows.shape)}, K={K}")
+            fail(f"{label}: {path} payload {tuple(rows.shape)}, K={K}")
 
     rng = np.random.default_rng(1)
     images = rng.normal(0, 1, (N_IMAGES, cfg.img_res, cfg.img_res, 3)
@@ -1215,7 +1262,7 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
         for kname, c in counts.items():
             if c["launches"] != want.get(kname, 0) * forwards \
                     or c["plain_calls"] != 0:
-                fail(f"{name} {what}: {kname} {c} over {forwards} forwards, "
+                fail(f"{label} {what}: {kname} {c} over {forwards} forwards, "
                      f"expected {want.get(kname, 0) * forwards} launches "
                      "and 0 plain calls")
 
@@ -1231,7 +1278,7 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
             kernels.reset_counts()
             t1 = time.perf_counter()
             handles = [engine.submit(img) for img in images]
-            poll_until_done(engine, handles, name)
+            poll_until_done(engine, handles, label)
             torch.cuda.synchronize()
             seconds[mode, rep] = time.perf_counter() - t1
             counts = kernels.counts()
@@ -1239,7 +1286,7 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
             served[mode, rep] = np.stack([h.result() for h in handles])
             forwards = engine.stats.batches - b0
             if forwards != 2 or engine.stats.buckets_used != {8, 4}:
-                fail(f"{name} {mode}: expected batches of 8 and 4, got "
+                fail(f"{label} {mode}: expected batches of 8 and 4, got "
                      f"{forwards} batches over buckets "
                      f"{sorted(engine.stats.buckets_used)}")
             check_launches(counts, forwards, f"{mode} {rep}")
@@ -1247,7 +1294,7 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
             if graphs and rep == "warm":
                 capture_s = engine.step_graphs.capture_s
                 if len(engine.step_graphs) != 2:
-                    fail(f"{name}: {len(engine.step_graphs)} graphs "
+                    fail(f"{label}: {len(engine.step_graphs)} graphs "
                          "captured for buckets 8 and 4")
         kernels.reset_counts()
         t1 = time.perf_counter()
@@ -1257,25 +1304,25 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
     logits = served["eager", "warm"]
     for key, got in served.items():
         if not np.array_equal(got, logits):
-            fail(f"{name}: {key} logits differ from the eager engine's by "
+            fail(f"{label}: {key} logits differ from the eager engine's by "
                  f"{float(np.abs(got - logits).max())} on the same batches")
     if logits.shape != (N_IMAGES, cfg.n_classes) \
             or not np.all(np.isfinite(logits)):
-        fail(f"{name}: logits shape {logits.shape} or non-finite values")
+        fail(f"{label}: logits shape {logits.shape} or non-finite values")
 
     # the artifact: save, load on the card, serve the same 12 images from
     # a new engine's CUDA graphs; logits and launches equal the original's
-    loaded, artifact = round_trip(torch, qm, name)
+    loaded, artifact = round_trip(torch, qm, label)
     engine2 = loaded.serve(max_batch=BATCH, max_delay_ms=50.0, graphs=True)
     kernels.reset_counts()
     handles = [engine2.submit(img) for img in images]
-    poll_until_done(engine2, handles, f"{name} loaded")
+    poll_until_done(engine2, handles, f"{label} loaded")
     if kernels.counts() != pass_counts["graph", "warm"]:
-        fail(f"{name}: the loaded model's launches {kernels.counts()} "
+        fail(f"{label}: the loaded model's launches {kernels.counts()} "
              f"differ from the original's {pass_counts['graph', 'warm']}")
     got = np.stack([h.result() for h in handles])
     if not np.array_equal(got, served["graph", "warm"]):
-        fail(f"{name}: the loaded model's graph-served logits differ from "
+        fail(f"{label}: the loaded model's graph-served logits differ from "
              f"the original's by "
              f"{float(np.abs(got - served['graph', 'warm']).max())}")
     del loaded, engine2
@@ -1287,16 +1334,18 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
     diff = float(np.abs(logits - ref).max())
     top = float(np.abs(ref).max())
     same_argmax = int((logits.argmax(-1) == ref.argmax(-1)).sum())
-    # bf16 activations: one bf16 ulp is 2^-8 of a value, so allow a few
-    # ulps of the largest logit for a rounding slip anywhere upstream
-    if not diff <= 2e-2 * top:
-        fail(f"{name}: served logits differ from the plain forward by "
+    # the integer paths' kernels repeat their plain versions' operations
+    # exactly; the f32-dot ones (bf16 activations: one bf16 ulp is 2^-8
+    # of a value) get a few ulps of the largest logit for a rounding slip
+    # anywhere upstream
+    if not diff <= (0.0 if name in EXACT_PATHS else 2e-2 * top):
+        fail(f"{label}: served logits differ from the plain forward by "
              f"{diff} (max |logit| {top})")
 
     x8 = torch.from_numpy(images[:BATCH]).cuda()
     with torch.inference_mode():
         fwd_graph_ms = graph_ms(lambda: qm.forward(x8), iters=3)
-    res = dict(path=name, quantize_s=t_quant,
+    res = dict(cfg=cfg.name, path=name, quantize_s=t_quant,
                serve_12_images_s={m: seconds[m, "timed"]
                                   for m in ("eager", "graph")},
                images_per_s={m: N_IMAGES / seconds[m, "timed"]
@@ -1324,9 +1373,9 @@ def run_path(torch, cfg, name, calls, out_dir, full: bool):
         if trace:  # busy share of the unprofiled eager forward
             trace["busy_share"] = trace["busy_ms"] / res["forward_b8_ms"]
         res["forward_b8_trace"] = trace
-    (out_dir / f"chip_smoke_path_{name}.json").write_text(
+    (out_dir / f"chip_smoke_path_{label}.json").write_text(
         json.dumps(res, indent=1))
-    print(f"path {name}:", json.dumps(res), flush=True)
+    print(f"path {label}:", json.dumps(res), flush=True)
     del qm, params, engine
     torch.cuda.empty_cache()
     return counts
@@ -5034,6 +5083,128 @@ def run_sharded(torch, out_dir, card) -> Counter:
     return launches
 
 
+# ---- phase 17: the paper's accuracy tables, Table III's other models -------
+# (c): the EfficientViTs of Table III beside B1 R224, at full width
+TABLE3_MODELS = ("efficientvit-b1-r256", "efficientvit-b1-r288",
+                 "efficientvit-b2-r224")
+TABLE3_CALIB = 2   # SyntheticVision batches of BATCH images at each res
+
+
+def _sha256(path) -> str:
+    import hashlib
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
+def run_tables(torch, out_dir, card, calls_by_model) -> Counter:
+    """(a) Tables I-IV on the card over the committed proxy, held against
+    the JAX package's rows (``results/proxy_tables_jax.json``) by
+    ``launch.tables.reference_check``: every replaced leaf's sha256
+    equal to JAX's but for PoT elements at a rounding tie of log2
+    (counted), every mixed leaf's Eq. 6 split equal (or flipped filters
+    within float noise of one penalty, reported), at most
+    PROXY_MISMATCHES predictions differing a row; top-1 printed beside
+    JAX's.  (b) ``data.proxy.train_proxy`` on the card (300 steps of 32
+    images from a seeded init) into ``chiprun_out``: the loss must fall,
+    the committed proxy stay unchanged and the written file reload as
+    the trained tree; its float top-1 and Table I printed, the schemes'
+    ordering reported.  (c) :func:`run_path` over each of
+    ``TABLE3_MODELS`` at full width under m2q-w8a8, calibrated on
+    TABLE3_CALIB SyntheticVision batches at the config's resolution:
+    m2q_matmul, dwconv_w4, relu_attn and relu_attn_scales launched as
+    the forward's calls count them, no plain call, graph-served logits
+    equal to eager ones and eager ones to the plain-version forward's,
+    at zero tolerance."""
+    import numpy as np
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data import proxy
+    from repro_torch.data.pipeline import SyntheticVision
+    from repro_torch.launch import tables
+
+    t_phase = time.perf_counter()
+    res = {}
+    # (a)
+    expected = json.loads(tables.EXPECTED.read_text())
+    committed = _sha256(proxy.CACHE)
+    if committed != expected["proxy_sha256"]:
+        fail("phase 17 (a): the committed proxy is not the one "
+             f"{tables.EXPECTED.name} was written from")
+    params = proxy.load_proxy("cuda")
+    t0 = time.perf_counter()
+    rows = tables.run(params)
+    torch.cuda.synchronize()
+    res["a_rows_s"] = time.perf_counter() - t0
+    if not np.array_equal(proxy.predict(params, attn="f32")[1],
+                          np.array(expected["labels"])):
+        fail("phase 17 (a): the images' labels differ from the JSON's")
+    reports, failures = tables.reference_check(rows, expected, params,
+                                               PROXY_MISMATCHES)
+    for rep in reports:
+        print("phase 17 (a)", json.dumps(rep), flush=True)
+    if failures:
+        fail("phase 17 (a): " + "; ".join(failures)[:3000])
+    res["a"] = [{k: rep[k] for k in ("name", "top1", "jax_top1", "drop",
+                                     "predictions_differing", "ties")}
+                for rep in reports]
+    res["a_ties"] = sum(rep["ties"] for rep in reports)
+    res["a_flipped"] = {rep["name"]: rep["flipped"] for rep in reports
+                        if rep["flipped"]}
+    del rows, params
+
+    # (b)
+    trained_path = out_dir / "chip_smoke_proxy_trained.npz"
+    trained_path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    trained, losses = proxy.train_proxy(trained_path, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    res["b_train_s"] = time.perf_counter() - t0
+    first, last = np.mean(losses[:30]), np.mean(losses[-30:])
+    problems = []
+    if not np.all(np.isfinite(losses)) or not last < first:
+        problems.append(f"the loss did not fall: first 30 steps {first}, "
+                        f"last 30 {last}")
+    if _sha256(proxy.CACHE) != committed:
+        problems.append("train_proxy changed the committed proxy")
+    reloaded = proxy.load_proxy("cuda", path=trained_path)
+    from repro_torch.core.tree import leaves_with_path
+    if not all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            leaves_with_path(trained), leaves_with_path(reloaded))):
+        problems.append("the written proxy does not reload as trained")
+    if problems:
+        fail("phase 17 (b): " + "; ".join(problems))
+    rows_b = tables.run(reloaded, tables=("table1",))
+    res["b"] = dict(steps=len(losses), loss_first=losses[0],
+                    loss_last=losses[-1], loss_first_30=float(first),
+                    loss_last_30=float(last),
+                    table1=[{"name": r.name, "top1": r.top1, "drop": r.drop}
+                            for r in rows_b],
+                    ordering=[r.name for r in sorted(
+                        rows_b[1:], key=lambda r: -r.top1)])
+    print("phase 17 (b)", json.dumps(res["b"]), flush=True)
+    trained_path.unlink(missing_ok=True)
+    del trained, reloaded, rows_b
+
+    # (c)
+    launches = Counter()
+    res["c"] = {}
+    for name in TABLE3_MODELS:
+        cfg = ARCHS[name]
+        ds = SyntheticVision(10, cfg.img_res)
+        calib = [ds.batch(30_000 + i, BATCH)[0] for i in range(TABLE3_CALIB)]
+        t0 = time.perf_counter()
+        counts = run_path(torch, cfg, "m2q-w8a8", calls_by_model[name],
+                          out_dir, full=False, calib_batches=calib)
+        res["c"][name] = {"s": time.perf_counter() - t0,
+                          "launches": {k: c["launches"]
+                                       for k, c in counts.items()
+                                       if c["launches"]}}
+        launches.update({k: c["launches"] for k, c in counts.items()})
+    res["phase_s"] = time.perf_counter() - t_phase
+    (out_dir / "chip_smoke_tables.json").write_text(json.dumps(res, indent=1))
+    print(f"phase 17: {res['phase_s']:.1f} s, {res['a_ties']} PoT ties; "
+          f"{card}", flush=True)
+    return launches
+
+
 class PhaseClock:
     """Each phase's wall seconds, and the autotuner's probes and tuning
     seconds within it (the lazy tuning of its eager calls), printed and
@@ -5106,6 +5277,11 @@ def main() -> None:
     stem_call = ("stem/w", BATCH * r * r, 27, cfg.widths[0])
     print(f"per forward: {len(m2q_calls)} dense, {len(dw_calls)} dwconv, "
           f"{len(attn_calls)} attention calls; stem {stem_call}", flush=True)
+    # phase 17 (c): Table III's other EfficientViTs, each its own path
+    table3 = {name: main_path_calls(ARCHS[name], BATCH)
+              for name in TABLE3_MODELS}
+    vision = {"m2q-w8a8": calls, **{f"{name} m2q-w8a8": c
+                                    for name, c in table3.items()}}
     qwen = ARCHS["qwen1.5-0.5b"]
     lm_head_call = ("lm_head", TOKEN_BATCH, qwen.d_model, qwen.padded_vocab)
     pool = [(name, ARCHS[name]) for name in LM_POOL]
@@ -5121,7 +5297,7 @@ def main() -> None:
                   for name, c in pool + moe_lms[:1] + recurrent}
     rng = np.random.default_rng(0)
     tallies = [check_m2q(torch, rng, {
-                   "m2q-w8a8": m2q_calls,
+                   **{path: c[0] for path, c in vision.items()},
                    **token_m2q_calls(qwen, TOKEN_BATCH, PREFILL_LEN),
                    **token_m2q_calls(ARCHS["minitron-4b"], TOKEN_BATCH,
                                      POOL_PREFILL_LEN, "minitron-4b mixed"),
@@ -5134,9 +5310,10 @@ def main() -> None:
                    **rwkv_m2q_calls(recurrent[0][1], TOKEN_BATCH,
                                     (2, RECURRENT_LENGTHS[-1]),
                                     "rwkv6-3b mixed")}),
-               check_dwconv(torch, rng, dw_calls),
-               check_attn(torch, rng, attn_calls),
-               check_scales(torch, rng, attn_calls),
+               check_dwconv(torch, rng, {p: c[1] for p, c in vision.items()}),
+               check_attn(torch, rng, {p: c[2] for p, c in vision.items()}),
+               check_scales(torch, rng,
+                            {p: c[2] for p, c in vision.items()}),
                check_int8(torch, rng, {"uniform8": m2q_calls,
                                        "int8-stem": [stem_call]}),
                check_weights_only(torch, rng, "int4_matmul",
@@ -5222,6 +5399,11 @@ def main() -> None:
         with autotune.no_tuning():
             launches.update(run_sharded(torch, out_dir, card))
         clock.lap("16 sharded")
+
+        # ---- 17. accuracy tables, Table III's models, from zeroed counters --
+        with autotune.no_tuning():
+            launches.update(run_tables(torch, out_dir, card, table3))
+        clock.lap("17 tables")
     finally:
         import shutil
         shutil.rmtree(ARTIFACTS, ignore_errors=True)

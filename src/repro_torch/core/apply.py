@@ -25,6 +25,9 @@ an (L, 1, 1, 1) activation scale).
 of ``meta`` tensors it builds the QTensor tree that :func:`quantize_model`
 would, fields on the ``meta`` device, static fields equal (the load
 template of an artifact).
+
+:func:`fake_quant_model` is the accuracy tables' whole-tree fake
+quantization under one scheme (float leaves in, float leaves out).
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ import torch
 
 from . import policy as pol
 from .qtensor import QAPoT, QExpertM2Q, QM2Q, QUniform, weight_bits
-from .quant import _reduction_axes, act_scale_from_stats
+from .quant import (_reduction_axes, act_scale_from_stats, fake_quant_apot,
+                    fake_quant_pot, fake_quant_uniform)
 from .scheme_select import select_schemes
 from .tree import leaves_with_path, map_with_path
 
@@ -555,3 +559,71 @@ def abstract_quantize_model(params_abs, rules: Sequence[Rule],
         return dataclasses.replace(qt, shape=shape) if conv else qt
 
     return map_with_path(visit, params_abs)
+
+
+def mixed_fake_quant(w2: torch.Tensor, asn, scheme: str) -> torch.Tensor:
+    """A 2-D weight under an Eq. 6 split ``asn``: uniform 8 on its
+    ``uniform_idx`` filters, APoT (``scheme="m2q"``) or PoT at 3 bits
+    (``"pot_mix"``) on its ``apot_idx`` filters.  Every quantizer is
+    filter-wise, so each column is its own quantizer's whatever the
+    other columns hold."""
+    idx_u = torch.as_tensor(asn.uniform_idx, dtype=torch.int64,
+                            device=w2.device)
+    idx_a = torch.as_tensor(asn.apot_idx, dtype=torch.int64,
+                            device=w2.device)
+    out = w2.clone()
+    out[:, idx_u] = fake_quant_uniform(w2[:, idx_u], bits=8, axis=-1)
+    alt = w2[:, idx_a]
+    out[:, idx_a] = (fake_quant_apot(alt, axis=-1) if scheme == "m2q"
+                     else fake_quant_pot(alt, bits=3, axis=-1))
+    return out
+
+
+def fake_quant_model(params, rules: Sequence[Rule], scheme: str = "uniform8",
+                     bits: int = 8, kinds: Optional[set] = None,
+                     path_filter: Optional[str] = None,
+                     assignments: Optional[dict] = None):
+    """Whole-tree fake quantization under one scheme (twin of JAX's
+    ``fake_quant_model``; the Table I-IV accuracy sweeps): a new tree in
+    which every quantizable float leaf of ``kinds`` whose path
+    ``re.search``-es ``path_filter`` is replaced by its dequantized f32
+    self, on its own device; every other leaf is the caller's.
+
+    ``scheme``: ``"uniform"`` at ``bits``; ``"pot"`` at 3 bits (the PoT
+    exponent field) whatever ``bits`` says; ``"apot"``; ``"m2q"`` /
+    ``"pot_mix"``: Eq. 6 at ratio 0.5 over the leaf flattened to its
+    filters, uniform 8 on one half and APoT / PoT-3 on the other
+    (:func:`mixed_fake_quant`; ``pot_mix`` is the Auto-ViT-Acc
+    analogue).  Anything else raises ``ValueError`` -- the default
+    ``"uniform8"`` too, as in the reference.  An embedding is quantized
+    per row (axis 0).  ``assignments``: a dict that receives each mixed
+    leaf's :class:`~repro_torch.core.scheme_select.SchemeAssignment` by
+    path."""
+
+    def visit(key, leaf):
+        if not isinstance(leaf, torch.Tensor) or leaf.ndim < 2:
+            return leaf
+        kind = match_kind(rules, key)
+        if kind is None or kind == pol.KIND_SKIP:
+            return leaf
+        if kinds is not None and kind not in kinds:
+            return leaf
+        if path_filter is not None and not re.search(path_filter, key):
+            return leaf
+        w = leaf.to(torch.float32)
+        axis = 0 if kind == pol.KIND_EMBEDDING else -1
+        if scheme == "uniform":
+            return fake_quant_uniform(w, bits=bits, axis=axis)
+        if scheme == "pot":
+            return fake_quant_pot(w, bits=3, axis=axis)
+        if scheme == "apot":
+            return fake_quant_apot(w, axis=axis)
+        if scheme in ("m2q", "pot_mix"):
+            w2 = w.reshape(-1, w.shape[-1])
+            asn = select_schemes(w2, ratio=0.5)
+            if assignments is not None:
+                assignments[key] = asn
+            return mixed_fake_quant(w2, asn, scheme).reshape(w.shape)
+        raise ValueError(scheme)
+
+    return map_with_path(visit, params)

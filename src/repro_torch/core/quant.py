@@ -1,6 +1,7 @@
-"""M2Q quantizers: uniform (Eq. 1-2) and APoT (Eq. 5), plus the int8
-activation quantizer.  Twin of ``repro.core.quant``; every payload it
-produces is bit-identical to the JAX package's on the same float weights.
+"""M2Q quantizers: uniform (Eq. 1-2), PoT (Eq. 3) and APoT (Eq. 5), plus
+the int8 activation quantizer.  Twin of ``repro.core.quant``; every
+payload it produces is bit-identical to the JAX package's on the same
+float weights.
 
 ``axis`` is the output-channel (filter) axis; statistics reduce over all
 other axes unless ``reduce_axes`` says otherwise, and ``axis=None`` is
@@ -123,10 +124,106 @@ def fake_quant_act(x: torch.Tensor, scale: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# PoT (paper Eq. 3): w_q = s * 2^p * S, p in [pmin, 0]
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PoTQ:
+    sign: torch.Tensor     # {-1, 0, +1} int8 (sign(w))
+    p: torch.Tensor        # int8 exponent in [pmin, 0]
+    is_zero: torch.Tensor  # bool: |w| / S below 2^(pmin - 1)
+    scale: torch.Tensor    # keepdims per-channel f32 (S = max - min)
+    bits: int
+    axis: Optional[int]
+
+
+def log2(x: torch.Tensor) -> torch.Tensor:
+    """``log(x) / log(2)`` in f32, the quotient ``jnp.log2`` computes (a
+    native log2 rounds differently, and ``round(log2(.))`` would then
+    differ from the reference's near every half-integer)."""
+    return div(torch.log(x), torch.log(torch.full((), 2.0,
+                                                  device=x.device)))
+
+
+def flush(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every subnormal f32 replaced by a zero of its sign: the
+    flush-to-zero the reference's CPU backend applies to the operands and
+    results of its float arithmetic (torch keeps subnormals on both
+    devices).  PoT meets subnormals at bits 8, whose exponents reach
+    2^-127."""
+    return torch.where(torch.abs(x) < torch.finfo(torch.float32).tiny,
+                       x * 0, x)
+
+
+def pot_log2(w: torch.Tensor, bits: int, axis: Optional[int], eps: float,
+             reduce_axes):
+    """PoT's exponents before rounding: (scale S, pmin, the zero mask,
+    log2(|w| / S) with 0 where the mask is set)."""
+    lo, hi = _minmax(w, axis, reduce_axes)
+    scale = torch.clamp(hi - lo, min=eps)
+    a = flush(div(flush(torch.abs(w)), scale))
+    pmin = max(-(2 ** bits) + 1, -127)
+    is_zero = a < flush(torch.full((), 2.0 ** (pmin - 1), device=w.device))
+    return scale, pmin, is_zero, log2(torch.where(is_zero,
+                                                  torch.ones_like(a), a))
+
+
+def pot_quantize(w: torch.Tensor, bits: int = 8, axis: Optional[int] = -1,
+                 eps: float = 1e-8, reduce_axes=None) -> PoTQ:
+    """Paper Eq. (3), the reference's exactly: S = max(hi - lo, eps);
+    exponents ``round_half_even(log2(|w| / S))`` clipped to [pmin, 0],
+    where pmin = max(1 - 2^bits, -127) keeps every exponent in int8; an
+    element below 2^(pmin - 1) of S is a zero.  Subnormals are flushed
+    where the reference flushes them (:func:`flush`): a subnormal weight
+    has sign 0, and at bits 8 the threshold 2^-128 is itself flushed, so
+    nothing is a zero and a vanishing |w| / S clips to p = -127."""
+    scale, pmin, is_zero, lg = pot_log2(w, bits, axis, eps, reduce_axes)
+    p = torch.clamp(torch.round(lg), pmin, 0)
+    return PoTQ(sign=torch.sign(flush(w)).to(torch.int8), p=p.to(torch.int8),
+                is_zero=is_zero, scale=scale, bits=bits,
+                axis=None if axis is None else axis % w.ndim)
+
+
+def _pot_magnitudes() -> np.ndarray:
+    """2^p for p = 0, -1, ..., -127 as the reference computes it:
+    ``jnp.exp2`` is ``exp(f32(ln 2) * p)``, correctly rounded on its CPU
+    backend and flushed, which is not 2^p from p = -13 down.  Taken from
+    float64 here, so the table is the same on every device."""
+    p = -np.arange(128, dtype=np.float32)
+    mag = np.exp((np.float32(np.log(2.0)) * p).astype(np.float64))
+    mag = mag.astype(np.float32)
+    return np.where(mag < np.finfo(np.float32).tiny, 0, mag).astype(
+        np.float32)
+
+
+def pot_dequantize(t: PoTQ) -> torch.Tensor:
+    mag = torch.from_numpy(_pot_magnitudes()).to(t.p.device)[
+        -t.p.to(torch.int64)]
+    val = flush(t.sign.to(torch.float32) * mag * t.scale)
+    return torch.where(t.is_zero, torch.zeros_like(val), val)
+
+
+def fake_quant_pot(w: torch.Tensor, bits: int = 8,
+                   axis: Optional[int] = -1) -> torch.Tensor:
+    return pot_dequantize(pot_quantize(w, bits=bits, axis=axis))
+
+
+# ---------------------------------------------------------------------------
 # APoT (paper Eq. 5): w_q = s * (2^-e1 + 2^-e2) * S, e in [0, EMAX]
 # ---------------------------------------------------------------------------
 
 APOT_EMAX = 7  # 3-bit exponent field per component
+
+
+def apot_codebook(emax: int = APOT_EMAX) -> np.ndarray:
+    """Every representable magnitude 2^-a + 2^-b (a <= b in [0, emax]),
+    and 0, sorted ascending as float32: 37 values at emax 7."""
+    vals = {0.0}
+    for a in range(emax + 1):
+        for b in range(a, emax + 1):
+            vals.add(2.0 ** -a + 2.0 ** -b)
+    return np.array(sorted(vals), dtype=np.float32)
 
 
 def _apot_code_pairs(emax: int = APOT_EMAX):

@@ -1,10 +1,13 @@
-"""The trained proxy model (twin of ``benchmarks.proxy_model`` without its
-training loop): the reduced EfficientViT-B1 trained by the JAX package on
-the synthetic vision task, whose weights the repo commits.
+"""The trained proxy model (twin of ``benchmarks.proxy_model``): the
+reduced EfficientViT-B1 trained on the synthetic vision task, whose
+weights, as the JAX package trained them, the repo commits.
 
 * :func:`load_proxy` reads ``results/proxy_efficientvit.npz`` (members
-  ``leaf_<i>``, the float tree's leaves in JAX flatten order) into the
-  port's tree.
+  ``leaf_<i>``, the float tree's leaves in JAX flatten order), or another
+  file in that layout, into the port's tree.
+* :func:`train_proxy`: the reference's training run (300 AdamW steps of
+  32 images, :func:`train_step`) in the port, written to a file the
+  caller names (:func:`save_proxy`).
 * :func:`accuracy` / :func:`predict` / :func:`logits`: top-1, predictions
   and logits over ``n_batches`` x 32 images of
   :class:`~repro_torch.data.pipeline.SyntheticVision` (noise 0.7) from
@@ -25,6 +28,8 @@ import torch
 from ..configs.registry import REDUCED
 from ..core.tree import device_of, leaves_with_path, unflatten
 from ..models import efficientvit
+from ..optim.adamw import AdamW, cosine_schedule
+from ..train.step import value_and_grad
 from .pipeline import SyntheticVision
 
 ROOT = Path(__file__).resolve().parents[3]
@@ -33,32 +38,99 @@ ARTIFACT = ROOT / "results" / "artifacts" / "proxy_efficientvit_m2q"
 
 CFG = REDUCED["efficientvit-b1-r224"]
 BATCH = 32
+STEPS = 300  # the reference's training run
 
 
 def _data() -> SyntheticVision:
     return SyntheticVision(CFG.n_classes, CFG.img_res, noise=0.7)
 
 
-def load_proxy(device="cuda") -> dict:
-    """The trained float proxy on ``device``; a missing cache raises."""
-    if not CACHE.exists():
-        raise FileNotFoundError(f"{CACHE} is missing: the trained proxy is "
-                                "committed with the repo")
+def load_proxy(device="cuda", path=CACHE) -> dict:
+    """The float proxy in ``path`` (the committed trained proxy by
+    default) on ``device``; a missing file raises."""
+    path = Path(path)
+    if not path.exists():
+        raise FileNotFoundError(f"{path} is missing (the trained proxy is "
+                                f"committed as {CACHE.name})")
     template = efficientvit.init(CFG, device="meta")
     slots = list(leaves_with_path(template))
-    with np.load(CACHE) as data:
+    with np.load(path) as data:
         if len(data.files) != len(slots):
-            raise ValueError(f"{CACHE.name} holds {len(data.files)} leaves, "
+            raise ValueError(f"{path.name} holds {len(data.files)} leaves, "
                              f"the {CFG.name} tree {len(slots)}")
         leaves = []
         for i, (key, tpl) in enumerate(slots):
             a = data[f"leaf_{i}"]
             if a.dtype != np.float32 or tuple(a.shape) != tuple(tpl.shape):
-                raise ValueError(f"{CACHE.name} leaf_{i} ({key}): "
+                raise ValueError(f"{path.name} leaf_{i} ({key}): "
                                  f"{a.dtype} {a.shape}, expected float32 "
                                  f"{tuple(tpl.shape)}")
             leaves.append(torch.from_numpy(a).to(device))
     return unflatten(template, leaves)
+
+
+def loss(params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of the f32 logits of the float forward (f32
+    attention: the reference trains with its attention kernels off)."""
+    lg = efficientvit.forward(CFG, params, x, attn="f32").to(torch.float32)
+    logp = torch.log_softmax(lg, dim=-1)
+    return -torch.mean(torch.gather(logp, -1, y.to(torch.int64)[:, None]))
+
+
+def optimizer() -> AdamW:
+    """The reference's: AdamW under ``cosine_schedule(2e-3, 10, 300)``."""
+    return AdamW(lr=cosine_schedule(2e-3, 10, STEPS))
+
+
+def train_step(opt: AdamW, params, state, x: np.ndarray, y: np.ndarray):
+    """One step on a batch (the reference's jitted ``step``): returns
+    (params, optimizer state, the loss as a 0-d tensor)."""
+    device = device_of(params)
+    value, grads = value_and_grad(
+        lambda p, b: loss(p, *b), params,
+        (torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)))
+    params, state, _ = opt.update(grads, state, params)
+    return params, state, value
+
+
+def _writable(path) -> Path:
+    path = Path(path)
+    if path.resolve() == CACHE.resolve():
+        raise ValueError(f"{CACHE.name} is the reference's trained proxy: "
+                         "write elsewhere")
+    return path
+
+
+def save_proxy(params, path) -> Path:
+    """Write a float proxy to ``path`` in the committed layout
+    (``leaf_<i>`` in JAX flatten order, :func:`load_proxy`'s); never over
+    the committed proxy."""
+    path = _writable(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **{f"leaf_{i}": leaf.detach().cpu().numpy()
+                      for i, (_, leaf) in enumerate(leaves_with_path(params))})
+    return path
+
+
+def train_proxy(path, device="cuda", seed: int = 0):
+    """The reference's proxy training (``benchmarks.proxy_model.
+    train_proxy``) in the port: :func:`train_step` on each
+    ``SyntheticVision`` batch ``s = 0 .. 299`` of 32 images, from an init
+    drawn on ``device`` by a torch generator seeded with ``seed`` (other
+    numbers than the reference's ``PRNGKey(0)``); the result written to
+    ``path`` by :func:`save_proxy`.  Returns (params, per-step losses)."""
+    path = _writable(path)  # refused before any step is paid for
+    params = efficientvit.init(CFG, seed=seed, device=device)
+    ds = _data()
+    opt = optimizer()
+    state = opt.init(params)
+    losses = []
+    for s in range(STEPS):
+        params, state, value = train_step(opt, params, state,
+                                          *ds.batch(s, BATCH))
+        losses.append(value)
+    save_proxy(params, path)
+    return params, [float(v) for v in losses]
 
 
 def calib_batches(n: int = 4, seed0: int = 20_000) -> List[np.ndarray]:
