@@ -363,6 +363,16 @@ Phases, each fatal on failure (nonzero exit, no result line):
    ``main_path_calls`` counts them, no plain call, graph-served logits
    equal to eager ones and eager ones to the plain-version forward's at
    zero tolerance, the artifact round trip.
+18. qlint over the port's op graphs (:func:`run_qlint`) -- the
+   invariant sweep of ``python -m repro_torch.launch.qlint`` on the
+   card: every config of ``analysis.traces.DEFAULT_SWEEP`` at REDUCED
+   width, each hot path recorded with every dispatch axis on, and the
+   sharded qwen decode on two gloo ranks of the card (child processes,
+   started first and run beside the sweep); fails unless the card's
+   ledger equals ``results/qlint_baseline_torch.json`` (the CPU's,
+   nothing new and nothing gone: :func:`qlint_problems`) and every
+   kernel node ran its kernel, not its plain version.  Prints each
+   trace's verdict counts and kernel nodes, and the phase's seconds.
 
 Each phase's wall seconds go to ``chip_smoke_phases.json``, and the
 run's total seconds are printed beside the card; phase 3 draws its
@@ -5205,6 +5215,90 @@ def run_tables(torch, out_dir, card, calls_by_model) -> Counter:
     return launches
 
 
+# ---- phase 18: qlint over the port's op graphs -----------------------------
+
+QLINT_BASELINE = ROOT / "results" / "qlint_baseline_torch.json"
+
+
+def qlint_problems(traces, base, ran: str = "kernel"):
+    """Phase 18's gate over recorded traces: ``(ledger, problems, rows)``
+    -- the traces' qlint ledger, what keeps it from equalling ``base``
+    (a NEW or GREW line, a GONE line) and every kernel node that did not
+    run ``ran`` (on the card: its kernel), and per trace its verdict
+    counts and kernel nodes."""
+    from repro_torch.analysis import baseline as bl
+    from repro_torch.analysis import run_rules
+    violations, problems, rows = [], [], {}
+    for tr in traces:
+        vs, supp = run_rules(tr)
+        violations += vs
+        nodes = tr.graph.kernel_nodes()
+        errors = sum(v.severity == "error" for v in vs)
+        rows[tr.name] = {"errors": errors, "warns": len(vs) - errors,
+                         "suppressed": len(supp),
+                         "kernel_nodes": dict(Counter(n.op for n in nodes)),
+                         "ops": len(tr.graph.nodes)}
+        other = Counter(f"{n.op} ran {n.ran}" for n in nodes
+                        if n.ran != ran)
+        problems += [f"{tr.name}: {k} node(s) {what}"
+                     for what, k in sorted(other.items())]
+    ledger = bl.to_ledger(violations)
+    problems += bl.diff(ledger, base) + bl.improvements(ledger, base)
+    return ledger, problems, rows
+
+
+def run_qlint(torch, out_dir, card) -> Counter:
+    """Phase 18: ``launch.qlint``'s sweep on the card -- DEFAULT_SWEEP
+    at REDUCED width and the sharded qwen decode on two gloo ranks of
+    the card (its child processes started first, beside the sweep) --
+    gated by :func:`qlint_problems` against the CPU's committed ledger.
+    Returns the sweep's launches and both ranks'."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch import kernels
+    from repro_torch.analysis import baseline as bl
+    from repro_torch.analysis.traces import (DEFAULT_SWEEP, registry_traces,
+                                             sharded_decode_trace)
+    t0 = time.perf_counter()
+    base = bl.load(QLINT_BASELINE)
+    res = {"card": card, "config_s": {}}
+    with ThreadPoolExecutor(1) as pool:
+        sharded = pool.submit(sharded_decode_trace, "qwen1.5-0.5b",
+                              n_data=1, n_model=2, device="cuda")
+        kernels.reset_counts()
+        traces = []
+        for arch in DEFAULT_SWEEP:
+            t = time.perf_counter()
+            traces += registry_traces(arch, device="cuda")
+            res["config_s"][arch] = time.perf_counter() - t
+        counts = kernels.counts()
+        res["sweep_s"] = time.perf_counter() - t0
+        traces.append(sharded.result())
+    res["sharded_s"] = time.perf_counter() - t0
+    ledger, problems, rows = qlint_problems(traces, base)
+    launches = Counter({k: c["launches"] for k, c in counts.items()})
+    for rank in traces[-1].meta["rank_launches"]:
+        launches.update(rank)
+    res.update(rows=rows, ledger=ledger, launches=dict(launches),
+               plain_calls={k: c["plain_calls"] for k, c in counts.items()
+                            if c["plain_calls"]},
+               phase_s=time.perf_counter() - t0)
+    (out_dir / "chip_smoke_qlint.json").write_text(json.dumps(res, indent=1))
+    for name, row in rows.items():
+        print(f"phase 18 trace {name}: {json.dumps(row)}", flush=True)
+    print(f"phase 18: {len(traces)} traces, "
+          f"{sum(len(p) for t in ledger.values() for p in t.values())} "
+          f"ledger entries; sweep {res['sweep_s']:.1f} s, sharded trace "
+          f"done at {res['sharded_s']:.1f} s, phase {res['phase_s']:.1f} s; "
+          f"launches {json.dumps(dict(launches))}; plain calls outside "
+          f"kernel nodes {json.dumps(res['plain_calls'])}; {card}",
+          flush=True)
+    if problems:
+        fail("phase 18: the card's qlint ledger or kernel nodes: "
+             + "; ".join(problems)[:3000])
+    return launches
+
+
 class PhaseClock:
     """Each phase's wall seconds, and the autotuner's probes and tuning
     seconds within it (the lazy tuning of its eager calls), printed and
@@ -5404,6 +5498,10 @@ def main() -> None:
         with autotune.no_tuning():
             launches.update(run_tables(torch, out_dir, card, table3))
         clock.lap("17 tables")
+
+        # ---- 18. qlint over the port's op graphs, from zeroed counters ------
+        launches.update(run_qlint(torch, out_dir, card))
+        clock.lap("18 qlint")
     finally:
         import shutil
         shutil.rmtree(ARTIFACTS, ignore_errors=True)

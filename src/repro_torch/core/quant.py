@@ -15,6 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..analysis import opgraph
+
 
 def div(a: torch.Tensor, b) -> torch.Tensor:
     """IEEE ``a / b``.
@@ -37,11 +39,12 @@ def int_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (the conversion JAX's ``acc.astype(f32)`` makes).  int32 on the CPU;
     float64 on CUDA, where torch has no integer matmul -- exact while the
     sums stay below 2^53, far above any int8 x int8 layer here."""
-    if a.device.type == "cpu":
-        return torch.einsum(eq, a.to(torch.int32),
-                            b.to(torch.int32)).to(torch.float32)
-    return torch.einsum(eq, a.to(torch.float64),
-                        b.to(torch.float64)).to(torch.float32)
+    with opgraph.composite_node("int_einsum", (a, b)) as node:
+        if a.device.type == "cpu":
+            return node.out(torch.einsum(eq, a.to(torch.int32),
+                                         b.to(torch.int32)).to(torch.float32))
+        return node.out(torch.einsum(eq, a.to(torch.float64),
+                                     b.to(torch.float64)).to(torch.float32))
 
 
 @dataclasses.dataclass

@@ -40,12 +40,16 @@ wrapper's ``launch_plan``), with a bench closure over their own operands;
 ``decode_attn_int8_op`` only notes its shape.  Each wrapper launches the
 CUDA kernel for CUDA tensors and runs its plain version for CPU tensors.
 Nothing falls back: a kernel that fails to build or launch raises.
+While an op graph is being recorded (``analysis.opgraph``, qlint), each
+entry point -- and each of ``relu_attn_op``'s two launches -- is one
+kernel node that says which of the two ran.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import math
 import os
 import threading
@@ -53,6 +57,7 @@ from typing import Optional
 
 import torch
 
+from ..analysis import opgraph
 from ..core.qtensor import QAPoT, QExpertM2Q, QM2Q, QUniform, qmatmul
 from . import apot_matmul as _apot
 from . import autotune
@@ -350,6 +355,21 @@ def _plan_keys(mod, plan: dict) -> dict:
     return {k: plan[k] for k in mod.PLAN_KEYS}
 
 
+def _node(name: str, module):
+    """The entry point as one kernel node of an op graph being recorded
+    (``analysis.opgraph``): its tensor arguments in, its result out, the
+    plain version's ops folded in."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def op(*args, **kwargs):
+            if opgraph.active() is None:
+                return fn(*args, **kwargs)
+            with opgraph.kernel_node(name, module, (args, kwargs)) as node:
+                return node.out(fn(*args, **kwargs))
+        return op
+    return wrap
+
+
 def _plan(kernel: str, dims: tuple, device, fallback, candidates, launch):
     """Ask the autotuner for one launch's plan; ``launch(plan)`` runs the
     kernel uncounted (a probe, not a launch of the main path)."""
@@ -358,6 +378,7 @@ def _plan(kernel: str, dims: tuple, device, fallback, candidates, launch):
         bench=lambda p: autotune.measure(lambda: launch(p)))
 
 
+@_node("m2q_matmul", _m2q)
 def m2q_matmul_op(x, act_scale, payload, u_scale, u_zp, a_scale,
                   plan: Optional[dict] = None) -> torch.Tensor:
     """Fused permutation-free M2Q matmul: x (M, K) float, payload (K, N)
@@ -379,6 +400,7 @@ def m2q_matmul_op(x, act_scale, payload, u_scale, u_zp, a_scale,
                            plan)
 
 
+@_node("int8_matmul", _int8)
 def int8_matmul_op(x, wq, act_scale, scale, zero_point,
                    out_dtype: torch.dtype = torch.float32,
                    plan: Optional[dict] = None) -> torch.Tensor:
@@ -400,6 +422,7 @@ def int8_matmul_op(x, wq, act_scale, scale, zero_point,
                              plan)
 
 
+@_node("int4_matmul", _int4)
 def int4_matmul_op(x, packed, scale, zero_point,
                    plan: Optional[dict] = None) -> torch.Tensor:
     """Weights-only int4 matmul: x (M, K) float -> (M, N) f32."""
@@ -417,6 +440,7 @@ def int4_matmul_op(x, packed, scale, zero_point,
     return _int4.int4_matmul(x, packed, scale, zero_point, plan)
 
 
+@_node("apot_matmul", _apot)
 def apot_matmul_op(x, codes, scale,
                    plan: Optional[dict] = None) -> torch.Tensor:
     """Weights-only APoT matmul: x (M, K) float -> (M, N) f32 (int4's
@@ -435,6 +459,7 @@ def apot_matmul_op(x, codes, scale,
     return _apot.apot_matmul(x, codes, scale, plan)
 
 
+@_node("dwconv_w4", _dw)
 def dwconv_w4_op(x, packed, scale, zero_point, kh: int = 3, kw: int = 3,
                  stride: int = 1, out_dtype: torch.dtype = torch.float32,
                  plan: Optional[dict] = None) -> torch.Tensor:
@@ -464,19 +489,24 @@ def relu_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     result once).  The scales come from their own kernel (its
     ``launch_plan``: JAX has no block choice for them), or the plain chain
     inside :func:`reference_path`."""
-    if _REFERENCE.get():
-        return _attn.relu_attn_plain(
-            q, k, v, *_batch_scales(_scales.relu_attn_scales_plain(q, k, v)),
-            eps, q.dtype)
-    scales = _batch_scales(_scales.relu_attn_scales(q, k, v))
-    B, N, H, D = q.shape
-    if plan is None:
-        plan = _plan(
-            "relu_attn", (B, N, H, D, q.dtype), q.device,
-            lambda: {"splits": _attn.launch_plan(B, N, H, D)["splits"]},
-            lambda: _attn.candidate_plans(B, N, H, D),
-            lambda p: _attn._launch(q, k, v, *scales, eps, q.dtype, p))
-    return _attn.relu_attn(q, k, v, *scales, eps, q.dtype, plan)
+    ref = _REFERENCE.get()
+    with opgraph.kernel_node("relu_attn_scales", _scales, (q, k, v)) as node:
+        scales = node.out((_scales.relu_attn_scales_plain if ref
+                           else _scales.relu_attn_scales)(q, k, v))
+    scales = _batch_scales(scales)
+    with opgraph.kernel_node("relu_attn", _attn, (q, k, v, scales)) as node:
+        if ref:
+            return node.out(_attn.relu_attn_plain(q, k, v, *scales, eps,
+                                                  q.dtype))
+        B, N, H, D = q.shape
+        if plan is None:
+            plan = _plan(
+                "relu_attn", (B, N, H, D, q.dtype), q.device,
+                lambda: {"splits": _attn.launch_plan(B, N, H, D)["splits"]},
+                lambda: _attn.candidate_plans(B, N, H, D),
+                lambda p: _attn._launch(q, k, v, *scales, eps, q.dtype, p))
+        return node.out(_attn.relu_attn(q, k, v, *scales, eps, q.dtype,
+                                        plan))
 
 
 def decode_attn_int8_op(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
@@ -502,10 +532,11 @@ def decode_attn_int8_op(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
     # (B, T, Hkv_all) scales: a strided view, copied here
     args = (qh, k_q, v_q, k_scale.contiguous(), v_scale.contiguous(), lens,
             scale, window)
-    if ref:
-        out = _dec.decode_attn_int8_plain(*args).to(q.dtype)
-    else:
-        out = _dec.decode_attn_int8(*args, out_dtype=q.dtype)
+    with opgraph.kernel_node("decode_attn_int8", _dec, args) as node:
+        if ref:
+            out = node.out(_dec.decode_attn_int8_plain(*args).to(q.dtype))
+        else:
+            out = node.out(_dec.decode_attn_int8(*args, out_dtype=q.dtype))
     return out.reshape(B, 1, Hq, D)
 
 
